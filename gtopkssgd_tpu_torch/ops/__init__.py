@@ -1,0 +1,26 @@
+"""Top-k selection: the hand-written CUDA kernels (``cuda_topk``) and the
+selection methods and sparse-set helpers built on them (``topk``)."""
+
+from gtopkssgd_tpu_torch.ops.topk import (
+    bucketize_counts,
+    k_for_density,
+    membership_mask,
+    scatter_add_dense,
+    select_tau,
+    select_topk,
+    threshold_topk_abs,
+    topk_abs,
+    twostage_topk_abs,
+)
+
+__all__ = [
+    "bucketize_counts",
+    "k_for_density",
+    "membership_mask",
+    "scatter_add_dense",
+    "select_tau",
+    "select_topk",
+    "threshold_topk_abs",
+    "topk_abs",
+    "twostage_topk_abs",
+]

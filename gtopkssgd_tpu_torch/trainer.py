@@ -1,0 +1,175 @@
+"""Single-card trainer: the port of ``gtopkssgd_tpu.trainer`` for one worker.
+
+``TrainConfig`` keeps the JAX trainer's flag names and per-dataset defaults
+(cifar10: lr 0.1, weight decay 5e-4); ``Trainer.train(n)`` runs n optimizer
+steps of the model on its dataset through ``optimizer.GTopKSGD``, with
+``nsteps_update`` micro-batches accumulated per step and the cifar10 step
+schedule (lr x0.1 at 50% and 75% of ``max_epochs``). Batches cross to the
+device as uint8 NHWC and are normalized there. Float32 throughout: TF32 is
+switched off for convolutions and matrix products, as the JAX model
+computes in float32.
+
+A step is three profiler ranges (``torch.profiler.record_function``):
+"data" (host batch + copy to the device), "forward_backward" and
+"optimizer" (compression + SGD); ``profile_step`` reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from gtopkssgd_tpu_torch.convert import flat_layout
+from gtopkssgd_tpu_torch.data import get_dataset
+from gtopkssgd_tpu_torch.data.cifar import CIFAR_MEAN, CIFAR_STD
+from gtopkssgd_tpu_torch.models import get_model
+from gtopkssgd_tpu_torch.optimizer import GTopKSGD
+
+# dataset: (lr, weight_decay) -- the reference hardcoded these per dataset.
+_DATASET_DEFAULTS = {"cifar10": (0.1, 5e-4)}
+_WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD)}
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The part of the JAX trainer's flag set the port implements."""
+
+    dnn: str = "resnet20"
+    dataset: Optional[str] = None  # default: the model's canonical dataset
+    batch_size: int = 32           # per worker
+    lr: Optional[float] = None     # default per dataset
+    momentum: float = 0.9
+    weight_decay: Optional[float] = None  # default per dataset
+    compression: Optional[str] = None     # None/'dense' | 'gtopk'
+    density: float = 0.001
+    topk_method: str = "auto"      # auto | exact | threshold | pallas |
+                                   # twostage
+    nsteps_update: int = 1
+    max_epochs: int = 140
+    nworkers: int = 1
+    data_dir: Optional[str] = None
+    seed: int = 42
+    device: str = "cuda"
+
+    def resolved(self) -> "TrainConfig":
+        cfg = dataclasses.replace(self)
+        if cfg.dataset is None:
+            cfg.dataset = get_model(cfg.dnn)[1].dataset
+        lr, wd = _DATASET_DEFAULTS.get(cfg.dataset, (0.1, 0.0))
+        if cfg.lr is None:
+            cfg.lr = lr
+        if cfg.weight_decay is None:
+            cfg.weight_decay = wd
+        return cfg
+
+
+class Trainer:
+    def __init__(self, config: TrainConfig):
+        self.cfg = cfg = config.resolved()
+        if cfg.nworkers != 1:
+            raise NotImplementedError(
+                f"nworkers={cfg.nworkers}: the port runs one worker so far; "
+                "the P > 1 gTop-k collective over torch.distributed comes "
+                "in the next slice")
+        self.device = torch.device(cfg.device)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.model, self.spec = get_model(cfg.dnn)
+        self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        self.model.to(self.device).train()
+        self.train_data = get_dataset(
+            cfg.dataset, split="train", batch_size=cfg.batch_size,
+            data_dir=cfg.data_dir, seed=cfg.seed)
+        self.steps_per_epoch = max(
+            1, self.train_data.steps_per_epoch() // cfg.nsteps_update)
+        self.layout = flat_layout(self.model)
+        self.num_params = self.layout.n
+        self.optimizer = GTopKSGD(
+            self.model.parameters(), self.lr_schedule(),
+            momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+            compression=cfg.compression, density=cfg.density,
+            topk_method=cfg.topk_method, layout=self.layout)
+        mean, std = _WIRE_STATS[cfg.dataset]
+        self._mean = torch.as_tensor(mean, device=self.device)
+        self._std = torch.as_tensor(std, device=self.device)
+        self._batches = iter(self.train_data)
+        self.step = 0
+
+    def lr_schedule(self):
+        """lr(count): the cifar10 step schedule, x0.1 at 50% and 75% of
+        max_epochs (boundaries that collide or land at step 0 dropped),
+        computed in float32 like the JAX schedule; constant elsewhere."""
+        cfg = self.cfg
+        base = np.float32(cfg.lr)
+        if cfg.dataset != "cifar10":
+            return lambda count: float(base)
+        bounds = sorted({int(cfg.max_epochs * f) * self.steps_per_epoch
+                         for f in (0.5, 0.75)} - {0})
+
+        def schedule(count: int) -> float:
+            v = base
+            for b in bounds:
+                if count >= b:
+                    v = v * np.float32(0.1)
+            return float(v)
+
+        return schedule
+
+    def _device_batch(self, batch: Dict[str, np.ndarray]):
+        x = torch.from_numpy(batch["image"]).to(self.device)
+        y = torch.from_numpy(batch["label"]).to(self.device).long()
+        x = (x.float() / 255.0 - self._mean) / self._std
+        return x, y
+
+    def train(self, num_iters: int) -> Dict[str, object]:
+        """Run `num_iters` optimizer steps. Returns the last step's loss and
+        top-1, the per-step lists, the per-step wall times (each step ends
+        in a device sync on CUDA) and the throughput in samples/s."""
+        cfg, model, opt = self.cfg, self.model, self.optimizer
+        cuda = self.device.type == "cuda"
+        losses: List[torch.Tensor] = []
+        top1s: List[torch.Tensor] = []
+        step_times: List[float] = []
+        t_start = time.perf_counter()
+        for _ in range(num_iters):
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss_sum = top1_sum = 0.0
+            for _ in range(cfg.nsteps_update):
+                with record_function("data"):
+                    x, y = self._device_batch(next(self._batches))
+                with record_function("forward_backward"):
+                    logits = model(x)
+                    loss = F.cross_entropy(logits, y)
+                    loss.backward()
+                loss_sum = loss_sum + loss.detach()
+                top1_sum = top1_sum + (logits.argmax(-1) == y).float().mean()
+            with record_function("optimizer"):
+                if cfg.nsteps_update > 1:
+                    for p in model.parameters():
+                        p.grad.div_(cfg.nsteps_update)
+                opt.step()
+            losses.append(loss_sum / cfg.nsteps_update)
+            top1s.append(top1_sum / cfg.nsteps_update)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            step_times.append(time.perf_counter() - t0)
+            self.step += 1
+        wall = time.perf_counter() - t_start
+        loss_list = [float(v) for v in losses]
+        top1_list = [float(v) for v in top1s]
+        return {
+            "loss": loss_list[-1] if loss_list else float("nan"),
+            "top1": top1_list[-1] if top1_list else float("nan"),
+            "losses": loss_list,
+            "top1s": top1_list,
+            "step_times": step_times,
+            "throughput": (num_iters * cfg.batch_size * cfg.nsteps_update
+                           / wall) if wall > 0 else 0.0,
+        }
