@@ -1,14 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--record PATH]
-
-``--record`` also writes every number of the run to PATH as JSON.
+    python3 chip_smoke.py
 
 Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
 
 1. Card identity (nvidia-smi name and power limit); build the CUDA kernels
-   from ``gtopkssgd_tpu_torch/ops/csrc`` (one nvcc per source, all at once).
+   from ``gtopkssgd_tpu_torch/ops/csrc/topk_kernels.cu`` (one nvcc call).
 2. Each kernel against its plain PyTorch twin on the card, BITWISE, at
    N = 272,474 (ResNet-20) and N = 25,557,032 (ResNet-50's size); per
    kernel the median device time of 20 calls (CUDA events, the card kept
@@ -29,10 +27,8 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
 
 from __future__ import annotations
 
-import concurrent.futures
 import json
 import math
-import os
 import statistics
 import sys
 import time
@@ -59,22 +55,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def build_all():
+def build_kernels() -> None:
     from gtopkssgd_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(_build.build, _build.SIGNATURES))
-    for source in _build.SIGNATURES:
-        _build.load(source)
-        secs, log = _build.build_log.get(source, (0.0, "(cached)"))
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
-        print(f"built {source} in {secs:.1f} s")
-        for ln in regs:
-            print(f"  ptxas: {ln}")
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"({len(libs)} source(s))")
+    _build.load()
+    print(f"kernel build and load: {time.perf_counter() - t0:.1f} s "
+          f"({_build.library_path().name})")
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -122,7 +109,7 @@ def kernel_phase(n: int):
     r = 0.3 * torch.randn(n, device="cuda", generator=gen)
     mag = (g + r).abs()
     k = topk.k_for_density(n, 0.001)
-    groups = topk._twostage_pallas_groups(n, k, topk.TWOSTAGE_OVERSAMPLE)
+    groups = topk._twostage_pallas_groups(n, k)
     sample = mag[torch.randint(0, n, (1 << 20,), device="cuda",
                                generator=gen)]
     q = torch.quantile(sample, torch.tensor(
@@ -204,10 +191,7 @@ def train_run(method: str, compression: str, steps: int):
           f"params={trainer.num_params}, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, median step {med * 1e3:.3f} ms, "
           f"launches {launches}")
-    return dict(compression=compression, method=method, steps=steps,
-                losses=losses, median_step_ms=med * 1e3,
-                step_ms=[t * 1e3 for t in stats["step_times"]],
-                launches=launches)
+    return launches
 
 
 def reference_phase():
@@ -229,7 +213,6 @@ def reference_phase():
     from gtopkssgd_tpu_torch.compression import TopKCompressor
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
-    out = {}
     for method in ("twostage", "pallas"):
         cfg = dict(batch_size=8, compression="gtopk", density=0.001,
                    topk_method=method)
@@ -256,20 +239,10 @@ def reference_phase():
               f"{'bitwise' if same else 'DIFFERENT'} "
               f"({int(keep.sum())} kept)")
         check(same, f"reference {method}: card selection != cpu twins")
-        out[method] = dict(loss_card=lg, loss_cpu=lc, jaccard=jac,
-                           step2_selection_bitwise=same)
-    return out
 
 
-def main(argv) -> int:
+def main() -> int:
     import torch
-
-    record_path = None
-    if argv[:1] == ["--record"] and len(argv) == 2:
-        record_path = argv[1]
-    elif argv:
-        print("usage: chip_smoke.py [--record PATH]", file=sys.stderr)
-        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this test runs on the "
@@ -286,23 +259,23 @@ def main(argv) -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    build_all()
+    build_kernels()
 
     kernels = {n: kernel_phase(n) for n in SIZES}
 
     runs = [train_run("twostage", "gtopk", 20),
             train_run("pallas", "gtopk", 10),
             train_run("exact", "dense", 10)]
-    k2 = runs[0]["launches"]["fused_stage1_candidates"]
-    k3 = runs[1]["launches"]["fused_multi_threshold_count"]
+    k2 = runs[0]["fused_stage1_candidates"]
+    k3 = runs[1]["fused_multi_threshold_count"]
     check(k2 == 20, f"stage-1 kernel launched {k2} times in 20 steps")
     check(k3 == 40, f"count kernel launched {k3} times in 10 steps")
-    check(sum(runs[2]["launches"].values()) == 0,
+    check(sum(runs[2].values()) == 0,
           "the dense run launched a top-k kernel")
-    total = {name: sum(r["launches"][name] for r in runs)
+    total = {name: sum(r[name] for r in runs)
              for name in REPLACES}
 
-    reference = reference_phase()
+    reference_phase()
 
     n0 = SIZES[0]
     line = []
@@ -327,15 +300,7 @@ def main(argv) -> int:
                 for n in SIZES}
         line.append(entry)
 
-    record = dict(card=card, torch=torch.__version__,
-                  device=torch.cuda.get_device_name(0), kernels=kernels,
-                  runs=runs, reference=reference,
-                  seconds=time.perf_counter() - t_start)
-    if record_path:
-        os.makedirs(os.path.dirname(record_path) or ".", exist_ok=True)
-        with open(record_path, "w") as f:
-            json.dump(record, f, indent=1)
-    print(f"elapsed {record['seconds']:.1f} s")
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -345,7 +310,7 @@ def main(argv) -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main(sys.argv[1:]))
+        sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -34,19 +34,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            mean, var = self.running_mean, self.running_var
-        else:
-            # flax's fast variance: E[x^2] - E[x]^2, clipped at 0.
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp(
-                (x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[:, None, None]) * mul[:, None, None]
-                + self.bias[:, None, None])
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        # F.batch_norm normalizes with the biased batch variance but would
+        # store the unbiased one, so the running stats are updated here.
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:

@@ -1,6 +1,6 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/topk_kernels.cu``).
 
-Each source is compiled by ``nvcc`` into a shared library with a plain C
+The source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
 seconds. The build happens at first use, never at import, into
 ``gtopkssgd_tpu_torch/build/`` (ignored by git). The library name carries a
@@ -17,32 +17,26 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "topk_kernels.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signature of every exported function, per source file.
+# C signature of every exported function.
 SIGNATURES = {
-    "topk_kernels.cu": {
-        "gtopk_count": [_VP, _VP, _INT, _LL, _VP, _VP, _VP],
-        "gtopk_stage1": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP, _VP],
-    },
+    "gtopk_count": [_VP, _VP, _INT, _LL, _VP, _VP, _VP],
+    "gtopk_stage1": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP, _VP],
 }
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-#: Per source: (seconds spent in nvcc, nvcc's stderr with the -Xptxas -v
-#: register/shared-memory report); empty until a build ran in this process.
-build_log: Dict[str, tuple] = {}
+_lib: Optional[ctypes.CDLL] = None
 
 
 def nvcc() -> str:
@@ -59,46 +53,44 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+def library_path() -> Path:
+    text = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+    return BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library is already built."""
-    so = library_path(source)
+def build() -> Path:
+    """Compile the source unless its library is already built."""
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {source} (rc {proc.returncode}):\n"
+                f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
                 f"{proc.stderr}")
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_log[source] = (time.perf_counter() - t0, proc.stderr)
     return so
 
 
-def load(source: str = "topk_kernels.cu") -> ctypes.CDLL:
-    """The loaded library for ``source``, built on first call."""
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
     with _lock:
-        lib: Optional[ctypes.CDLL] = _libs.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            for name, argtypes in SIGNATURES[source].items():
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _libs[source] = lib
-        return lib
+            _lib = lib
+        return _lib

@@ -158,12 +158,14 @@ def _launch_count(x: torch.Tensor, thr: torch.Tensor,
     _check("thresholds", thr, torch.float32, x.device, NUM_THRESHOLDS)
     if residual is not None:
         _check("residual", residual, torch.float32, x.device, n)
-    counts = torch.zeros(NUM_THRESHOLDS, dtype=torch.int32, device=x.device)
     lib = _build.load()
-    rc = lib.gtopk_count(
-        x.data_ptr(), None if residual is None else residual.data_ptr(),
-        int(take_abs), n, thr.data_ptr(), counts.data_ptr(),
-        _stream(x.device))
+    with torch.cuda.device(x.device):  # the launch uses the current context
+        counts = torch.zeros(NUM_THRESHOLDS, dtype=torch.int32,
+                             device=x.device)
+        rc = lib.gtopk_count(
+            x.data_ptr(), None if residual is None else residual.data_ptr(),
+            int(take_abs), n, thr.data_ptr(), counts.data_ptr(),
+            _stream(x.device))
     _raise_on(rc, name)
     launches[name] += 1
     return counts
@@ -214,21 +216,22 @@ def fused_stage1_candidates(
     _check("grad", grad, torch.float32, grad.device)
     if residual is not None:
         _check("residual", residual, torch.float32, grad.device, n)
-    counts = None
     if thresholds is not None:
         _check("thresholds", thresholds, torch.float32, grad.device,
                NUM_THRESHOLDS)
-        counts = torch.zeros(NUM_THRESHOLDS, dtype=torch.int32,
-                             device=grad.device)
     L = _nblocks(n) * groups * LANES
-    cand_val = torch.empty(L, dtype=torch.float32, device=grad.device)
-    cand_idx = torch.empty(L, dtype=torch.int32, device=grad.device)
-    rc = _build.load().gtopk_stage1(
-        grad.data_ptr(), None if residual is None else residual.data_ptr(),
-        n, groups,
-        None if thresholds is None else thresholds.data_ptr(),
-        None if counts is None else counts.data_ptr(),
-        cand_val.data_ptr(), cand_idx.data_ptr(), _stream(grad.device))
+    lib = _build.load()
+    with torch.cuda.device(grad.device):  # the launch uses the current context
+        counts = None if thresholds is None else torch.zeros(
+            NUM_THRESHOLDS, dtype=torch.int32, device=grad.device)
+        cand_val = torch.empty(L, dtype=torch.float32, device=grad.device)
+        cand_idx = torch.empty(L, dtype=torch.int32, device=grad.device)
+        rc = lib.gtopk_stage1(
+            grad.data_ptr(),
+            None if residual is None else residual.data_ptr(), n, groups,
+            None if thresholds is None else thresholds.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            cand_val.data_ptr(), cand_idx.data_ptr(), _stream(grad.device))
     _raise_on(rc, "fused_stage1_candidates")
     launches["fused_stage1_candidates"] += 1
     return cand_val, cand_idx, counts

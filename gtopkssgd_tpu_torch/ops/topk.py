@@ -131,11 +131,12 @@ def _threshold_tau(x: torch.Tensor, k: int,
 TWOSTAGE_OVERSAMPLE = 16
 
 
-def _twostage_pallas_groups(n: int, k: int, oversample: int) -> int:
+def _twostage_pallas_groups(n: int, k: int) -> int:
     """Row-groups per 2048x128 tile: the power of two that keeps the bucket
-    size rpg = 2048/groups <= n/(oversample*k), and at least k buckets."""
+    size rpg = 2048/groups <= n/(TWOSTAGE_OVERSAMPLE*k), and at least k
+    buckets."""
     nblocks = max(1, -(-n // BLOCK))
-    target_rpg = max(1, n // max(1, oversample * k))
+    target_rpg = max(1, n // max(1, TWOSTAGE_OVERSAMPLE * k))
     g = 1
     while BLOCK_ROWS // g > target_rpg and g < BLOCK_ROWS:
         g *= 2
@@ -149,7 +150,6 @@ def _twostage_candidates(
     k: int,
     *,
     residual: Optional[torch.Tensor] = None,
-    oversample: int = TWOSTAGE_OVERSAMPLE,
     layout: str = "tile",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 1: per-bucket max-|acc| candidates (cand_val f32[L], cand_idx
@@ -159,13 +159,13 @@ def _twostage_candidates(
     the JAX package runs off the TPU, for like-with-like tests."""
     n = x.shape[0]
     if layout == "tile":
-        groups = _twostage_pallas_groups(n, k, oversample)
+        groups = _twostage_pallas_groups(n, k)
         cand_val, cand_idx, _ = cuda_topk.fused_stage1_candidates(
             x, residual=residual, groups=groups)
         return cand_val, cand_idx
     if layout == "stride":
         return cuda_topk.stride_candidates_ref(
-            x, max(k, min(n, oversample * k)), residual)
+            x, max(k, min(n, TWOSTAGE_OVERSAMPLE * k)), residual)
     raise ValueError(f"unknown stage-1 layout {layout!r}")
 
 
@@ -174,7 +174,6 @@ def twostage_topk_abs(
     k: int,
     *,
     residual: Optional[torch.Tensor] = None,
-    oversample: int = TWOSTAGE_OVERSAMPLE,
     layout: str = "tile",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-stage approximate top-k of |x (+ residual)|: one stage-1 pass
@@ -190,7 +189,7 @@ def twostage_topk_abs(
             idx = torch.nn.functional.pad(idx, (0, k - n), value=n)
         return vals, idx
     cand_val, cand_idx = _twostage_candidates(
-        x, k, residual=residual, oversample=oversample, layout=layout)
+        x, k, residual=residual, layout=layout)
     sel = _topk_order(cand_val.abs(), k)
     idx, vals = cand_idx[sel], cand_val[sel]
     oob = idx >= n

@@ -1,14 +1,14 @@
 """Where a training step's time goes on the card.
 
-    python -m gtopkssgd_tpu_torch.profile_step [--steps 10] [--warmup 3]
-        [--batch-size 32] [--out PATH]
+    python -m gtopkssgd_tpu_torch.profile_step
 
 For each arm (gtopk/twostage, gtopk/pallas, dense) of ResNet-20 on
-synthetic CIFAR-10 at density 0.001: warm up, then profile ``--steps``
-steps with ``torch.profiler`` (CPU + CUDA activity) and report, per step,
+synthetic CIFAR-10, batch 32, at density 0.001: warm up WARMUP steps, time
+TIMED_STEPS steps unprofiled, then profile STEPS steps with
+``torch.profiler`` (CPU + CUDA activity) and report, per step,
 
-* wall ms (host clock, each step ends in a device sync), profiled and, over
-  as many steps just before, unprofiled;
+* wall ms (host clock, each step ends in a device sync), profiled, and the
+  median of the TIMED_STEPS unprofiled steps just before;
 * device busy ms (union of all kernel and copy intervals) and the idle
   share 1 - busy/wall;
 * per trainer range ("data", "forward_backward", "optimizer"): host ms,
@@ -21,13 +21,10 @@ Needs a CUDA card: a measurement path that finds none fails.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import statistics
 import subprocess
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List
 
 import torch
 from torch.autograd import DeviceType
@@ -36,6 +33,10 @@ from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
 ARMS = (("gtopk", "twostage"), ("gtopk", "pallas"), ("dense", "exact"))
 RANGES = ("data", "forward_backward", "optimizer")
+STEPS = 10
+TIMED_STEPS = 50
+WARMUP = 5
+BATCH_SIZE = 32
 
 
 def _union_us(intervals: List[tuple]) -> float:
@@ -57,13 +58,13 @@ def card_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_arm(compression: str, method: str, steps: int, warmup: int,
-                batch_size: int) -> Dict[str, object]:
+def profile_arm(compression: str, method: str) -> Dict[str, object]:
+    steps = STEPS
     trainer = Trainer(TrainConfig(
-        dnn="resnet20", batch_size=batch_size, compression=compression,
+        dnn="resnet20", batch_size=BATCH_SIZE, compression=compression,
         density=0.001, topk_method=method, device="cuda"))
-    trainer.train(warmup)
-    unprofiled = trainer.train(steps)["step_times"]
+    trainer.train(WARMUP)
+    unprofiled = trainer.train(TIMED_STEPS)["step_times"]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
@@ -94,8 +95,7 @@ def profile_arm(compression: str, method: str, steps: int, warmup: int,
             e.time_range.end - e.time_range.start)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     return dict(
-        compression=compression, method=method, steps=steps,
-        batch_size=batch_size,
+        compression=compression, method=method,
         wall_ms=wall_ms,
         median_step_ms=statistics.median(stats["step_times"]) * 1e3,
         median_step_ms_unprofiled=statistics.median(unprofiled) * 1e3,
@@ -109,21 +109,13 @@ def profile_arm(compression: str, method: str, steps: int, warmup: int,
     )
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--out", default=None,
-                   help="also write the full record to this JSON file")
-    args = p.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     card = card_identity()
     print(card)
-    arms = [profile_arm(c, m, args.steps, args.warmup, args.batch_size)
-            for c, m in ARMS]
+    arms = [profile_arm(c, m) for c, m in ARMS]
     for a in arms:
         print(f"{a['compression']}/{a['method']}: median step "
               f"{a['median_step_ms_unprofiled']:.3f} ms unprofiled; "
@@ -137,11 +129,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for kern in a["top_kernels"][:6]:
             print(f"  kernel {kern['device_ms']:.4f} ms  {kern['name']}")
         print(f"  top-k kernels: {a['topk_kernels']}")
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(card=card, torch=torch.__version__, arms=arms),
-                      f, indent=1)
     return 0
 
 

@@ -196,8 +196,8 @@ def test_twostage_topk_abs_bitwise(layout):
 def test_twostage_groups_and_k_for_density_match():
     for n, k in [(272_474, 273), (25_557_032, 25_558), (1000, 900),
                  (262_145, 2622)]:
-        assert topk._twostage_pallas_groups(n, k, 16) == \
-            jtopk._twostage_pallas_groups(n, k, 16)
+        assert topk._twostage_pallas_groups(n, k) == \
+            jtopk._twostage_pallas_groups(n, k, jtopk.TWOSTAGE_OVERSAMPLE)
     for n, d in [(272_474, 0.001), (272_474, 0.01), (7, 0.5), (10, 1e-9)]:
         assert topk.k_for_density(n, d) == jtopk.k_for_density(n, d)
 
