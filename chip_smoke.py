@@ -21,7 +21,19 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
 4. The trainer's step on the card against the plain path on the CPU
    (where the wrappers run the twins, which the CPU tests hold bitwise to
    the JAX package's Pallas kernels): see ``reference_phase``.
-5. A ``kernels`` JSON line, then the last line
+5. P > 1: the trainer on P spawned ranks, 10 steps each, at P = 4 with
+   ``twostage`` (stage-1 kernel, one launch a step on every rank), P = 3
+   with ``pallas`` (the raw count kernel, four a step; the ragged tree's
+   fold, hypercube and unfold) and P = 4 dense. NCCL with one rank per
+   card where there are P cards, else gloo with the ranks sharing the
+   card (the model, the kernels and the merge stay on the card). Checks:
+   launch counts on every rank; the global set bitwise equal on every
+   rank after every step, and at step 1 bitwise equal to
+   ``merge_tree_ref`` on the CPU over the gathered local sets; the final
+   parameters bitwise equal on every rank; the gradient bytes a rank
+   sends per step against ``comm_bytes_per_step`` at P = 4, the tree's
+   rounds against ``tree_rounds`` at P = 3. See ``dist_phase``.
+6. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -241,6 +253,127 @@ def reference_phase():
         check(same, f"reference {method}: card selection != cpu twins")
 
 
+DIST_RUNS = (("twostage", "gtopk", 4), ("pallas", "gtopk", 3),
+             ("exact", "dense", 4))
+DIST_STEPS = 10
+
+
+def dist_rank(device, method: str, compression: str, nworkers: int,
+              steps: int) -> dict:
+    """One rank of a P > 1 run (spawned by ``dist_phase``): trains `steps`
+    steps and checks, after each, that every rank holds the same global
+    set; returns this rank's launch and wire counters and its checks."""
+    import torch
+    import torch.distributed as dist
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.parallel import collectives
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(
+        dnn="resnet20", batch_size=32, compression=compression,
+        density=0.001, topk_method=method, device=str(device),
+        nworkers=nworkers))
+    opt, rank = trainer.optimizer, dist.get_rank()
+
+    def gather(t):
+        """Every rank's copy of t, on the CPU, in rank order."""
+        out = [None] * nworkers
+        dist.all_gather_object(out, t.detach().cpu())
+        return out
+
+    def wire_set(vals, idx):
+        return torch.cat([vals.view(torch.int32), idx])
+
+    cuda_topk.reset_launches()
+    collectives.reset_wire()
+    times, losses, agree, tree_ok = [], [], True, None
+    for step in range(steps):
+        stats = trainer.train(1)
+        times.append(stats["step_times"][0])
+        losses.append(stats["loss"])
+        if opt.last_global is None:
+            continue
+        sets = gather(wire_set(*opt.last_global))
+        agree = agree and all(torch.equal(x, sets[0]) for x in sets)
+        if step == 0:
+            n, k = trainer.num_params, opt.last_global[0].shape[0]
+            local = [(x[:k].view(torch.float32), x[k:])
+                     for x in gather(wire_set(*opt.last_local))]
+            want = collectives.merge_tree_ref(local, k, n)[rank]
+            tree_ok = torch.equal(wire_set(*want), sets[rank])
+    launches = dict(cuda_topk.launches)
+    wire = dict(collectives.wire)
+    flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
+    params = gather(flat)
+    return dict(rank=rank, device=str(device), launches=launches,
+                wire=wire, step_times=times, losses=losses,
+                sets_agree=agree, tree_ok=tree_ok,
+                params_agree=all(torch.equal(x, params[0]) for x in params))
+
+
+def dist_phase():
+    """The P > 1 runs (see the module docstring, phase 5); returns the
+    launches per kernel, summed over every rank of every run."""
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel import comm_bytes_per_step, tree_rounds
+    from gtopkssgd_tpu_torch.parallel.dist import spawn
+
+    cards = torch.cuda.device_count()
+    total = {name: 0 for name in REPLACES}
+    for method, compression, p in DIST_RUNS:
+        backend = "nccl" if cards >= p else "gloo"
+        used = min(cards, p)
+        t0 = time.perf_counter()
+        ranks = spawn(dist_rank, p, method, compression, p, DIST_STEPS,
+                      backend=backend, device="cuda", timeout=300)
+        wall = time.perf_counter() - t0
+        run = f"P={p} {compression}/{method}"
+        want_launches = {
+            "twostage": {"fused_stage1_candidates": DIST_STEPS},
+            "pallas": {"multi_threshold_count": 4 * DIST_STEPS},
+        }.get(method, {}) if compression == "gtopk" else {}
+        for r in ranks:
+            got = {name: r["launches"][name] for name in REPLACES}
+            want = {name: want_launches.get(name, 0) for name in REPLACES}
+            check(got == want, f"{run} rank {r['rank']}: launches {got}, "
+                               f"expected {want}")
+            check(all(math.isfinite(v) for v in r["losses"]),
+                  f"{run} rank {r['rank']}: non-finite loss {r['losses']}")
+            check(r["params_agree"], f"{run}: final parameters differ "
+                                     "across ranks")
+            for name in REPLACES:
+                total[name] += got[name]
+        per_step = [r["wire"]["bytes"] / DIST_STEPS for r in ranks]
+        if compression == "gtopk":
+            check(all(r["sets_agree"] for r in ranks),
+                  f"{run}: global sets differ across ranks")
+            check(all(r["tree_ok"] for r in ranks),
+                  f"{run}: global set != merge_tree_ref of the local sets")
+            rounds = [r["wire"]["rounds"] / DIST_STEPS for r in ranks]
+            check(rounds == [tree_rounds(p)] * p,
+                  f"{run}: {rounds} tree rounds a step, model "
+                  f"{tree_rounds(p)}")
+        if p & (p - 1) == 0:
+            model = comm_bytes_per_step(compression, 272_474, 273, p)
+            check(per_step == [model] * p,
+                  f"{run}: {per_step} bytes a step, model {model}")
+        med = statistics.median(
+            t for r in ranks for t in r["step_times"][1:])
+        print(f"dist {run}: backend {backend}, {used} card(s) for {p} "
+              f"ranks, {DIST_STEPS} steps, loss "
+              f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f}, "
+              f"median step {med * 1e3:.3f} ms (steps 2-{DIST_STEPS}, all "
+              f"ranks), bytes sent a step per rank {per_step}, launches "
+              f"per rank {ranks[0]['launches']}, global sets and final "
+              f"params bitwise equal across ranks"
+              + (", step-1 set == merge_tree_ref"
+                 if compression == "gtopk" else "")
+              + f"; spawn to join {wall:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -276,6 +409,9 @@ def main() -> int:
              for name in REPLACES}
 
     reference_phase()
+
+    for name, count in dist_phase().items():
+        total[name] += count
 
     n0 = SIZES[0]
     line = []

@@ -4,8 +4,10 @@ The port of ``gtopkssgd_tpu`` (JAX on a TPU), which stays beside it as the
 reference. It imports torch, numpy and the standard library only -- never
 jax, never ``gtopkssgd_tpu``.
 
-So far: one worker (P = 1), ResNet-20/56 on CIFAR-10, modes ``dense`` and
-``gtopk``, top-k methods ``exact | threshold | pallas | twostage``; the
-three TPU top-k kernels as hand-written CUDA (``ops/csrc``). Entry points:
-``trainer.Trainer``, ``python -m gtopkssgd_tpu_torch.dist_trainer``.
+So far: ResNet-20/56 on CIFAR-10, modes ``dense`` and flat ``gtopk``, top-k
+methods ``exact | threshold | pallas | twostage``, on one worker or on P
+ranks over ``torch.distributed`` (the gTop-k hypercube in
+``parallel/collectives.py``); the three TPU top-k kernels as hand-written
+CUDA (``ops/csrc``). Entry points: ``trainer.Trainer``,
+``python -m gtopkssgd_tpu_torch.dist_trainer``.
 """

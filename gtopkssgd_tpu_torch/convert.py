@@ -5,6 +5,10 @@ fix the flat gradient order.
   into a ``state_dict`` for ``models.ResNetCIFAR``: conv kernels HWIO ->
   OIHW, Dense (in, out) -> (out, in), BatchNorm scale/bias/mean/var ->
   weight/bias/running_mean/running_var.
+* ``load_jax_state(trainer, ...)`` carries a JAX trainer's whole state
+  into a port ``Trainer``: weights and BatchNorm statistics, the SGD
+  momentum, this rank's row of the per-rank ``[P, N]`` residual, and the
+  step count.
 * ``flat_layout(model)`` orders the model's parameters as the JAX package's
   ``ravel_pytree`` does -- flax's sorted module paths (``BasicBlock_0`` ..
   ``BasicBlock_8``, ``BatchNorm_0``, ``Conv_0``, ``Dense_0``; in a block
@@ -77,6 +81,26 @@ def from_jax_params(params: Mapping[str, Any],
         t = torch.from_numpy(np.array(value, dtype=np.float32))
         out[names[path]] = t.permute(_FROM_REF[t.dim()]).contiguous()
     return out
+
+
+def load_jax_state(trainer, params: Mapping[str, Any],
+                   batch_stats: Mapping[str, Any], momentum: Mapping[str, Any],
+                   residual, count: int) -> None:
+    """Load a JAX trainer's state, as numpy trees, into `trainer` (one
+    rank): ``momentum`` is optax's SGD trace, a tree like ``params``;
+    ``residual`` is f32[N] at P = 1 and the per-rank f32[P, N] above it,
+    of which this rank takes row ``trainer.rank``."""
+    trainer.model.load_state_dict(from_jax_params(params, batch_stats))
+    named = dict(trainer.model.named_parameters())
+    opt = trainer.optimizer
+    device = trainer.device
+    for name, buf in from_jax_params(momentum, {}).items():
+        opt.state[named[name]]["momentum_buffer"] = buf.to(device)
+    residual = np.asarray(residual, dtype=np.float32)
+    if residual.ndim == 2:
+        residual = residual[trainer.rank]
+    opt.state["residual"] = torch.from_numpy(residual.copy()).to(device)
+    opt.state["count"] = int(count)
 
 
 def _torch_names(paths) -> Dict[Path, str]:

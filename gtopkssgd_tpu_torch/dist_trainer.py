@@ -2,21 +2,32 @@
 
     python -m gtopkssgd_tpu_torch.dist_trainer --dnn resnet20 \\
         --compression gtopk --density 0.001 --topk-method twostage \\
-        --num-iters 20 [--device cpu]
+        --num-iters 20 [--nworkers P] [--device cpu] [--dist-backend gloo]
 
-Runs on the CUDA card unless ``--device cpu``. Prints one JSON line with
-the per-step losses and step times. One worker so far: ``--nworkers``
-above 1 is refused until the gTop-k collective lands.
+Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
+spawns P rank processes joined in one process group: NCCL with one rank
+per card by default on CUDA (P cards needed), gloo on the CPU;
+``--dist-backend gloo`` with ``--device cuda`` lets the ranks share the
+visible cards. Rank 0 prints one JSON line with the per-step losses,
+step times and the gradient bytes a rank shipped per step.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import sys
 from typing import Optional, Sequence
 
+from gtopkssgd_tpu_torch.parallel import collectives
+from gtopkssgd_tpu_torch.parallel.dist import (
+    BACKENDS,
+    default_backend,
+    rank_device,
+    spawn,
+)
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
 
@@ -37,6 +48,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--nsteps-update", type=int, default=1)
     p.add_argument("--max-epochs", type=int, default=140)
     p.add_argument("--nworkers", type=int, default=1)
+    p.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                   help="default: nccl on cuda, gloo on cpu")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--num-iters", type=int, default=20)
@@ -45,11 +58,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    if args.nworkers > 1:
-        raise SystemExit(
-            f"--nworkers {args.nworkers}: the port trains on one card so "
-            "far; multi-worker gTop-k over torch.distributed is the next "
-            "slice")
     return TrainConfig(
         dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
@@ -59,20 +67,44 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         data_dir=args.data_dir, seed=args.seed, device=args.device)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = build_argparser().parse_args(argv)
-    trainer = Trainer(config_from_args(args))
-    stats = trainer.train(args.num_iters)
-    print(json.dumps({
+def run(cfg: TrainConfig, num_iters: int) -> dict:
+    """Train `num_iters` steps on this process (one rank) and summarize."""
+    trainer = Trainer(cfg)
+    collectives.reset_wire()
+    stats = trainer.train(num_iters)
+    return {
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
         "topk_method": trainer.cfg.topk_method,
         "device": str(trainer.device),
+        "nworkers": trainer.cfg.nworkers,
         "num_params": trainer.num_params,
         "losses": stats["losses"],
         "median_step_s": statistics.median(stats["step_times"]),
         "throughput": stats["throughput"],
-    }))
+        "wire_bytes_per_step": collectives.wire["bytes"] / max(1, num_iters),
+    }
+
+
+def _rank_run(device, cfg: TrainConfig, num_iters: int) -> dict:
+    return run(dataclasses.replace(cfg, device=str(device)), num_iters)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_argparser().parse_args(argv)
+    cfg = config_from_args(args)
+    if args.nworkers > 1:
+        backend = args.dist_backend or default_backend(args.device)
+        try:
+            rank_device(0, args.nworkers, backend, args.device)
+        except ValueError as e:
+            raise SystemExit(f"--nworkers {args.nworkers}: {e}") from None
+        out = spawn(_rank_run, args.nworkers, cfg, args.num_iters,
+                    backend=backend, device=args.device)[0]
+        out["dist_backend"] = backend
+    else:
+        out = run(cfg, args.num_iters)
+    print(json.dumps(out))
     return 0
 
 

@@ -5,6 +5,7 @@ from gtopkssgd_tpu_torch.ops.topk import (
     bucketize_counts,
     k_for_density,
     membership_mask,
+    merge_sparse_sets,
     scatter_add_dense,
     select_tau,
     select_topk,
@@ -17,6 +18,7 @@ __all__ = [
     "bucketize_counts",
     "k_for_density",
     "membership_mask",
+    "merge_sparse_sets",
     "scatter_add_dense",
     "select_tau",
     "select_topk",

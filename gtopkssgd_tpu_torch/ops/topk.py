@@ -13,6 +13,8 @@ Counterpart of ``gtopkssgd_tpu/ops/topk.py`` for the selection methods
 * ``twostage_topk_abs`` -- per-bucket max candidates (the CUDA stage-1
   kernel), then an exact reselect over them.
 * ``select_tau`` -- tau alone, for the threshold-mask compressor.
+* ``merge_sparse_sets`` -- one round of the gTop-k tree: the sparse sum of
+  two sets and their top-k, order-canonical (two stable sorts).
 
 Sparse sets are (values f32[k], indices i32[k]); padding slots carry index
 n and value 0. Everything is shape-static and free of host syncs.
@@ -267,6 +269,34 @@ def select_topk(
     if method == "threshold":
         return threshold_topk_abs(x, k)
     return threshold_topk_abs(x, k, count_fn=cuda_topk.multi_threshold_count)
+
+
+def merge_sparse_sets(vals_a: torch.Tensor, idx_a: torch.Tensor,
+                      vals_b: torch.Tensor, idx_b: torch.Tensor, k: int,
+                      n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round of the gTop-k tree: sparse-sum two sets, each with unique
+    real indices, and keep the top-k by magnitude, descending.
+
+    Order-canonical, so both partners of an exchange get bitwise the same
+    set whichever of them is `a`: a stable sort by index makes duplicates
+    adjacent (a real index occurs at most twice); the pair is summed into
+    its first slot (a + b == b + a in IEEE arithmetic) and the second slot
+    becomes the sentinel (index n, value 0); a stable sort on -|value|
+    then breaks magnitude ties by the lower index, as ``lax.top_k`` does.
+    """
+    cat_idx = torch.cat([idx_a, idx_b])
+    cat_val = torch.cat([vals_a, vals_b])
+    si, order = torch.sort(cat_idx, stable=True)
+    sv = cat_val[order]
+    dup = torch.zeros_like(si, dtype=torch.bool)
+    dup[1:] = si[1:] == si[:-1]
+    next_dup = torch.zeros_like(dup)
+    next_dup[:-1] = dup[1:]
+    summed = sv + torch.where(next_dup, torch.roll(sv, -1), 0.0)
+    merged_val = torch.where(dup, 0.0, summed)
+    merged_idx = torch.where(dup, n, si).to(torch.int32)
+    keep = torch.sort(-merged_val.abs(), stable=True).indices[:k]
+    return merged_val[keep], merged_idx[keep]
 
 
 def scatter_add_dense(n: int, idx: torch.Tensor, vals: torch.Tensor,

@@ -1,17 +1,22 @@
-"""gTop-k S-SGD on one worker: error-feedback top-k compression of the flat
-gradient, then SGD with momentum and weight decay.
+"""gTop-k S-SGD: error-feedback top-k compression of the flat gradient,
+the gTop-k all-reduce over P ranks, then SGD with momentum and weight
+decay.
 
-Counterpart of the flat P = 1 path of ``gtopkssgd_tpu.optimizer.gtopk_sgd``
+Counterpart of the flat path of ``gtopkssgd_tpu.optimizer.gtopk_sgd``
 (``update_fn``, modes ``dense`` and ``gtopk``). One step:
 
 1. ravel every parameter's gradient into one flat f32[N] buffer, in the
    order and layout of the JAX package's ``ravel_pytree`` (``FlatLayout``;
    ``convert.flat_layout`` builds it for a model) -- top-k buckets are
    positions in this vector, so the order decides what is selected;
-2. ``gtopk``: acc = grad + residual; keep = |acc| >= tau by the
+2. ``gtopk`` at P = 1: acc = grad + residual; keep = |acc| >= tau by the
    threshold-mask compressor (the selection reads grad and residual
    unfused); residual = where(keep, 0, acc); the update is acc - residual.
-   ``dense``: the update is the gradient;
+   ``gtopk`` at P > 1: the local set (vals, idx) = compress(acc) in index
+   form, through ``select_topk``; the global set (gvals, gidx) by the
+   hypercube merge; rejected local picks go back into the residual
+   (``repair``); the update is scatter_add_dense(gidx, gvals) / P.
+   ``dense``: the update is the gradient, all-reduced and divided by P;
 3. unravel the update into the parameters' ``.grad`` and take one
    ``torch.optim.SGD`` step: g + wd*p, then buf = momentum*buf + g, then
    p -= lr*buf -- the arithmetic of the JAX package's
@@ -27,9 +32,15 @@ from __future__ import annotations
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from gtopkssgd_tpu_torch.compression import get_compressor
 from gtopkssgd_tpu_torch.modes import ALL_MODES, DENSE_MODES
+from gtopkssgd_tpu_torch.ops import scatter_add_dense
+from gtopkssgd_tpu_torch.parallel.collectives import (
+    dense_allreduce,
+    sparse_allreduce,
+)
 
 Schedule = Callable[[int], float]
 
@@ -92,6 +103,8 @@ class GTopKSGD(torch.optim.SGD):
     ``lr`` is a float or a schedule ``lr(count)`` read before every step,
     count being the number of steps taken. ``layout`` fixes the flat order
     (default: ``params`` in the given order, each raveled as it is).
+    ``process_group`` is the group of the P data-parallel ranks, or None
+    for one worker.
     """
 
     def __init__(
@@ -105,6 +118,7 @@ class GTopKSGD(torch.optim.SGD):
         density: float = 0.001,
         topk_method: str = "auto",
         layout: Optional[FlatLayout] = None,
+        process_group=None,
     ):
         if compression not in ALL_MODES:
             raise ValueError(
@@ -118,7 +132,12 @@ class GTopKSGD(torch.optim.SGD):
         if {id(p) for p in self.layout.params} != {id(p) for p in params}:
             raise ValueError("layout does not cover exactly these params")
         self.compressor = get_compressor(compression, density, topk_method)
+        self.mode = compression
         self.dense_mode = compression in DENSE_MODES
+        self.group = process_group
+        self.p = 1
+        if process_group is not None:
+            self.p = dist.get_world_size(process_group)
         device = params[0].device
         self.state["residual"] = self.compressor.init_residual(
             self.layout.n, device)
@@ -126,20 +145,40 @@ class GTopKSGD(torch.optim.SGD):
         #: The flat gradient of the last step (one buffer, reused).
         self.flat_grad = torch.empty(self.layout.n, dtype=torch.float32,
                                      device=device)
-        #: The keep mask of the last gtopk step (None in dense mode).
+        #: The keep mask of the last gtopk step at P = 1.
         self.last_keep: Optional[torch.Tensor] = None
+        #: The last gtopk step's local (vals, idx) and global (gvals, gidx)
+        #: sets at P > 1.
+        self.last_local: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.last_global: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def compress(self, flat: torch.Tensor) -> torch.Tensor:
-        """The update for flat gradient `flat`; advances the residual."""
+        """The update for flat gradient `flat`, averaged over the P ranks;
+        advances the residual."""
+        p = self.p
         if self.dense_mode:
-            return flat
+            if p == 1:
+                return flat
+            return dense_allreduce(flat, group=self.group) / p
         residual_in = self.state["residual"]
         acc = self.compressor.accumulate(flat, residual_in)
-        keep, residual, _ = self.compressor.compress_by_threshold(
+        if p == 1:
+            keep, residual, _ = self.compressor.compress_by_threshold(
+                acc, grad=flat, residual=residual_in)
+            self.state["residual"] = residual
+            self.last_keep = keep
+            return acc - residual
+        n = flat.shape[0]
+        vals, idx, residual = self.compressor.compress(
             acc, grad=flat, residual=residual_in)
-        self.state["residual"] = residual
-        self.last_keep = keep
-        return acc - residual
+        gvals, gidx, _ = sparse_allreduce(
+            self.mode, vals, idx, k=self.compressor.k(n), n=n,
+            group=self.group)
+        self.state["residual"] = self.compressor.repair(
+            residual, vals, idx, gidx)
+        self.last_local = (vals, idx)
+        self.last_global = (gvals, gidx)
+        return scatter_add_dense(n, gidx, gvals) / p
 
     @torch.no_grad()
     def step(self, closure=None):

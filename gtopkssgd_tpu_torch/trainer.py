@@ -1,4 +1,5 @@
-"""Single-card trainer: the port of ``gtopkssgd_tpu.trainer`` for one worker.
+"""The trainer: the port of ``gtopkssgd_tpu.trainer`` for P data-parallel
+ranks, one process each.
 
 ``TrainConfig`` keeps the JAX trainer's flag names and per-dataset defaults
 (cifar10: lr 0.1, weight decay 5e-4); ``Trainer.train(n)`` runs n optimizer
@@ -9,9 +10,16 @@ device as uint8 NHWC and are normalized there. Float32 throughout: TF32 is
 switched off for convolutions and matrix products, as the JAX model
 computes in float32.
 
+At ``nworkers`` P > 1 the trainer is one rank of an initialized process
+group of P ranks (``parallel.dist``): every rank builds the same initial
+weights from the seed, draws its own shard of the data, and after each
+step the ranks average the BatchNorm running statistics and the reported
+loss and top-1, as the JAX trainer's ``pmean`` does.
+
 A step is three profiler ranges (``torch.profiler.record_function``):
 "data" (host batch + copy to the device), "forward_backward" and
-"optimizer" (compression + SGD); ``profile_step`` reads them.
+"optimizer" (compression, the gradient exchange and SGD); ``profile_step``
+reads them.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -30,6 +39,7 @@ from gtopkssgd_tpu_torch.data import get_dataset
 from gtopkssgd_tpu_torch.data.cifar import CIFAR_MEAN, CIFAR_STD
 from gtopkssgd_tpu_torch.models import get_model
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
+from gtopkssgd_tpu_torch.parallel.collectives import pmean
 
 # dataset: (lr, weight_decay) -- the reference hardcoded these per dataset.
 _DATASET_DEFAULTS = {"cifar10": (0.1, 5e-4)}
@@ -69,14 +79,29 @@ class TrainConfig:
         return cfg
 
 
+def shard_steps_per_epoch(ds, batch_size: int, nsteps_update: int = 1) -> int:
+    """Optimizer steps per epoch, the same on every rank: the last rank's
+    shard also holds the remainder, so the count comes from the smallest
+    shard, (n // nworkers) // batch_size."""
+    part = ds.partitioner
+    return max(1, (part.n // part.nworkers) // batch_size // nsteps_update)
+
+
 class Trainer:
+    """One rank's trainer; at ``cfg.nworkers`` > 1, one of the ranks of the
+    initialized default process group."""
+
     def __init__(self, config: TrainConfig):
         self.cfg = cfg = config.resolved()
-        if cfg.nworkers != 1:
-            raise NotImplementedError(
-                f"nworkers={cfg.nworkers}: the port runs one worker so far; "
-                "the P > 1 gTop-k collective over torch.distributed comes "
-                "in the next slice")
+        self.group = None
+        self.rank = 0
+        if cfg.nworkers > 1:
+            self.group = dist.group.WORLD
+            size = dist.get_world_size(self.group)
+            if size != cfg.nworkers:
+                raise ValueError(f"nworkers={cfg.nworkers} but the process "
+                                 f"group has {size} ranks")
+            self.rank = dist.get_rank(self.group)
         self.device = torch.device(cfg.device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -85,16 +110,18 @@ class Trainer:
         self.model.to(self.device).train()
         self.train_data = get_dataset(
             cfg.dataset, split="train", batch_size=cfg.batch_size,
-            data_dir=cfg.data_dir, seed=cfg.seed)
-        self.steps_per_epoch = max(
-            1, self.train_data.steps_per_epoch() // cfg.nsteps_update)
+            rank=self.rank, nworkers=cfg.nworkers, data_dir=cfg.data_dir,
+            seed=cfg.seed)
+        self.steps_per_epoch = shard_steps_per_epoch(
+            self.train_data, cfg.batch_size, cfg.nsteps_update)
         self.layout = flat_layout(self.model)
         self.num_params = self.layout.n
         self.optimizer = GTopKSGD(
             self.model.parameters(), self.lr_schedule(),
             momentum=cfg.momentum, weight_decay=cfg.weight_decay,
             compression=cfg.compression, density=cfg.density,
-            topk_method=cfg.topk_method, layout=self.layout)
+            topk_method=cfg.topk_method, layout=self.layout,
+            process_group=self.group)
         mean, std = _WIRE_STATS[cfg.dataset]
         self._mean = torch.as_tensor(mean, device=self.device)
         self._std = torch.as_tensor(std, device=self.device)
@@ -127,6 +154,21 @@ class Trainer:
         x = (x.float() / 255.0 - self._mean) / self._std
         return x, y
 
+    @torch.no_grad()
+    def _average_over_ranks(self, loss: torch.Tensor,
+                            top1: torch.Tensor):
+        """One all-reduce averages the BatchNorm running statistics, the
+        loss and the top-1 over the ranks; returns (loss, top1)."""
+        bufs = list(self.model.buffers())
+        flat = torch.cat([b.reshape(-1) for b in bufs]
+                         + [loss.reshape(1), top1.reshape(1)])
+        flat = pmean(flat, group=self.group)
+        off = 0
+        for b in bufs:
+            b.copy_(flat[off:off + b.numel()].view_as(b))
+            off += b.numel()
+        return flat[off], flat[off + 1]
+
     def train(self, num_iters: int) -> Dict[str, object]:
         """Run `num_iters` optimizer steps. Returns the last step's loss and
         top-1, the per-step lists, the per-step wall times (each step ends
@@ -155,8 +197,12 @@ class Trainer:
                     for p in model.parameters():
                         p.grad.div_(cfg.nsteps_update)
                 opt.step()
-            losses.append(loss_sum / cfg.nsteps_update)
-            top1s.append(top1_sum / cfg.nsteps_update)
+            loss, top1 = (loss_sum / cfg.nsteps_update,
+                          top1_sum / cfg.nsteps_update)
+            if self.group is not None:
+                loss, top1 = self._average_over_ranks(loss, top1)
+            losses.append(loss)
+            top1s.append(top1)
             if cuda:
                 torch.cuda.synchronize(self.device)
             step_times.append(time.perf_counter() - t0)

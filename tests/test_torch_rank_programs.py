@@ -1,0 +1,69 @@
+"""Rank programs for the port's distributed tests; this file holds no test.
+
+``tests/test_torch_collectives.py`` and ``tests/test_torch_dist.py`` run
+these on spawned ranks through ``gtopkssgd_tpu_torch.parallel.dist.spawn``.
+A rank process imports this module afresh, so it imports torch, numpy and
+the port only -- never jax or the JAX package.
+"""
+
+import torch
+import torch.distributed as dist
+
+from gtopkssgd_tpu_torch.convert import load_jax_state
+from gtopkssgd_tpu_torch.optimizer import GTopKSGD
+from gtopkssgd_tpu_torch.parallel import collectives
+from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+
+def gtopk_over_groups(device, sets, k, n):
+    """For each P of `sets` ({P: (vals f32[P, k], idx i32[P, k])}), the
+    first P ranks run ``gtopk_allreduce`` over a group of their own; this
+    rank's global set and wire counters, by P."""
+    rank = dist.get_rank()
+    out = {}
+    for p in sorted(sets):
+        group = dist.new_group(list(range(p)))  # every rank must call it
+        if rank >= p:
+            continue
+        vals, idx = sets[p]
+        collectives.reset_wire()
+        gvals, gidx = collectives.gtopk_allreduce(
+            torch.from_numpy(vals[rank]).to(device),
+            torch.from_numpy(idx[rank]).to(device), k=k, n=n, group=group)
+        out[p] = {"vals": gvals, "idx": gidx, **collectives.wire}
+    return out
+
+
+def optimizer_steps(device, p0, grads, opt_kwargs):
+    """``GTopKSGD`` over the whole world on one flat parameter from `p0`,
+    one step per entry of `grads` (f32[P, N] each, row = rank); after each
+    step the parameter, the residual and the global set."""
+    rank = dist.get_rank()
+    param = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(device))
+    opt = GTopKSGD([param], process_group=dist.group.WORLD, **opt_kwargs)
+    out = []
+    for g in grads:
+        param.grad = torch.from_numpy(g[rank].copy()).to(device)
+        opt.step()
+        gvals, gidx = opt.last_global
+        out.append({"params": param.detach().clone(),
+                    "residual": opt.state["residual"].clone(),
+                    "gvals": gvals, "gidx": gidx})
+    return out
+
+
+def trainer_steps_from_states(device, cfg_kwargs, states):
+    """One trainer step from each of `states` (``load_jax_state``'s
+    arguments); after each step the loss, this rank's residual, the global
+    index set and the BatchNorm buffers."""
+    trainer = Trainer(TrainConfig(device=str(device), **cfg_kwargs))
+    opt = trainer.optimizer
+    out = []
+    for state in states:
+        load_jax_state(trainer, **state)
+        loss = trainer.train(1)["loss"]
+        out.append({"loss": loss, "residual": opt.state["residual"].clone(),
+                    "gidx": opt.last_global[1],
+                    "buffers": {name: b.clone() for name, b
+                                in trainer.model.named_buffers()}})
+    return out

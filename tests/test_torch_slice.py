@@ -15,7 +15,8 @@ float32 convolutions and BatchNorm reductions sum in different orders;
 keep sets (residual == 0) with a Jaccard index of at least 0.99 -- that
 rounding can flip coordinates whose |acc| sits at tau.
 
-Also here: the CLI, and that the port never imports jax or the JAX package.
+Also here: the CLI, and that the port never imports jax or the JAX package
+(every module, ``parallel/`` included).
 """
 
 import json
@@ -23,6 +24,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,7 @@ import torch
 from gtopkssgd_tpu.trainer import TrainConfig as JaxConfig
 from gtopkssgd_tpu.trainer import Trainer as JaxTrainer
 from gtopkssgd_tpu_torch import dist_trainer
-from gtopkssgd_tpu_torch.convert import from_jax_params
+from gtopkssgd_tpu_torch.convert import load_jax_state
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
 torch.set_num_threads(2)
@@ -39,18 +41,21 @@ LOSS_RTOL = 1e-3
 MIN_JACCARD = 0.99
 
 
+def jax_state_as_numpy(jt: JaxTrainer) -> dict:
+    """The JAX trainer's whole training state as numpy trees, in the
+    arguments of ``convert.load_jax_state``."""
+    st = jt.state
+    trace = next(s.trace for s in st.opt_state.inner[1] if hasattr(s, "trace"))
+    to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    return dict(params=to_np(st.params), batch_stats=to_np(st.batch_stats),
+                momentum=to_np(trace),
+                residual=np.asarray(st.opt_state.residual),
+                count=int(st.opt_state.count))
+
+
 def _load_jax_state(pt: Trainer, jt: JaxTrainer) -> None:
     """Copy the JAX trainer's whole training state into the port's."""
-    st = jt.state
-    pt.model.load_state_dict(from_jax_params(st.params, st.batch_stats))
-    params = dict(pt.model.named_parameters())
-    opt = pt.optimizer
-    trace = next(s.trace for s in st.opt_state.inner[1] if hasattr(s, "trace"))
-    for name, buf in from_jax_params(trace, {}).items():
-        opt.state[params[name]]["momentum_buffer"] = buf
-    opt.state["residual"] = torch.from_numpy(
-        np.array(st.opt_state.residual))
-    opt.state["count"] = int(st.opt_state.count)
+    load_jax_state(pt, **jax_state_as_numpy(jt))
 
 
 def test_three_steps_match_the_jax_trainer():
@@ -101,8 +106,11 @@ def test_cli_trains_on_cpu(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["num_params"] == 272_474 and len(out["losses"]) == 2
     assert all(np.isfinite(out["losses"]))
-    with pytest.raises(SystemExit, match="next"):
-        dist_trainer.main(["--nworkers", "2", "--device", "cpu"])
+    # NCCL needs the card: asked for on the CPU, the CLI refuses before
+    # it spawns a rank (gloo is never chosen in its place).
+    with pytest.raises(SystemExit, match="nccl"):
+        dist_trainer.main(["--nworkers", "2", "--device", "cpu",
+                           "--dist-backend", "nccl"])
 
 
 def test_dense_trainer_steps_and_schedule():
@@ -128,7 +136,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import gtopkssgd_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 14, names\n"
+        "assert len(names) >= 19, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
