@@ -12,21 +12,28 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    kernel the median device time of 20 calls (CUDA events, the card kept
    busy ahead of each call so host overhead is not timed), beside the
    twin's, a one-call library yardstick the port never uses, and the bound
-   max(bytes / 3.35 TB/s, operations / 67 TFLOP/s).
+   max(bytes / 3.35 TB/s, operations / 67 TFLOP/s). The multisection
+   kernel (lo, the 4x8 thresholds and the 4x8 counts, in abs and in
+   residual mode) is also held to the four-launch path it replaced (the
+   round loop counting with the single-pass count kernel), whose lo must
+   be bitwise equal and whose time is reported as ``replaced_ms``.
 3. The main path: the port's Trainer, ResNet-20 at full width on synthetic
    CIFAR-10, batch 32, gTop-k at density 0.001 -- 20 steps with
    ``--topk-method twostage`` (stage-1 kernel: one launch a step), 10 with
-   ``pallas`` (count kernel: four a step), then 10 dense as the reference
-   point. Launch counters are zeroed just before each run and read after.
+   ``pallas`` (multisection kernel in residual mode: one launch a step; no
+   single-pass count launch), then 10 dense as the reference point.
+   Launch counters are zeroed just before each run and read after.
 4. The trainer's step on the card against the plain path on the CPU
    (where the wrappers run the twins, which the CPU tests hold bitwise to
    the JAX package's Pallas kernels): see ``reference_phase``.
 5. P > 1: the trainer on P spawned ranks, 10 steps each, at P = 4 with
    ``twostage`` (stage-1 kernel, one launch a step on every rank), P = 3
-   with ``pallas`` (the raw count kernel, four a step; the ragged tree's
-   fold, hypercube and unfold) and P = 4 dense. NCCL with one rank per
-   card where there are P cards, else gloo with the ranks sharing the
-   card (the model, the kernels and the merge stay on the card). Checks:
+   with ``pallas`` (the multisection kernel in abs mode, one cooperative
+   launch a step on every rank, on one card three ranks time-sharing it;
+   the ragged tree's fold, hypercube and unfold) and P = 4 dense. NCCL
+   with one rank per card where there are P cards, else gloo with the
+   ranks sharing the card (the model, the kernels and the merge stay on
+   the card). Checks:
    launch counts on every rank; the global set bitwise equal on every
    rank after every step, and at step 1 bitwise equal to
    ``merge_tree_ref`` on the CPU over the gathered local sets; the final
@@ -51,11 +58,21 @@ SIZES = (272_474, 25_557_032)
 REPS = 20
 LOSS_RTOL = 1e-3
 SOURCE = "gtopkssgd_tpu_torch/ops/csrc/topk_kernels.cu"
+# Entries of the kernels line, one per launch counter of
+# ``cuda_topk.launches``: counter -> the TPU kernel it replaces.
 REPLACES = {
     "multi_threshold_count": "gtopkssgd_tpu/ops/pallas_topk.py:96",
     "fused_stage1_candidates": "gtopkssgd_tpu/ops/pallas_topk.py:265",
     "fused_multi_threshold_count": "gtopkssgd_tpu/ops/pallas_topk.py:320",
+    "multisection_tau_lo[abs]": "gtopkssgd_tpu/ops/pallas_topk.py:96",
+    "multisection_tau_lo[residual]": "gtopkssgd_tpu/ops/pallas_topk.py:320",
 }
+
+
+def check_launches(got: dict, want: dict, run: str) -> None:
+    """Every wrapper's count as `want` says, and 0 for the others."""
+    full = {name: want.get(name, 0) for name in got}
+    check(got == full, f"{run}: launches {got}, expected {full}")
 
 
 class SmokeFailure(Exception):
@@ -119,7 +136,8 @@ def kernel_phase(n: int):
     gen = torch.Generator(device="cuda").manual_seed(n)
     g = torch.randn(n, device="cuda", generator=gen)
     r = 0.3 * torch.randn(n, device="cuda", generator=gen)
-    mag = (g + r).abs()
+    acc = g + r
+    mag = acc.abs()
     k = topk.k_for_density(n, 0.001)
     groups = topk._twostage_pallas_groups(n, k)
     sample = mag[torch.randint(0, n, (1 << 20,), device="cuda",
@@ -154,6 +172,25 @@ def kernel_phase(n: int):
             ref=lambda: cuda_topk.fused_multi_threshold_count_ref(g, thr, r),
             lib=lambda: ((g + r).abs()[:, None] >= thr).sum(0),
             bytes=8 * n + 64, ops=10 * n),
+        # One read of the operand in; lo, 32 thresholds, 32 counts out.
+        # Operations: the add (residual), abs and max, then 4 rounds of 8
+        # comparisons an element.
+        "multisection_tau_lo[residual]": dict(
+            run=lambda: cuda_topk.multisection_tau_lo(g, k, r),
+            ref=lambda: cuda_topk.multisection_tau_lo_ref(g, k, r),
+            old=lambda: cuda_topk.multisection_rounds(
+                mag, k,
+                lambda _m, t: cuda_topk.fused_multi_threshold_count(g, t, r)
+            )[0],
+            lib=lambda: torch.topk((g + r).abs(), k),
+            bytes=8 * n + 260, ops=35 * n),
+        "multisection_tau_lo[abs]": dict(
+            run=lambda: cuda_topk.multisection_tau_lo(acc, k),
+            ref=lambda: cuda_topk.multisection_tau_lo_ref(acc, k),
+            old=lambda: cuda_topk.multisection_rounds(
+                mag, k, cuda_topk.multi_threshold_count)[0],
+            lib=lambda: torch.topk(acc.abs(), k),
+            bytes=4 * n + 260, ops=34 * n),
     }
     out = {}
     for name, c in cases.items():
@@ -177,10 +214,18 @@ def kernel_phase(n: int):
                    max_abs_err=err, ms=device_ms(c["run"]),
                    plain_ms=device_ms(c["ref"]), bound_ms=bnd, bound_by=by,
                    library_ms=device_ms(c["lib"]))
+        extra = ""
+        if "old" in c:
+            lo_old = c["old"]()
+            check(torch.equal(got[0], lo_old),
+                  f"{name} n={n}: lo {float(got[0])!r} != the four-launch "
+                  f"path's {float(lo_old)!r}")
+            rec["replaced_ms"] = device_ms(c["old"])
+            extra = f" replaced_ms={rec['replaced_ms']:.5f} (== its lo)"
         print(f"kernel {name:32s} n={n:>10,d} match=bitwise "
               f"ms={rec['ms']:.5f} plain_ms={rec['plain_ms']:.5f} "
               f"library_ms={rec['library_ms']:.5f} "
-              f"bound_ms={rec['bound_ms']:.5f} ({by})")
+              f"bound_ms={rec['bound_ms']:.5f} ({by}){extra}")
         out[name] = rec
     return out
 
@@ -332,19 +377,17 @@ def dist_phase():
         run = f"P={p} {compression}/{method}"
         want_launches = {
             "twostage": {"fused_stage1_candidates": DIST_STEPS},
-            "pallas": {"multi_threshold_count": 4 * DIST_STEPS},
+            "pallas": {"multisection_tau_lo[abs]": DIST_STEPS},
         }.get(method, {}) if compression == "gtopk" else {}
         for r in ranks:
-            got = {name: r["launches"][name] for name in REPLACES}
-            want = {name: want_launches.get(name, 0) for name in REPLACES}
-            check(got == want, f"{run} rank {r['rank']}: launches {got}, "
-                               f"expected {want}")
+            check_launches(r["launches"], want_launches,
+                           f"{run} rank {r['rank']}")
             check(all(math.isfinite(v) for v in r["losses"]),
                   f"{run} rank {r['rank']}: non-finite loss {r['losses']}")
             check(r["params_agree"], f"{run}: final parameters differ "
                                      "across ranks")
             for name in REPLACES:
-                total[name] += got[name]
+                total[name] += r["launches"][name]
         per_step = [r["wire"]["bytes"] / DIST_STEPS for r in ranks]
         if compression == "gtopk":
             check(all(r["sets_agree"] for r in ranks),
@@ -399,14 +442,12 @@ def main() -> int:
     runs = [train_run("twostage", "gtopk", 20),
             train_run("pallas", "gtopk", 10),
             train_run("exact", "dense", 10)]
-    k2 = runs[0]["fused_stage1_candidates"]
-    k3 = runs[1]["fused_multi_threshold_count"]
-    check(k2 == 20, f"stage-1 kernel launched {k2} times in 20 steps")
-    check(k3 == 40, f"count kernel launched {k3} times in 10 steps")
-    check(sum(runs[2].values()) == 0,
-          "the dense run launched a top-k kernel")
-    total = {name: sum(r[name] for r in runs)
-             for name in REPLACES}
+    check_launches(runs[0], {"fused_stage1_candidates": 20},
+                   "P=1 twostage, 20 steps")
+    check_launches(runs[1], {"multisection_tau_lo[residual]": 10},
+                   "P=1 pallas, 10 steps")
+    check_launches(runs[2], {}, "P=1 dense, 10 steps")
+    total = {name: sum(r[name] for r in runs) for name in REPLACES}
 
     reference_phase()
 
@@ -427,8 +468,11 @@ def main() -> int:
             "on_path": total[name] > 0,
             "at_n_25557032": {key: kernels[SIZES[1]][name][key] for key in
                               ("ms", "plain_ms", "bound_ms", "library_ms",
-                               "max_abs_err")},
+                               "max_abs_err", "replaced_ms")
+                              if key in rec},
         }
+        if "replaced_ms" in rec:
+            entry["replaced_ms"] = rec["replaced_ms"]
         if name == "fused_stage1_candidates":
             entry["with_counts"] = {
                 n: {key: kernels[n][name + "+counts"][key] for key in

@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = Path(__file__).resolve().parent / "csrc" / "topk_kernels.cu"
@@ -33,6 +33,7 @@ _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "gtopk_count": [_VP, _VP, _INT, _LL, _VP, _VP, _VP],
     "gtopk_stage1": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP, _VP],
+    "gtopk_multisection": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP],
 }
 
 _lock = threading.Lock()
@@ -53,15 +54,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    text = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    text = SOURCE.read_bytes() + " ".join(NVCC_FLAGS + defines).encode()
     digest = hashlib.sha256(text).hexdigest()[:12]
     return BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the source unless its library is already built."""
-    so = library_path()
+def build(defines: Tuple[str, ...] = ()) -> Path:
+    """Compile the source, with extra nvcc `defines` (``-DNAME=VALUE``),
+    unless that library is already built."""
+    so = library_path(defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -69,7 +71,7 @@ def build() -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+            [nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(SOURCE)],
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -82,15 +84,20 @@ def build() -> Path:
     return so
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """A built library, its functions typed by SIGNATURES."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = open_library(build())
         return _lib

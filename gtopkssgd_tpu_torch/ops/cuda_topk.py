@@ -1,6 +1,6 @@
 """Wrappers of the CUDA top-k kernels, each beside its plain PyTorch twin.
 
-Counterpart of ``gtopkssgd_tpu/ops/pallas_topk.py``. Three functions, two
+Counterpart of ``gtopkssgd_tpu/ops/pallas_topk.py``. Four functions, three
 kernels (``csrc/topk_kernels.cu``):
 
 * ``multi_threshold_count(mag, thr)`` -- ``counts[i] = #{j : mag[j] >=
@@ -11,10 +11,17 @@ kernels (``csrc/topk_kernels.cu``):
 * ``fused_multi_threshold_count(grad, thr, residual)`` -- the 8 counts of
   ``|grad + residual|`` without storing the sum (K3; the count kernel with
   a residual operand).
+* ``multisection_tau_lo(x, k, residual)`` -- the whole tau bracket of the
+  ``pallas`` method, 4 rounds of K1 (on |x|) or K3 (on |x + residual|)
+  and the narrowing between them, in one cooperative launch. The selection
+  path calls this one; the two single-pass wrappers above stay as the
+  one-for-one ports of the TPU functions.
 
 A wrapper launches its kernel when its tensors lie on a CUDA device and
 uses its ``*_ref`` twin when they lie on the CPU; there is no fallback from
-one to the other. Each launch adds one to ``launches[name]``.
+one to the other. Each launch adds one to ``launches[name]``; the
+multisection wrapper counts its two modes apart, as
+``multisection_tau_lo[abs]`` and ``multisection_tau_lo[residual]``.
 
 Thresholds are taken to be >= 0, as every caller's are: elements past the
 end of the data are never counted (the TPU pads them with -1).
@@ -22,7 +29,7 @@ end of the data are never counted (the TPU pads them with -1).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,12 +37,18 @@ NUM_THRESHOLDS = 8
 BLOCK_ROWS = 2048
 LANES = 128
 BLOCK = BLOCK_ROWS * LANES
+ROUNDS = 4
+MULTISECTION_SCRATCH = 1024  # floats: one per block, one block per SM
+
+CountFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 launches: Dict[str, int] = {
     "multi_threshold_count": 0,
     "fused_stage1_candidates": 0,
     "fused_multi_threshold_count": 0,
+    "multisection_tau_lo[abs]": 0,
+    "multisection_tau_lo[residual]": 0,
 }
 
 
@@ -64,6 +77,41 @@ def fused_multi_threshold_count_ref(
 ) -> torch.Tensor:
     acc = grad if residual is None else grad + residual
     return multi_threshold_count_ref(acc.abs(), thr)
+
+
+def multisection_rounds(
+    mag: torch.Tensor, k: int, count_fn: CountFn,
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """The tau bracket over magnitudes `mag`: 4 rounds of 8-way geometric
+    multisection, each counting with `count_fn(mag, thr)`. Returns lo (the
+    bracket's lower end; count(mag >= lo) >= k always holds) and each
+    round's thresholds f32[8] and counts i32[8]. The multisection kernel
+    repeats these float32 operations in this order."""
+    maxv = mag.max()
+    lo = torch.zeros((), dtype=mag.dtype, device=mag.device)
+    hi = maxv
+    powers = torch.arange(1, 9, dtype=mag.dtype, device=mag.device)
+    thrs, counts = [], []
+    for _ in range(ROUNDS):
+        lo_eff = torch.maximum(lo, maxv * 1e-12 + 1e-30)
+        r = (lo_eff / (hi + 1e-30)) ** (1.0 / 9.0)
+        thr = hi * r ** powers  # 8 candidates strictly inside (lo, hi)
+        c = count_fn(mag, thr)
+        ge = c >= k
+        lo = torch.maximum(lo, torch.where(ge, thr, lo).max())
+        hi = torch.minimum(hi, torch.where(ge, hi, thr).min())
+        thrs.append(thr)
+        counts.append(c)
+    return lo, thrs, counts
+
+
+def multisection_tau_lo_ref(
+    x: torch.Tensor, k: int, residual: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    acc = x if residual is None else x + residual
+    lo, thrs, counts = multisection_rounds(
+        acc.abs(), k, multi_threshold_count_ref)
+    return lo, torch.stack(thrs), torch.stack(counts)
 
 
 def fused_stage1_candidates_ref(
@@ -235,3 +283,39 @@ def fused_stage1_candidates(
     _raise_on(rc, "fused_stage1_candidates")
     launches["fused_stage1_candidates"] += 1
     return cand_val, cand_idx, counts
+
+
+def multisection_tau_lo(
+    x: torch.Tensor, k: int, residual: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lo f32[], thresholds f32[4, 8], counts i32[4, 8]): the tau bracket
+    over |x| (residual None) or |x + residual|, the sum never stored.
+    Bitwise what `multisection_rounds` gives with exact counts. One
+    cooperative launch; raises if the card refuses it."""
+    if x.device.type == "cpu":
+        return multisection_tau_lo_ref(x, k, residual)
+    from gtopkssgd_tpu_torch.ops import _build
+
+    n = x.shape[0]
+    if not (1 <= n < 2**31 and k >= 1):
+        raise ValueError(f"n={n}, k={k}: need 1 <= n < 2**31 and k >= 1")
+    _check("x", x, torch.float32, x.device)
+    if residual is not None:
+        _check("residual", residual, torch.float32, x.device, n)
+    lib = _build.load()
+    with torch.cuda.device(x.device):  # the launch uses the current context
+        lo = torch.empty((), dtype=torch.float32, device=x.device)
+        thr = torch.empty((ROUNDS, NUM_THRESHOLDS), dtype=torch.float32,
+                          device=x.device)
+        counts = torch.empty((ROUNDS, NUM_THRESHOLDS), dtype=torch.int32,
+                             device=x.device)
+        scratch = torch.empty(MULTISECTION_SCRATCH, dtype=torch.float32,
+                              device=x.device)
+        rc = lib.gtopk_multisection(
+            x.data_ptr(), None if residual is None else residual.data_ptr(),
+            n, k, lo.data_ptr(), thr.data_ptr(), counts.data_ptr(),
+            scratch.data_ptr(), _stream(x.device))
+    _raise_on(rc, "multisection_tau_lo")
+    mode = "abs" if residual is None else "residual"
+    launches[f"multisection_tau_lo[{mode}]"] += 1
+    return lo, thr, counts

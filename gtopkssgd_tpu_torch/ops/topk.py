@@ -8,8 +8,9 @@ Counterpart of ``gtopkssgd_tpu/ops/topk.py`` for the selection methods
   promises no tie order on CUDA).
 * ``threshold_topk_abs`` / ``_threshold_tau`` -- 4 rounds of 8-way
   geometric multisection on tau, then a compaction of the survivors and
-  one small exact top-k. Method ``pallas`` counts with the CUDA count
-  kernel (``ops.cuda_topk``), method ``threshold`` with ``bucketize_counts``.
+  one small exact top-k. Method ``pallas`` runs the 4 rounds as one launch
+  of the CUDA multisection kernel (``ops.cuda_topk``), method
+  ``threshold`` counts each round with ``bucketize_counts``.
 * ``twostage_topk_abs`` -- per-bucket max candidates (the CUDA stage-1
   kernel), then an exact reselect over them.
 * ``select_tau`` -- tau alone, for the threshold-mask compressor.
@@ -23,14 +24,13 @@ n and value 0. Everything is shape-static and free of host syncs.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from gtopkssgd_tpu_torch.ops import cuda_topk
 from gtopkssgd_tpu_torch.ops.cuda_topk import BLOCK, BLOCK_ROWS, LANES
 
-CountFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 METHODS = ("auto", "exact", "threshold", "pallas", "twostage")
 
 
@@ -65,22 +65,15 @@ def bucketize_counts(mag: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     return counts
 
 
-def _multisection_tau_lo(mag: torch.Tensor, k: int,
-                         count_fn: CountFn) -> torch.Tensor:
-    """The lower end of the tau bracket after 4 rounds of 8-way geometric
-    multisection: count(mag >= lo) >= k always holds."""
-    maxv = mag.max()
-    lo = torch.zeros((), dtype=mag.dtype, device=mag.device)
-    hi = maxv
-    powers = torch.arange(1, 9, dtype=mag.dtype, device=mag.device)
-    for _ in range(4):
-        lo_eff = torch.maximum(lo, maxv * 1e-12 + 1e-30)
-        r = (lo_eff / (hi + 1e-30)) ** (1.0 / 9.0)
-        thr = hi * r ** powers  # 8 candidates strictly inside (lo, hi)
-        ge = count_fn(mag, thr) >= k
-        lo = torch.maximum(lo, torch.where(ge, thr, lo).max())
-        hi = torch.minimum(hi, torch.where(ge, hi, thr).min())
-    return lo
+def _tau_lo(x: torch.Tensor, mag: torch.Tensor, k: int, pallas: bool,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """lo of the tau bracket over mag = |x (+ residual)|, after 4 rounds of
+    8-way geometric multisection (count(mag >= lo) >= k always holds):
+    under `pallas` the multisection kernel reads x (+ residual) in one
+    launch; otherwise the same rounds count `mag` with bucketize_counts."""
+    if pallas:
+        return cuda_topk.multisection_tau_lo(x, k, residual)[0]
+    return cuda_topk.multisection_rounds(mag, k, bucketize_counts)[0]
 
 
 def _compact(selected: torch.Tensor, src: torch.Tensor, cap: int,
@@ -94,17 +87,17 @@ def _compact(selected: torch.Tensor, src: torch.Tensor, cap: int,
     return buf[:cap]
 
 
-def threshold_topk_abs(x: torch.Tensor, k: int,
-                       count_fn: Optional[CountFn] = None
+def threshold_topk_abs(x: torch.Tensor, k: int, *, pallas: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of |x| by threshold multisection + compaction: exact whenever
     the survivors fit in cap = min(n, max(2k, k + 4096)); beyond that the
-    lowest indices among the boundary values win."""
+    lowest indices among the boundary values win. `pallas` finds the
+    bracket with the multisection kernel."""
     n = x.shape[0]
     if k >= n:
         return topk_abs(x, k)
     mag = x.abs()
-    tau = _multisection_tau_lo(mag, k, count_fn or bucketize_counts)
+    tau = _tau_lo(x, mag, k, pallas)
     cap = min(n, max(2 * k, k + 4096))
     selected = mag >= tau
     buf_v = _compact(selected, x, cap, 0.0)
@@ -115,14 +108,17 @@ def threshold_topk_abs(x: torch.Tensor, k: int,
 
 
 def _threshold_tau(x: torch.Tensor, k: int,
-                   count_fn: Optional[CountFn] = None) -> torch.Tensor:
-    """tau of the threshold family without an index set: the same bracket
-    as threshold_topk_abs, then the k-th largest compacted magnitude."""
+                   residual: Optional[torch.Tensor] = None, *,
+                   pallas: bool = False) -> torch.Tensor:
+    """tau of the threshold family over acc = x (+ residual) without an
+    index set: the same bracket as threshold_topk_abs, then the k-th
+    largest compacted magnitude."""
     n = x.shape[0]
-    mag = x.abs()
+    acc = x if residual is None else x + residual
+    mag = acc.abs()
     if k >= n:
         return mag.min()
-    lo = _multisection_tau_lo(mag, k, count_fn or bucketize_counts)
+    lo = _tau_lo(x, mag, k, pallas, residual)
     cap = min(n, max(2 * k, k + 4096))
     buf_m = _compact(mag >= lo, mag, cap, 0.0)
     return torch.topk(buf_m, k).values[k - 1]
@@ -206,14 +202,6 @@ def _resolve_auto(n: int) -> str:
     return "exact"
 
 
-def _pallas_count_fn(x: torch.Tensor,
-                     residual: Optional[torch.Tensor]) -> CountFn:
-    """Count rounds that read x (+ residual) through the fused count
-    kernel instead of the materialized magnitudes."""
-    return lambda _mag, thr: cuda_topk.fused_multi_threshold_count(
-        x, thr, residual)
-
-
 def select_tau(
     x: torch.Tensor,
     k: int,
@@ -236,14 +224,12 @@ def select_tau(
             return acc.abs().min()
         cand_val, _ = _twostage_candidates(x, k, residual=residual)
         return torch.topk(cand_val.abs(), k).values[k - 1]
+    if method in ("threshold", "pallas"):
+        return _threshold_tau(x, k, residual, pallas=method == "pallas")
     acc = x if residual is None else x + residual
     if k >= n:
         return acc.abs().min()
-    if method == "exact":
-        return torch.topk(acc.abs(), k).values[k - 1]
-    if method == "threshold":
-        return _threshold_tau(acc, k)
-    return _threshold_tau(acc, k, count_fn=_pallas_count_fn(x, residual))
+    return torch.topk(acc.abs(), k).values[k - 1]
 
 
 def select_topk(
@@ -266,9 +252,7 @@ def select_topk(
         x = x + residual
     if method == "exact":
         return topk_abs(x, k)
-    if method == "threshold":
-        return threshold_topk_abs(x, k)
-    return threshold_topk_abs(x, k, count_fn=cuda_topk.multi_threshold_count)
+    return threshold_topk_abs(x, k, pallas=method == "pallas")
 
 
 def merge_sparse_sets(vals_a: torch.Tensor, idx_a: torch.Tensor,

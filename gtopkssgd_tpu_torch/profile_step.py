@@ -14,7 +14,16 @@ TIMED_STEPS steps unprofiled, then profile STEPS steps with
 * per trainer range ("data", "forward_backward", "optimizer"): host ms,
   the device ms of the kernels launched inside it, and its span on the
   card's timeline (first to last kernel, gaps included);
-* the top kernels by device time, the top-k kernels' included.
+* the top kernels by device time, the top-k kernels' included;
+* for a gtopk arm, the selection alone: ``select_tau`` on the step's own
+  gradient and residual, as the P = 1 step calls it once a step --
+  device launches (kernels, copies, memsets) per call, host ms per call
+  (enqueue, unprofiled) and device ms per call.
+
+It imports only the port's public entry points, so it also profiles an
+older checkout of the port. From that checkout's root, ``python -c
+"import runpy; runpy.run_path('<this file>', run_name='__main__')"``
+runs this script on that checkout's package.
 
 Needs a CUDA card: a measurement path that finds none fails.
 """
@@ -24,11 +33,13 @@ from __future__ import annotations
 import statistics
 import subprocess
 import sys
+import time
 from typing import Dict, List
 
 import torch
 from torch.autograd import DeviceType
 
+from gtopkssgd_tpu_torch.ops import k_for_density, select_tau
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
 ARMS = (("gtopk", "twostage"), ("gtopk", "pallas"), ("dense", "exact"))
@@ -37,6 +48,7 @@ STEPS = 10
 TIMED_STEPS = 50
 WARMUP = 5
 BATCH_SIZE = 32
+TOPK_KERNELS = ("count_kernel", "stage1_kernel", "multisection_kernel")
 
 
 def _union_us(intervals: List[tuple]) -> float:
@@ -94,6 +106,11 @@ def profile_arm(compression: str, method: str) -> Dict[str, object]:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    selection = None
+    if compression == "gtopk":
+        opt = trainer.optimizer
+        selection = profile_selection(method, opt.flat_grad,
+                                      opt.state["residual"])
     return dict(
         compression=compression, method=method,
         wall_ms=wall_ms,
@@ -105,8 +122,39 @@ def profile_arm(compression: str, method: str) -> Dict[str, object]:
         top_kernels=[dict(name=k[:90], device_ms=v / 1e3 / steps)
                      for k, v in top],
         topk_kernels={k[:60]: v / 1e3 / steps for k, v in by_kernel.items()
-                      if "count_kernel" in k or "stage1_kernel" in k},
+                      if any(s in k for s in TOPK_KERNELS)},
+        selection=selection,
     )
+
+
+def profile_selection(method: str, grad: torch.Tensor,
+                      residual: torch.Tensor) -> Dict[str, float]:
+    """``select_tau`` alone, STEPS calls: launches, host ms and device ms
+    per call."""
+    k = k_for_density(grad.shape[0], 0.001)
+
+    def call():
+        return select_tau(grad, k, method, residual=residual)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(STEPS):
+            call()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    return dict(
+        launches_per_call=len(device) / STEPS, host_ms_per_call=host_ms,
+        device_ms_per_call=sum(e.time_range.elapsed_us() for e in device)
+        / 1e3 / STEPS)
 
 
 def main() -> int:
@@ -129,6 +177,12 @@ def main() -> int:
         for kern in a["top_kernels"][:6]:
             print(f"  kernel {kern['device_ms']:.4f} ms  {kern['name']}")
         print(f"  top-k kernels: {a['topk_kernels']}")
+        s = a["selection"]
+        if s is not None:
+            print(f"  selection alone (select_tau): "
+                  f"{s['launches_per_call']:.0f} device launches, host "
+                  f"{s['host_ms_per_call']:.3f} ms, device "
+                  f"{s['device_ms_per_call']:.4f} ms per call")
     return 0
 
 
