@@ -12,11 +12,18 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    kernel the median device time of 20 calls (CUDA events, the card kept
    busy ahead of each call so host overhead is not timed), beside the
    twin's, a one-call library yardstick the port never uses, and the bound
-   max(bytes / 3.35 TB/s, operations / 67 TFLOP/s). The multisection
+   max(bytes / 3.35 TB/s, operations / 67 TFLOP/s); first, an empty
+   kernel's time, ``launch_floor_ms``. The multisection
    kernel (lo, the 4x8 thresholds and the 4x8 counts, in abs and in
    residual mode) is also held to the four-launch path it replaced (the
    round loop counting with the single-pass count kernel), whose lo must
-   be bitwise equal and whose time is reported as ``replaced_ms``.
+   be bitwise equal and whose time is reported as ``replaced_ms``. The
+   stage-1 kernel is also held to its twin, not timed, without the
+   residual at both sizes, and on ``stage1_design.edge_cases``: n in {1,
+   127, 1000, 262,143, 262,145} x groups in {1, 8, 64, 2048}, views one
+   float into their buffers (4-byte loads), and equal maxima of opposite
+   signs in rows that different warps read; residual on and off, counts
+   off and on, each.
 3. The main path: the port's Trainer, ResNet-20 at full width on synthetic
    CIFAR-10, batch 32, gTop-k at density 0.001 -- 20 steps with
    ``--topk-method twostage`` (stage-1 kernel: one launch a step), 10 with
@@ -132,6 +139,7 @@ def kernel_phase(n: int):
     import torch
 
     from gtopkssgd_tpu_torch.ops import cuda_topk, topk
+    from gtopkssgd_tpu_torch.stage1_design import stage1_mismatch
 
     gen = torch.Generator(device="cuda").manual_seed(n)
     g = torch.randn(n, device="cuda", generator=gen)
@@ -147,25 +155,31 @@ def kernel_phase(n: int):
     thr = torch.cat([q, mag[:1]]).contiguous()  # one threshold == a datum
     nb = max(1, -(-n // cuda_topk.BLOCK))
     L = nb * groups * cuda_topk.LANES
+    buckets = torch.nn.functional.pad(
+        mag, (0, nb * cuda_topk.BLOCK - n), value=-1.0).view(
+        nb, groups, cuda_topk.BLOCK_ROWS // groups, cuda_topk.LANES)
     cases = {
         "multi_threshold_count": dict(
             run=lambda: cuda_topk.multi_threshold_count(mag, thr),
             ref=lambda: cuda_topk.multi_threshold_count_ref(mag, thr),
             lib=lambda: (mag[:, None] >= thr).sum(0),
             bytes=4 * n + 64, ops=8 * n),
+        # Library: the bucket maxima and their rows over a precomputed,
+        # padded |acc| (no add, CUDA's own tie rule); torch.topk is the
+        # whole selection's yardstick, not this kernel's.
         "fused_stage1_candidates": dict(
             run=lambda: cuda_topk.fused_stage1_candidates(
                 g, None, r, groups=groups),
             ref=lambda: cuda_topk.fused_stage1_candidates_ref(
                 g, None, r, groups=groups),
-            lib=lambda: torch.topk((g + r).abs(), k),
+            lib=lambda: torch.max(buckets, dim=2),
             bytes=8 * n + 8 * L, ops=3 * n),
         "fused_stage1_candidates+counts": dict(
             run=lambda: cuda_topk.fused_stage1_candidates(
                 g, thr, r, groups=groups),
             ref=lambda: cuda_topk.fused_stage1_candidates_ref(
                 g, thr, r, groups=groups),
-            lib=lambda: torch.topk((g + r).abs(), k),
+            lib=lambda: torch.max(buckets, dim=2),
             bytes=8 * n + 8 * L + 64, ops=11 * n),
         "fused_multi_threshold_count": dict(
             run=lambda: cuda_topk.fused_multi_threshold_count(g, thr, r),
@@ -227,7 +241,30 @@ def kernel_phase(n: int):
               f"library_ms={rec['library_ms']:.5f} "
               f"bound_ms={rec['bound_ms']:.5f} ({by}){extra}")
         out[name] = rec
+    bad = stage1_mismatch(g, None, groups)
+    check(bad is None, f"fused_stage1_candidates n={n}, no residual: {bad}")
+    print(f"kernel fused_stage1_candidates n={n:>10,d} without residual, "
+          "counts off and on: match=bitwise (not timed)")
     return out
+
+
+def stage1_edge_phase() -> int:
+    """The stage-1 kernel against its twin on every edge case, in all four
+    instantiations (residual on and off, counts off and on); returns the
+    number of cases."""
+    from gtopkssgd_tpu_torch.stage1_design import edge_cases, stage1_mismatch
+
+    cases = 0
+    for label, g, r, groups in edge_cases("cuda"):
+        for res in (r, None):
+            bad = stage1_mismatch(g, res, groups)
+            check(bad is None, f"fused_stage1_candidates {label} "
+                               f"groups={groups} residual "
+                               f"{res is not None}: {bad}")
+        print(f"kernel fused_stage1_candidates edge {label} groups={groups}"
+              ": match=bitwise, residual on and off, counts off and on")
+        cases += 1
+    return cases
 
 
 def train_run(method: str, compression: str, steps: int):
@@ -437,7 +474,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     build_kernels()
 
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+
+    floor = device_ms(lambda: cuda_topk.launch_floor(torch.device("cuda")))
+    print(f"launch_floor_ms={floor:.5f} (an empty kernel, same route)")
     kernels = {n: kernel_phase(n) for n in SIZES}
+    print(f"stage-1 edge cases: {stage1_edge_phase()} bitwise")
 
     runs = [train_run("twostage", "gtopk", 20),
             train_run("pallas", "gtopk", 10),
@@ -464,7 +506,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "n": n0, "match": "bitwise",
+            "n": n0, "match": "bitwise", "launch_floor_ms": floor,
             "on_path": total[name] > 0,
             "at_n_25557032": {key: kernels[SIZES[1]][name][key] for key in
                               ("ms", "plain_ms", "bound_ms", "library_ms",

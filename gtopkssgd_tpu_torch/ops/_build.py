@@ -34,6 +34,8 @@ SIGNATURES = {
     "gtopk_count": [_VP, _VP, _INT, _LL, _VP, _VP, _VP],
     "gtopk_stage1": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP, _VP],
     "gtopk_multisection": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP],
+    "gtopk_noop": [_VP],
+    "gtopk_bytes_floor": [_VP, _VP, _LL, _VP, _VP, _LL, _VP],
 }
 
 _lock = threading.Lock()

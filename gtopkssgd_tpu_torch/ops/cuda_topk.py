@@ -7,7 +7,8 @@ kernels (``csrc/topk_kernels.cu``):
   thr[i]}`` for 8 thresholds in one pass (K1, the TPU ``_count_kernel``).
 * ``fused_stage1_candidates(grad, thr, residual, groups=)`` -- per-bucket
   max-|grad + residual| candidates of the 2048x128 tile layout, plus the
-  optional 8 counts, in one pass (K2).
+  optional 8 counts, in one pass (K2; 16-byte loads where grad and
+  residual are 16-byte aligned, 4-byte loads where not).
 * ``fused_multi_threshold_count(grad, thr, residual)`` -- the 8 counts of
   ``|grad + residual|`` without storing the sum (K3; the count kernel with
   a residual operand).
@@ -16,6 +17,9 @@ kernels (``csrc/topk_kernels.cu``):
   and the narrowing between them, in one cooperative launch. The selection
   path calls this one; the two single-pass wrappers above stay as the
   one-for-one ports of the TPU functions.
+
+``launch_floor(device)`` launches an empty kernel through the same route:
+what a launch costs with no work in it.
 
 A wrapper launches its kernel when its tensors lie on a CUDA device and
 uses its ``*_ref`` twin when they lie on the CPU; there is no fallback from
@@ -283,6 +287,15 @@ def fused_stage1_candidates(
     _raise_on(rc, "fused_stage1_candidates")
     launches["fused_stage1_candidates"] += 1
     return cand_val, cand_idx, counts
+
+
+def launch_floor(device: torch.device) -> None:
+    """One launch of an empty kernel on `device`'s current stream."""
+    from gtopkssgd_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(device):
+        _raise_on(lib.gtopk_noop(_stream(device)), "launch_floor")
 
 
 def multisection_tau_lo(

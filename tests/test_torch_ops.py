@@ -17,6 +17,7 @@ from jax import lax
 
 from gtopkssgd_tpu.ops import pallas_topk as jpk
 from gtopkssgd_tpu.ops import topk as jtopk
+from gtopkssgd_tpu_torch import stage1_design
 from gtopkssgd_tpu_torch.ops import cuda_topk, topk
 
 torch.set_num_threads(2)
@@ -60,11 +61,14 @@ def test_fused_multi_threshold_count_twin_bitwise(n, with_residual):
 
 
 # Every residual/thresholds combination at the block edge, then the small
-# and just-past-the-edge sizes with both operands.
+# and just-past-the-edge sizes with both operands, then the extreme
+# groups: one bucket of 2048 rows a lane, and buckets of one row.
 _STAGE1_CASES = (
     [(262_144, 8, res, cnt) for res in (False, True) for cnt in (False, True)]
     + [(n, g, True, True) for n in (1000, 262_145) for g in (8, 64)]
     + [(262_144, 64, True, False)]
+    + [(n, g, True, cnt) for n in (1000, 262_145) for g in (1, 2048)
+       for cnt in (False, True)]
 )
 
 
@@ -89,6 +93,23 @@ def test_fused_stage1_candidates_twin_bitwise(n, groups, with_residual,
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     else:
         assert tc is None and jc is None
+
+
+@pytest.mark.parametrize("groups", [1, 8, 64, 2048])
+def test_fused_stage1_candidates_ties_twin_bitwise(groups):
+    """Repeated magnitudes of both signs in every bucket, and equal maxima
+    of opposite signs at rows 0 and rpg - 1 and at rpg/2 - 1 and rpg/2:
+    the first row's signed value must win, as in the Pallas kernel."""
+    g, r = stage1_design.tie_input(272_474, groups)
+    thr = _thresholds(np.abs(g + r), np.random.default_rng(groups))
+    jv, ji, jc = jpk.fused_stage1_candidates(
+        jnp.asarray(g), jnp.asarray(thr), jnp.asarray(r), groups=groups,
+        interpret=True)
+    tv, ti, tc = cuda_topk.fused_stage1_candidates(
+        _t(g), _t(thr), _t(r), groups=groups)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 
 
 def test_wrappers_take_the_twin_for_cpu_tensors():
@@ -235,7 +256,9 @@ def test_unported_method_is_refused():
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
     """On a CUDA card: each kernel bitwise equal to its twin (the CPU
-    suite holds the twins to the Pallas kernels)."""
+    suite holds the twins to the Pallas kernels); the stage-1 kernel also
+    on every edge case of ``stage1_design.edge_cases``, with and without
+    the residual."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on one")
     rng = np.random.default_rng(0)
@@ -257,3 +280,7 @@ def test_kernels_match_twins_on_card():
                                                          groups=groups)
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu(), b)
+    for label, g, r, groups in stage1_design.edge_cases("cuda"):
+        for res in (r, None):
+            bad = stage1_design.stage1_mismatch(g, res, groups)
+            assert bad is None, f"{label} groups={groups}: {bad}"
