@@ -47,7 +47,32 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    parameters bitwise equal on every rank; the gradient bytes a rank
    sends per step against ``comm_bytes_per_step`` at P = 4, the tree's
    rounds against ``tree_rounds`` at P = 3. See ``dist_phase``.
-6. A ``kernels`` JSON line, then the last line
+6. The flat path's options and the wire codecs, ResNet-20 at full width,
+   batch 32, density 0.001 (k = 273 of N = 272,474):
+   (a) P = 1 ``twostage`` with momentum correction, clip 5.0 and 3 dense
+       warm-up steps, 10 steps: 7 stage-1 launches (none in the warm-up);
+       at a warm-up step the update is the velocity and v is unchanged;
+       at a sparse step v_new + update == v_old + u (u the velocity
+       before masking) bitwise and u_new is 0 where keep holds. P = 1
+       ``pallas`` with momentum correction, 5 steps: one residual-mode
+       multisection launch a step. See ``correction_phase``.
+   (b) The codec on the card against the codec on the CPU, bitwise in
+       the words and in the decoded (vals, idx): int8, fp8 and fp8:32 at
+       (k, n) = (273, 272,474) and (25,557, 25,557,032), an all-sentinel
+       set, a set with k = n, the rounding midpoints of int8 and fp8, and
+       block maxima whose bf16 scale is a rounding tie; the median device
+       time of encode and decode at both sizes. See ``codec_phase``.
+   (c) P > 1 with the codecs and the allgather baseline, 10 steps each:
+       P = 4 gtopk ``twostage`` int8 and fp8 (1,400 bytes a rank a step
+       by the model), P = 3 gtopk ``pallas`` fp8:32 (``tree_rounds(3)``
+       rounds of 708-byte sets), P = 4 ``allgather`` ``twostage`` int8
+       (2,800 bytes) and P = 4 ``topk`` ``pallas`` fp32 (8,736 bytes;
+       nothing folded: residual + picks == accumulator, bitwise). The
+       phase 5 checks, with ``merge_tree_ref(..., codec=)`` at step 1 for
+       gtopk and, for the allgather modes, the dense union bitwise equal
+       across ranks and at step 1 to the rank-order sum of the decoded
+       sets on the CPU.
+7. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -335,27 +360,50 @@ def reference_phase():
         check(same, f"reference {method}: card selection != cpu twins")
 
 
-DIST_RUNS = (("twostage", "gtopk", 4), ("pallas", "gtopk", 3),
-             ("exact", "dense", 4))
+# (method, compression, P, codec)
+DIST_RUNS = (("twostage", "gtopk", 4, "fp32"), ("pallas", "gtopk", 3, "fp32"),
+             ("exact", "dense", 4, "fp32"))
+CODEC_RUNS = (("twostage", "gtopk", 4, "int8"),
+              ("twostage", "gtopk", 4, "fp8"),
+              ("pallas", "gtopk", 3, "fp8:32"),
+              ("twostage", "allgather", 4, "int8"),
+              ("pallas", "topk", 4, "fp32"))
 DIST_STEPS = 10
+N_RESNET20, K_RESNET20 = 272_474, 273
+
+
+def rank_order_union(local, k: int, n: int, codec: str):
+    """The allgather union on the CPU: each rank's shipped set through the
+    codec, added into a dense f32[n] one rank at a time, rank 0 first."""
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel.codec import get_codec
+
+    c = get_codec(codec)
+    out = torch.zeros(n + 1)
+    for vals, idx in local:
+        v, i = c.decode(c.encode(vals, idx, n=n), k=k, n=n)
+        out.index_add_(0, i.clamp(max=n).long(), v)
+    return out[:n]
 
 
 def dist_rank(device, method: str, compression: str, nworkers: int,
-              steps: int) -> dict:
+              steps: int, codec: str) -> dict:
     """One rank of a P > 1 run (spawned by ``dist_phase``): trains `steps`
     steps and checks, after each, that every rank holds the same global
-    set; returns this rank's launch and wire counters and its checks."""
+    set (gtopk) or dense union (the allgather modes); returns this rank's
+    launch and wire counters and its checks."""
     import torch
     import torch.distributed as dist
 
-    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.ops import cuda_topk, scatter_add_dense
     from gtopkssgd_tpu_torch.parallel import collectives
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
     trainer = Trainer(TrainConfig(
         dnn="resnet20", batch_size=32, compression=compression,
         density=0.001, topk_method=method, device=str(device),
-        nworkers=nworkers))
+        nworkers=nworkers, wire_codec=codec))
     opt, rank = trainer.optimizer, dist.get_rank()
 
     def gather(t):
@@ -367,55 +415,78 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
     def wire_set(vals, idx):
         return torch.cat([vals.view(torch.int32), idx])
 
+    def local_sets():
+        k = opt.last_local[0].shape[0]
+        return k, [(x[:k].view(torch.float32), x[k:])
+                   for x in gather(wire_set(*opt.last_local))]
+
     cuda_topk.reset_launches()
     collectives.reset_wire()
-    times, losses, agree, tree_ok = [], [], True, None
+    times, losses, agree, ref_ok, mass_ok = [], [], True, None, None
     for step in range(steps):
+        res_old = opt.state["residual"].clone()
         stats = trainer.train(1)
         times.append(stats["step_times"][0])
         losses.append(stats["loss"])
-        if opt.last_global is None:
-            continue
-        sets = gather(wire_set(*opt.last_global))
-        agree = agree and all(torch.equal(x, sets[0]) for x in sets)
-        if step == 0:
-            n, k = trainer.num_params, opt.last_global[0].shape[0]
-            local = [(x[:k].view(torch.float32), x[k:])
-                     for x in gather(wire_set(*opt.last_local))]
-            want = collectives.merge_tree_ref(local, k, n)[rank]
-            tree_ok = torch.equal(wire_set(*want), sets[rank])
+        n = trainer.num_params
+        if opt.last_global is not None:
+            sets = gather(wire_set(*opt.last_global))
+            agree = agree and all(torch.equal(x, sets[0]) for x in sets)
+            if step == 0:
+                k, local = local_sets()
+                want = collectives.merge_tree_ref(local, k, n,
+                                                  codec=codec)[rank]
+                ref_ok = torch.equal(wire_set(*want), sets[rank])
+        elif opt.last_union is not None:
+            unions = gather(opt.last_union.view(torch.int32))
+            agree = agree and all(torch.equal(x, unions[0]) for x in unions)
+            if step == 0:
+                k, local = local_sets()
+                want = rank_order_union(local, k, n, codec)
+                ref_ok = torch.equal(want.view(torch.int32), unions[rank])
+            if compression == "topk":  # every pick ships as it is
+                vals, idx = opt.last_local
+                kept = opt.state["residual"] + scatter_add_dense(n, idx,
+                                                                 vals)
+                ok = torch.equal(kept, opt.flat_grad + res_old)
+                mass_ok = ok if mass_ok is None else mass_ok and ok
     launches = dict(cuda_topk.launches)
     wire = dict(collectives.wire)
     flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
     params = gather(flat)
     return dict(rank=rank, device=str(device), launches=launches,
                 wire=wire, step_times=times, losses=losses,
-                sets_agree=agree, tree_ok=tree_ok,
+                sets_agree=agree, ref_ok=ref_ok, mass_ok=mass_ok,
                 params_agree=all(torch.equal(x, params[0]) for x in params))
 
 
-def dist_phase():
-    """The P > 1 runs (see the module docstring, phase 5); returns the
-    launches per kernel, summed over every rank of every run."""
+def dist_phase(runs) -> dict:
+    """The P > 1 `runs` (see the module docstring, phases 5 and 6c);
+    returns the launches per kernel, summed over every rank of every
+    run."""
     import torch
 
+    from gtopkssgd_tpu_torch.modes import ALLGATHER_MODES
     from gtopkssgd_tpu_torch.parallel import comm_bytes_per_step, tree_rounds
+    from gtopkssgd_tpu_torch.parallel.codec import get_codec
+    from gtopkssgd_tpu_torch.parallel.collectives import _tree_plan
     from gtopkssgd_tpu_torch.parallel.dist import spawn
 
     cards = torch.cuda.device_count()
     total = {name: 0 for name in REPLACES}
-    for method, compression, p in DIST_RUNS:
+    for method, compression, p, codec in runs:
         backend = "nccl" if cards >= p else "gloo"
         used = min(cards, p)
         t0 = time.perf_counter()
         ranks = spawn(dist_rank, p, method, compression, p, DIST_STEPS,
-                      backend=backend, device="cuda", timeout=300)
+                      codec, backend=backend, device="cuda", timeout=300)
         wall = time.perf_counter() - t0
-        run = f"P={p} {compression}/{method}"
+        run = f"P={p} {compression}/{method}/{codec}"
+        sparse = compression != "dense"
         want_launches = {
             "twostage": {"fused_stage1_candidates": DIST_STEPS},
             "pallas": {"multisection_tau_lo[abs]": DIST_STEPS},
-        }.get(method, {}) if compression == "gtopk" else {}
+        }.get(method, {}) if sparse else {}
         for r in ranks:
             check_launches(r["launches"], want_launches,
                            f"{run} rank {r['rank']}")
@@ -426,17 +497,32 @@ def dist_phase():
             for name in REPLACES:
                 total[name] += r["launches"][name]
         per_step = [r["wire"]["bytes"] / DIST_STEPS for r in ranks]
-        if compression == "gtopk":
+        rounds = [r["wire"]["rounds"] / DIST_STEPS for r in ranks]
+        model = comm_bytes_per_step(compression, N_RESNET20, K_RESNET20, p,
+                                    codec=codec)
+        if sparse:
+            what = ("dense unions" if compression in ALLGATHER_MODES
+                    else "global sets")
             check(all(r["sets_agree"] for r in ranks),
-                  f"{run}: global sets differ across ranks")
-            check(all(r["tree_ok"] for r in ranks),
-                  f"{run}: global set != merge_tree_ref of the local sets")
-            rounds = [r["wire"]["rounds"] / DIST_STEPS for r in ranks]
+                  f"{run}: {what} differ across ranks")
+            check(all(r["ref_ok"] for r in ranks),
+                  f"{run}: step 1 differs from the CPU reference")
+        if compression == "gtopk":
             check(rounds == [tree_rounds(p)] * p,
                   f"{run}: {rounds} tree rounds a step, model "
                   f"{tree_rounds(p)}")
+            set_bytes = get_codec(codec).wire_set_bytes(K_RESNET20,
+                                                        N_RESNET20)
+            sends = sum(len(pairs) for pairs in _tree_plan(p))
+            check(sum(per_step) == sends * set_bytes,
+                  f"{run}: {per_step} bytes a step, {sends} sets of "
+                  f"{set_bytes} bytes expected in all")
+        elif compression in ALLGATHER_MODES:
+            check(rounds == [1] * p, f"{run}: {rounds} rounds a step")
+        if compression == "topk":
+            check(all(r["mass_ok"] for r in ranks),
+                  f"{run}: residual + shipped picks != accumulator")
         if p & (p - 1) == 0:
-            model = comm_bytes_per_step(compression, 272_474, 273, p)
             check(per_step == [model] * p,
                   f"{run}: {per_step} bytes a step, model {model}")
         med = statistics.median(
@@ -445,13 +531,192 @@ def dist_phase():
               f"ranks, {DIST_STEPS} steps, loss "
               f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f}, "
               f"median step {med * 1e3:.3f} ms (steps 2-{DIST_STEPS}, all "
-              f"ranks), bytes sent a step per rank {per_step}, launches "
-              f"per rank {ranks[0]['launches']}, global sets and final "
-              f"params bitwise equal across ranks"
-              + (", step-1 set == merge_tree_ref"
-                 if compression == "gtopk" else "")
+              f"ranks), bytes sent a step per rank {per_step} "
+              f"(comm_bytes_per_step {model}), launches "
+              f"per rank {ranks[0]['launches']}, final params bitwise "
+              f"equal across ranks"
+              + (f", {what} bitwise equal across ranks and at step 1 to "
+                 "the CPU reference" if sparse else "")
+              + (", nothing folded" if compression == "topk" else "")
               + f"; spawn to join {wall:.1f} s")
     return total
+
+
+def correction_phase() -> dict:
+    """Phase 6a (see the module docstring); returns the launches."""
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.optimizer import (
+        clip_by_global_norm,
+        velocity_update,
+    )
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    total = {name: 0 for name in REPLACES}
+    clip, warmup, steps = 5.0, 3, 10
+    trainer = Trainer(TrainConfig(
+        dnn="resnet20", batch_size=32, compression="gtopk", density=0.001,
+        topk_method="twostage", momentum_correction=True,
+        clip_grad_norm=clip, device="cuda"))
+    opt = trainer.optimizer = trainer.make_optimizer(warmup_dense_steps=warmup)
+    lay = trainer.layout
+    run = "P=1 gtopk/twostage correction clip warm-up 3"
+    cuda_topk.reset_launches()
+    losses = []
+    for step in range(steps):
+        v_old = opt.state["residual"]["v"].clone()
+        u_old = opt.state["residual"]["u"].clone()
+        losses.append(trainer.train(1)["loss"])
+        v_new, u_new = opt.state["residual"]["v"], opt.state["residual"]["u"]
+        update = lay.ravel([p.grad for p in lay.params])
+        u = velocity_update(trainer.cfg.momentum, u_old,
+                            clip_by_global_norm(opt.flat_grad, clip))
+        if step < warmup:
+            check(opt.last_keep is None and torch.equal(update, u)
+                  and torch.equal(v_new, v_old) and torch.equal(u_new, u),
+                  f"{run}: warm-up step {step + 1} is not the dense "
+                  "velocity with v and u passed through")
+            continue
+        keep = opt.last_keep
+        check(keep is not None, f"{run}: step {step + 1} kept nothing")
+        check(torch.equal(v_new + update, v_old + u),
+              f"{run}: step {step + 1}: v_new + update != v_old + u")
+        check(bool((u_new[keep] == 0).all())
+              and torch.equal(u_new[~keep], u[~keep]),
+              f"{run}: step {step + 1}: u not masked exactly where kept")
+    launches = dict(cuda_topk.launches)
+    check(all(math.isfinite(v) for v in losses),
+          f"{run}: non-finite loss {losses}")
+    check_launches(launches, {"fused_stage1_candidates": steps - warmup},
+                   f"{run}, {steps} steps")
+    print(f"options {run}: {steps} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, launches {launches}; warm-up steps dense "
+          "with v and u passed through, sparse steps v_new + update == "
+          "v_old + u and u_new == 0 where kept, bitwise")
+    for name in REPLACES:
+        total[name] += launches[name]
+
+    trainer = Trainer(TrainConfig(
+        dnn="resnet20", batch_size=32, compression="gtopk", density=0.001,
+        topk_method="pallas", momentum_correction=True, nesterov=False,
+        device="cuda"))
+    cuda_topk.reset_launches()
+    losses = trainer.train(5)["losses"]
+    launches = dict(cuda_topk.launches)
+    run = "P=1 gtopk/pallas correction"
+    check(all(math.isfinite(v) for v in losses),
+          f"{run}: non-finite loss {losses}")
+    check_launches(launches, {"multisection_tau_lo[residual]": 5},
+                   f"{run}, 5 steps")
+    print(f"options {run}: 5 steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, launches {launches}")
+    for name in REPLACES:
+        total[name] += launches[name]
+    return total
+
+
+CODEC_SPECS = ("int8", "fp8", "fp8:32")
+CODEC_SIZES = ((273, 272_474), (25_557, 25_557_032))
+
+
+def midpoint_set(spec: str):
+    """(vals, idx) on the CPU whose values sit on the quantizer's rounding
+    midpoints and one float32 ulp either side (int8's j + 0.5, fp8's
+    midpoints between consecutive e4m3fn values, both signs) times 2^-4;
+    every 4th value (index order) is qmax * 2^-4, so every block's bf16
+    scale is exactly 2^-4."""
+    import torch
+
+    s = 2.0 ** -4
+    if spec.startswith("int8"):
+        mids, qmax = torch.arange(-127, 127, dtype=torch.float32) + 0.5, 127.0
+    else:
+        grid = torch.arange(0x7F, dtype=torch.uint8).view(
+            torch.float8_e4m3fn).to(torch.float32)
+        pos = (grid[:-1] + grid[1:]) / 2
+        mids, qmax = torch.cat([pos, -pos]), 448.0
+    v = mids * s
+    inf = torch.full_like(v, math.inf)
+    vals = torch.stack([torch.full_like(v, qmax * s), v,
+                        torch.nextafter(v, inf), torch.nextafter(v, -inf)],
+                       dim=1).reshape(-1)
+    return vals, torch.arange(vals.numel(), dtype=torch.int32)
+
+
+def scale_midpoint_set(spec: str, nblocks: int = 64):
+    """(vals, idx) on the CPU whose block maxima are qmax times a bf16
+    rounding midpoint, so amax / qmax is a tie of the bf16 rounding when
+    the quotient is IEEE (and off it, by an ulp, when it is not); the
+    other values of a block are the maximum times (-1, 1)."""
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel.codec import get_codec
+
+    c = get_codec(spec)
+    gen = torch.Generator().manual_seed(9)
+    b = (torch.rand(nblocks, generator=gen) * 8 - 10).exp2()
+    b = b.to(torch.bfloat16)
+    nxt = (b.view(torch.int16) + 1).view(torch.bfloat16)
+    mid = (b.to(torch.float32) + nxt.to(torch.float32)) / 2
+    amax = mid * c.qmax
+    rest = torch.rand(nblocks, c.block - 1, generator=gen) * 2 - 1
+    vals = torch.cat([amax[:, None], amax[:, None] * rest], dim=1)
+    vals = vals.reshape(-1)
+    return vals, torch.arange(vals.numel(), dtype=torch.int32)
+
+
+def codec_phase() -> None:
+    """Phase 6b (see the module docstring); prints the median device ms
+    of encode and decode by codec and size."""
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel.codec import get_codec
+
+    gen = torch.Generator().manual_seed(5)
+
+    def random_set(k, n, pad):
+        idx = torch.randperm(n, generator=gen)[:k - pad].to(torch.int32)
+        vals = 3 * torch.randn(k - pad, generator=gen)
+        return (torch.cat([vals, torch.zeros(pad)]),
+                torch.cat([idx, torch.full((pad,), n, dtype=torch.int32)]))
+
+    cases = [(f"k={k} n={n}", *random_set(k, n, 2), n)
+             for k, n in CODEC_SIZES]
+    cases.append(("all-sentinel", torch.zeros(273),
+                  torch.full((273,), 272_474, dtype=torch.int32), 272_474))
+    cases.append(("k=n", torch.randn(4096, generator=gen),
+                  torch.randperm(4096, generator=gen).to(torch.int32), 4096))
+    timings = {}
+    for spec in CODEC_SPECS:
+        c = get_codec(spec)
+        mids, smids = midpoint_set(spec), scale_midpoint_set(spec)
+        for label, vals, idx, n in cases + [
+                ("midpoints", *mids, 2 * mids[0].numel()),
+                ("scale midpoints", *smids, 2 * smids[0].numel())]:
+            k = vals.numel()
+            w_cpu = c.encode(vals, idx, n=n)
+            w_dev = c.encode(vals.cuda(), idx.cuda(), n=n)
+            check(w_dev.is_cuda and torch.equal(w_dev.cpu(), w_cpu),
+                  f"codec {spec} {label}: card words != cpu words")
+            v_cpu, i_cpu = c.decode(w_cpu, k=k, n=n)
+            v_dev, i_dev = c.decode(w_dev, k=k, n=n)
+            check(torch.equal(i_dev.cpu(), i_cpu)
+                  and torch.equal(v_dev.cpu().view(torch.int32),
+                                  v_cpu.view(torch.int32)),
+                  f"codec {spec} {label}: card decode != cpu decode")
+        for (k, n), (_, vals, idx, _) in zip(CODEC_SIZES, cases):
+            vals, idx = vals.cuda(), idx.cuda()
+            wire = c.encode(vals, idx, n=n)
+            timings[f"{spec} k={k}"] = {
+                "encode_ms": device_ms(lambda: c.encode(vals, idx, n=n)),
+                "decode_ms": device_ms(lambda: c.decode(wire, k=k, n=n)),
+                "wire_bytes": 4 * wire.numel()}
+        print(f"codec {spec}: card == cpu bitwise (words, vals, idx) on "
+              f"{len(cases) + 2} sets: " + ", ".join(label for label, *_ in
+                                                    cases)
+              + ", midpoints, scale midpoints")
+    print("codec_ms " + json.dumps(timings))
 
 
 def main() -> int:
@@ -493,7 +758,12 @@ def main() -> int:
 
     reference_phase()
 
-    for name, count in dist_phase().items():
+    for name, count in dist_phase(DIST_RUNS).items():
+        total[name] += count
+    for name, count in correction_phase().items():
+        total[name] += count
+    codec_phase()
+    for name, count in dist_phase(CODEC_RUNS).items():
         total[name] += count
 
     n0 = SIZES[0]

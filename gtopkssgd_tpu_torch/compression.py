@@ -110,6 +110,22 @@ class TopKCompressor:
         out.index_add_(0, local_idx.clamp(max=n).long(), put_back)
         return out[:n]
 
+    def fold_wire_error(
+        self,
+        residual: torch.Tensor,
+        local_idx: torch.Tensor,
+        wire_err: torch.Tensor,
+    ) -> torch.Tensor:
+        """Add a lossy codec's error, ``vals - roundtrip_aligned(vals)`` per
+        local pick, into the residual, before the collective. The shipped
+        values are then the roundtripped ones, and ``repair`` of a rejected
+        pick restores roundtrip + error = the original value. Padding slots
+        carry no error and drop out."""
+        n = residual.shape[0]
+        out = torch.cat([residual, residual.new_zeros(1)])
+        out.index_add_(0, local_idx.clamp(max=n).long(), wire_err)
+        return out[:n]
+
 
 @dataclasses.dataclass(frozen=True)
 class NoneCompressor:

@@ -7,8 +7,8 @@ fix the flat gradient order.
   weight/bias/running_mean/running_var.
 * ``load_jax_state(trainer, ...)`` carries a JAX trainer's whole state
   into a port ``Trainer``: weights and BatchNorm statistics, the SGD
-  momentum, this rank's row of the per-rank ``[P, N]`` residual, and the
-  step count.
+  momentum, this rank's row of the per-rank ``[P, N]`` residual (or of
+  its {"v", "u"} pair under momentum correction), and the step count.
 * ``flat_layout(model)`` orders the model's parameters as the JAX package's
   ``ravel_pytree`` does -- flax's sorted module paths (``BasicBlock_0`` ..
   ``BasicBlock_8``, ``BatchNorm_0``, ``Conv_0``, ``Dense_0``; in a block
@@ -19,7 +19,7 @@ fix the flat gradient order.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,22 +84,34 @@ def from_jax_params(params: Mapping[str, Any],
 
 
 def load_jax_state(trainer, params: Mapping[str, Any],
-                   batch_stats: Mapping[str, Any], momentum: Mapping[str, Any],
-                   residual, count: int) -> None:
+                   batch_stats: Mapping[str, Any],
+                   momentum: Optional[Mapping[str, Any]], residual,
+                   count: int) -> None:
     """Load a JAX trainer's state, as numpy trees, into `trainer` (one
-    rank): ``momentum`` is optax's SGD trace, a tree like ``params``;
-    ``residual`` is f32[N] at P = 1 and the per-rank f32[P, N] above it,
-    of which this rank takes row ``trainer.rank``."""
+    rank): ``momentum`` is optax's SGD trace, a tree like ``params``, or
+    None where there is none (under momentum correction the SGD step has
+    no momentum); ``residual`` is f32[N] at P = 1 and the per-rank
+    f32[P, N] above it, of which this rank takes row ``trainer.rank`` --
+    under momentum correction a mapping {"v": ..., "u": ...} of two such
+    arrays, the accumulated and the local velocity."""
     trainer.model.load_state_dict(from_jax_params(params, batch_stats))
     named = dict(trainer.model.named_parameters())
     opt = trainer.optimizer
     device = trainer.device
-    for name, buf in from_jax_params(momentum, {}).items():
-        opt.state[named[name]]["momentum_buffer"] = buf.to(device)
-    residual = np.asarray(residual, dtype=np.float32)
-    if residual.ndim == 2:
-        residual = residual[trainer.rank]
-    opt.state["residual"] = torch.from_numpy(residual.copy()).to(device)
+
+    def row(x) -> torch.Tensor:
+        x = np.asarray(x, dtype=np.float32)
+        if x.ndim == 2:
+            x = x[trainer.rank]
+        return torch.from_numpy(x.copy()).to(device)
+
+    if momentum is not None:
+        for name, buf in from_jax_params(momentum, {}).items():
+            opt.state[named[name]]["momentum_buffer"] = buf.to(device)
+    if isinstance(residual, Mapping):
+        opt.state["residual"] = {key: row(residual[key]) for key in "vu"}
+    else:
+        opt.state["residual"] = row(residual)
     opt.state["count"] = int(count)
 
 

@@ -2,7 +2,9 @@
 
     python -m gtopkssgd_tpu_torch.dist_trainer --dnn resnet20 \\
         --compression gtopk --density 0.001 --topk-method twostage \\
-        --num-iters 20 [--nworkers P] [--device cpu] [--dist-backend gloo]
+        --num-iters 20 [--nworkers P] [--device cpu] [--dist-backend gloo] \\
+        [--wire-codec int8] [--momentum-correction] [--nesterov] \\
+        [--clip-grad-norm C] [--warmup-epochs E] [--dense-warmup-epochs E]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group: NCCL with one rank
@@ -40,13 +42,33 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--nesterov", action="store_true")
     p.add_argument("--compression", default=None,
-                   help="dense (default) | gtopk")
+                   choices=["none", "dense", "gtopk", "allgather", "topk"],
+                   help="None/dense = all-reduce baseline; gtopk = tree "
+                        "sparse all-reduce; allgather/topk = the Top-k "
+                        "union of every rank's picks")
     p.add_argument("--density", type=float, default=0.001)
     p.add_argument("--topk-method", default="auto",
                    help="auto | exact | threshold | pallas | twostage")
+    p.add_argument("--wire-codec", default="fp32",
+                   help="on-wire sparse-set codec: fp32 (identity), "
+                        "int8[:BLOCK] or fp8[:BLOCK] (block-scaled values, "
+                        "bf16 scales, Elias-Fano indices; BLOCK defaults "
+                        "to 64); the quantization error folds into the "
+                        "error-feedback residual")
+    p.add_argument("--clip-grad-norm", type=float, default=None)
     p.add_argument("--nsteps-update", type=int, default=1)
     p.add_argument("--max-epochs", type=int, default=140)
+    p.add_argument("--warmup-epochs", type=int, default=0,
+                   help="linear LR ramp over the first N epochs")
+    p.add_argument("--dense-warmup-epochs", type=int, default=0,
+                   help="sparse modes: communicate dense for the first N "
+                        "epochs before enabling top-k")
+    p.add_argument("--momentum-correction", action="store_true",
+                   help="sparse modes: DGC momentum correction and factor "
+                        "masking (the velocity accumulates before "
+                        "selection)")
     p.add_argument("--nworkers", type=int, default=1)
     p.add_argument("--dist-backend", default=None, choices=BACKENDS,
                    help="default: nccl on cuda, gloo on cpu")
@@ -61,10 +83,15 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(
         dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
-        compression=args.compression, density=args.density,
-        topk_method=args.topk_method, nsteps_update=args.nsteps_update,
-        max_epochs=args.max_epochs, nworkers=args.nworkers,
-        data_dir=args.data_dir, seed=args.seed, device=args.device)
+        nesterov=args.nesterov, compression=args.compression,
+        density=args.density, topk_method=args.topk_method,
+        wire_codec=args.wire_codec, clip_grad_norm=args.clip_grad_norm,
+        nsteps_update=args.nsteps_update, max_epochs=args.max_epochs,
+        warmup_epochs=args.warmup_epochs,
+        dense_warmup_epochs=args.dense_warmup_epochs,
+        momentum_correction=args.momentum_correction,
+        nworkers=args.nworkers, data_dir=args.data_dir, seed=args.seed,
+        device=args.device)
 
 
 def run(cfg: TrainConfig, num_iters: int) -> dict:
@@ -76,6 +103,7 @@ def run(cfg: TrainConfig, num_iters: int) -> dict:
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
         "topk_method": trainer.cfg.topk_method,
+        "wire_codec": trainer.cfg.wire_codec,
         "device": str(trainer.device),
         "nworkers": trainer.cfg.nworkers,
         "num_params": trainer.num_params,

@@ -1,5 +1,6 @@
 """Data parallelism over ``torch.distributed``: the gradient collectives
-(``collectives``) and the process group and rank processes (``dist``)."""
+(``collectives``), the wire codecs they ship (``codec``), and the process
+group and rank processes (``dist``)."""
 
 from gtopkssgd_tpu_torch.parallel.collectives import (
     comm_bytes_per_step,
@@ -9,6 +10,7 @@ from gtopkssgd_tpu_torch.parallel.collectives import (
     pmean,
     reset_wire,
     sparse_allreduce,
+    topk_allgather,
     tree_rounds,
     wire,
 )
@@ -21,6 +23,7 @@ __all__ = [
     "pmean",
     "reset_wire",
     "sparse_allreduce",
+    "topk_allgather",
     "tree_rounds",
     "wire",
 ]

@@ -1,32 +1,45 @@
-"""The gradient all-reduce over ``torch.distributed``: the gTop-k hypercube
-and the dense baseline.
+"""The gradient exchange over ``torch.distributed``: the gTop-k hypercube,
+the Top-k allgather baseline and the dense all-reduce.
 
 Counterpart of ``gtopkssgd_tpu/parallel/collectives.py`` for flat
-``gtopk`` with the ``tree`` schedule and the fp32 wire, and for ``dense``.
-There every device runs the same SPMD program and ``lax.ppermute`` moves
-the sets; here each rank is one process of a process group and a round is
-one ``dist.batch_isend_irecv`` (NCCL on the card, gloo on the CPU).
+``gtopk`` over the ``tree`` schedule, the allgather modes (``allgather |
+topk | topkA | topk_allgather``) and ``dense``, with every wire codec of
+``parallel.codec``. There every device runs the same SPMD program and
+``lax.ppermute`` / ``lax.all_gather`` move the sets; here each rank is one
+process of a process group and a tree round is one
+``dist.batch_isend_irecv`` (NCCL on the card, gloo on the CPU).
 
 * ``gtopk_allreduce`` -- the masked hypercube of merge-then-reselect
   rounds (``ops.merge_sparse_sets``): the e = P - 2^m extra ranks fold
   their sets into ranks [0, e), the 2^m block runs log2(m) hypercube
-  rounds, and the extras adopt the finished set. Every rank ends with
-  bitwise the same global set. A rank that receives nothing in a round
-  still merges, with a set of pure sentinels, as the JAX tree does.
+  rounds, and the extras adopt the finished set. Every round each rank
+  encodes its set, ships the wire, and merges decode(own wire) with
+  decode(partner wire), or with a set of pure sentinels where it
+  receives nothing; in the unfold the extras adopt decode(partner wire)
+  and the others decode(own wire). Encode is deterministic, so partners
+  merge the same pair of sets and every rank ends with bitwise the same
+  global set, under a lossy codec too.
+* ``topk_allgather`` -- encode, gather every rank's wire, decode the P
+  slices and add them into a dense f32[n] one rank at a time, rank 0
+  first. Within one set the real indices are unique, so each
+  ``index_add_`` is exact on the card too, and the sums come out in the
+  order of the JAX package's scatter over the concatenated sets.
 * ``merge_tree_ref`` -- the same tree over a list of P sets in one
   process: the plain reference the tests and ``chip_smoke.py`` hold the
   collective to. The training path never calls it.
 * ``dense_allreduce`` -- one all-reduce (sum) of the flat gradient.
 
-A wire set is one int32 buffer of 2k words: the values' bits, then the
-indices. ``wire`` counts what this process shipped in the gradient
-exchange: bytes it sent and tree rounds it ran (a rank of a ragged tree
-sends in some rounds only).
+``wire`` counts what this process shipped in the gradient exchange, in
+encoded bytes, and the rounds it ran. A tree round counts the wire this
+rank sent in it (a rank of a ragged tree sends in some rounds only). The
+allgather counts one round and one encoded set per rank of the gather,
+P x the set's bytes, the convention of ``comm_bytes_per_step`` (the set
+reaches P - 1 ranks, and P - 1 sets come in).
 
 Gloo has no send/recv of CUDA tensors: when a gloo group carries CUDA
-tensors (ranks sharing one card), each buffer is copied to the host and
-back around the call -- 8k bytes a set (2,184 at ResNet-20), 4N for the
-dense all-reduce.
+tensors (ranks sharing one card), each wire is copied to the host and
+back around the call -- 8k bytes a set under fp32 (2,184 at ResNet-20),
+4N for the dense all-reduce.
 """
 
 from __future__ import annotations
@@ -37,17 +50,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from gtopkssgd_tpu_torch.modes import DENSE_MODES, GTOPK_MODES
+from gtopkssgd_tpu_torch.modes import (
+    ALLGATHER_MODES,
+    DENSE_MODES,
+    GTOPK_MODES,
+)
 from gtopkssgd_tpu_torch.ops.topk import merge_sparse_sets
+from gtopkssgd_tpu_torch.parallel.codec import get_codec
 
 Set = Tuple[torch.Tensor, torch.Tensor]
 
-# The JAX package's other modes and its balanced schedule come with
-# ROADMAP.md section 1, item 5; its int8/fp8 codecs with item 4.
-_LATER_MODES = ("gtopk_hier", "gtopk_layerwise", "allgather", "topk",
-                "topkA", "topk_allgather")
+# The JAX package's hierarchical and layer-wise modes and its balanced
+# schedule come with ROADMAP.md section 1, item 5.
+_LATER_MODES = ("gtopk_hier", "gtopk_layerwise")
 _LATER_ITEM = "ROADMAP.md section 1, item 5"
-_CODEC_ITEM = "ROADMAP.md section 1, item 4"
 
 #: Gradient-exchange traffic of this process since ``reset_wire()``.
 wire: Dict[str, int] = {"bytes": 0, "rounds": 0}
@@ -58,22 +74,21 @@ def reset_wire() -> None:
         wire[key] = 0
 
 
-def _check_codec(codec) -> None:
-    if getattr(codec, "name", codec) != "fp32":
-        raise ValueError(
-            f"codec {codec!r}: the port ships fp32 sets only; the int8/fp8 "
-            f"codecs come with {_CODEC_ITEM}")
-
-
 def _check_mode(mode, schedule) -> None:
-    """Refuse all but flat gtopk over the tree (None and 'auto' mean it)."""
+    """Refuse what the port does not have yet, an unknown mode, and a
+    schedule that does not realize the mode (None and 'auto' resolve to
+    'tree' for gtopk, 'allgather' for the allgather modes)."""
     if mode in _LATER_MODES or schedule == "balanced":
         raise ValueError(f"mode {mode!r}, schedule {schedule!r}: not in "
                          f"the port yet, {_LATER_ITEM}")
-    if mode not in GTOPK_MODES:
+    if mode in GTOPK_MODES:
+        own = "tree"
+    elif mode in ALLGATHER_MODES:
+        own = "allgather"
+    else:
         raise ValueError(f"unknown sparse mode {mode!r}")
-    if schedule not in (None, "auto", "tree"):
-        raise ValueError(f"mode {mode!r} has schedule 'tree', got "
+    if schedule not in (None, "auto", own):
+        raise ValueError(f"mode {mode!r} has schedule {own!r}, got "
                          f"{schedule!r}")
 
 
@@ -111,10 +126,12 @@ def _sentinel(k: int, n: int, like: torch.Tensor) -> Set:
             torch.full((k,), n, dtype=torch.int32, device=like.device))
 
 
-def merge_tree_ref(sets: Sequence[Set], k: int, n: int) -> List[Set]:
+def merge_tree_ref(sets: Sequence[Set], k: int, n: int,
+                   codec="fp32") -> List[Set]:
     """The set each of P = len(sets) ranks ends with after the tree, in
-    one process: the same rounds, merges and sentinel sets as
-    ``gtopk_allreduce``."""
+    one process: the same rounds, codec round trips, merges and sentinel
+    sets as ``gtopk_allreduce``."""
+    codec = get_codec(codec)
     sets = list(sets)
     q = len(sets)
     if q == 1:
@@ -122,6 +139,9 @@ def merge_tree_ref(sets: Sequence[Set], k: int, n: int) -> List[Set]:
     plan = _tree_plan(q)
     m = 1 << (q.bit_length() - 1)
     for i, pairs in enumerate(plan):
+        # What each rank ships is its wire; what anyone merges is a decode.
+        sets = [codec.decode(codec.encode(v, x, n=n), k=k, n=n)
+                for v, x in sets]
         recv = {dst: sets[src] for src, dst in pairs}
         if q > m and i == len(plan) - 1:  # unfold: the extras adopt
             sets = [recv.get(r, sets[r]) for r in range(q)]
@@ -161,22 +181,14 @@ def _ship(buf: torch.Tensor, send_to: Optional[int],
     return out
 
 
-def _pack(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.cat([vals.contiguous().view(torch.int32),
-                      idx.to(torch.int32)])
-
-
-def _unpack(buf: torch.Tensor, k: int) -> Set:
-    return buf[:k].view(torch.float32), buf[k:]
-
-
 def gtopk_allreduce(vals: torch.Tensor, idx: torch.Tensor, *, k: int,
                     n: int, group=None, codec="fp32") -> Set:
     """The global gTop-k set of this rank's local set (vals f32[k], idx
     i32[k], unique real indices, padding index n), bitwise the same on
     every rank of `group` (default: the whole world). Values are sums over
-    the ranks that contributed; divide by P for the mean."""
-    _check_codec(codec)
+    the ranks that contributed; divide by P for the mean. Every round
+    ships ``codec``'s wire of the set."""
+    codec = get_codec(codec)
     group = group or dist.group.WORLD
     q = dist.get_world_size(group)
     if q == 1:
@@ -187,15 +199,41 @@ def gtopk_allreduce(vals: torch.Tensor, idx: torch.Tensor, *, k: int,
     for i, pairs in enumerate(plan):
         send_to = next((d for s, d in pairs if s == me), None)
         recv_from = next((s for s, d in pairs if d == me), None)
-        got = _ship(_pack(vals, idx), send_to, recv_from, group)
+        buf = codec.encode(vals, idx, n=n)
+        got = _ship(buf, send_to, recv_from, group)
         wire["rounds"] += 1
+        own = codec.decode(buf, k=k, n=n)
+        other = None if got is None else codec.decode(got, k=k, n=n)
         if q > m and i == len(plan) - 1:  # unfold: the extras adopt
-            if got is not None:
-                vals, idx = _unpack(got, k)
+            vals, idx = own if other is None else other
             continue
-        other = _sentinel(k, n, vals) if got is None else _unpack(got, k)
-        vals, idx = merge_sparse_sets(vals, idx, *other, k, n)
+        if other is None:
+            other = _sentinel(k, n, vals)
+        vals, idx = merge_sparse_sets(*own, *other, k, n)
     return vals, idx
+
+
+def topk_allgather(vals: torch.Tensor, idx: torch.Tensor, *, k: int,
+                   n: int, group=None, codec="fp32") -> torch.Tensor:
+    """The Top-k S-SGD baseline (modes allgather | topk | topkA |
+    topk_allgather): the dense f32[n] sum of every rank's local set,
+    bitwise the same on every rank. No global reselect, so every local
+    pick lands and nothing needs repair."""
+    codec = get_codec(codec)
+    group = group or dist.group.WORLD
+    p = dist.get_world_size(group)
+    buf = codec.encode(vals, idx, n=n)
+    wire["bytes"] += buf.numel() * buf.element_size() * p
+    wire["rounds"] += 1
+    host = _stages_on_host(buf, group)
+    mine = buf.cpu() if host else buf
+    parts = [torch.empty_like(mine) for _ in range(p)]
+    dist.all_gather(parts, mine, group=group)
+    out = torch.zeros(n + 1, dtype=torch.float32, device=vals.device)
+    for part in parts:  # rank order; padding adds into slot n and drops
+        v, i = codec.decode(part.to(vals.device), k=k, n=n)
+        out.index_add_(0, i.clamp(max=n).long(), v)
+    return out[:n]
 
 
 def dense_allreduce(x: torch.Tensor, *, group=None) -> torch.Tensor:
@@ -221,12 +259,23 @@ def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def sparse_allreduce(mode: str, vals: torch.Tensor, idx: torch.Tensor, *,
                      k: int, n: int, group=None, codec="fp32",
-                     plan=None) -> Tuple[torch.Tensor, torch.Tensor, bool]:
-    """(gvals, gidx, needs_repair) for a sparse mode; the port has flat
-    ``gtopk`` over the ``tree`` schedule (None and 'auto' resolve to it).
-    Every other mode or schedule names the queue item that brings it."""
+                     plan=None) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                         bool]:
+    """(result, gidx, needs_repair) for a sparse mode:
+
+    * ``gtopk`` -> (gvals f32[k], gidx i32[k], True), over the ``tree``;
+    * the allgather modes -> (the dense summed update f32[n], None,
+      False): every local pick is applied, so there is nothing to repair.
+
+    ``plan`` is a schedule name or anything with a ``.schedule``; None
+    and 'auto' resolve to the mode's own. Every other mode or schedule
+    names the queue item that brings it."""
     schedule = getattr(plan, "schedule", plan)
     _check_mode(mode, schedule)
+    if mode in ALLGATHER_MODES:
+        dense = topk_allgather(vals, idx, k=k, n=n, group=group,
+                               codec=codec)
+        return dense, None, False
     gvals, gidx = gtopk_allreduce(vals, idx, k=k, n=n, group=group,
                                   codec=codec)
     return gvals, gidx, True
@@ -234,10 +283,14 @@ def sparse_allreduce(mode: str, vals: torch.Tensor, idx: torch.Tensor, *,
 
 def comm_bytes_per_step(mode: str, n: int, k: int, p: int, codec="fp32",
                         schedule=None) -> int:
-    """Bytes a rank ships per step, by the model of the JAX package: gtopk
-    one 8k-byte fp32 set per tree round (at least one), dense 4N."""
-    _check_codec(codec)
+    """Bytes a rank ships per step, by the model of the JAX package: one
+    encoded k-of-n set (``codec.wire_set_bytes``) per tree round (at
+    least one) for gtopk, one per rank for the allgather modes, 4N for
+    dense."""
+    set_bytes = get_codec(codec).wire_set_bytes(k, n)
     if mode in DENSE_MODES:
         return 4 * n
     _check_mode(mode, schedule)
-    return 8 * k * max(1, tree_rounds(p))
+    if mode in ALLGATHER_MODES:
+        return set_bytes * p
+    return set_bytes * max(1, tree_rounds(p))

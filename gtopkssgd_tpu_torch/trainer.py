@@ -2,13 +2,15 @@
 ranks, one process each.
 
 ``TrainConfig`` keeps the JAX trainer's flag names and per-dataset defaults
-(cifar10: lr 0.1, weight decay 5e-4); ``Trainer.train(n)`` runs n optimizer
-steps of the model on its dataset through ``optimizer.GTopKSGD``, with
-``nsteps_update`` micro-batches accumulated per step and the cifar10 step
-schedule (lr x0.1 at 50% and 75% of ``max_epochs``). Batches cross to the
-device as uint8 NHWC and are normalized there. Float32 throughout: TF32 is
-switched off for convolutions and matrix products, as the JAX model
-computes in float32.
+(cifar10: lr 0.1, weight decay 5e-4, no clip); ``Trainer.train(n)`` runs n
+optimizer steps of the model on its dataset through
+``optimizer.GTopKSGD``, with ``nsteps_update`` micro-batches accumulated
+per step, the cifar10 step schedule (lr x0.1 at 50% and 75% of
+``max_epochs``) behind an optional linear ramp over ``warmup_epochs``, and
+``dense_warmup_epochs`` of dense exchange before the sparse one. Batches
+cross to the device as uint8 NHWC and are normalized there. Float32
+throughout: TF32 is switched off for convolutions and matrix products, as
+the JAX model computes in float32.
 
 At ``nworkers`` P > 1 the trainer is one rank of an initialized process
 group of P ranks (``parallel.dist``): every rank builds the same initial
@@ -41,8 +43,9 @@ from gtopkssgd_tpu_torch.models import get_model
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 from gtopkssgd_tpu_torch.parallel.collectives import pmean
 
-# dataset: (lr, weight_decay) -- the reference hardcoded these per dataset.
-_DATASET_DEFAULTS = {"cifar10": (0.1, 5e-4)}
+# dataset: (lr, weight_decay, clip_grad_norm) -- the reference hardcoded
+# these per dataset.
+_DATASET_DEFAULTS = {"cifar10": (0.1, 5e-4, None)}
 _WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD)}
 
 
@@ -56,11 +59,24 @@ class TrainConfig:
     lr: Optional[float] = None     # default per dataset
     momentum: float = 0.9
     weight_decay: Optional[float] = None  # default per dataset
-    compression: Optional[str] = None     # None/'dense' | 'gtopk'
+    nesterov: bool = False
+    compression: Optional[str] = None     # None/'dense' | 'gtopk' |
+                                          # 'allgather' | 'topk' | 'topkA'
+                                          # | 'topk_allgather'
     density: float = 0.001
     topk_method: str = "auto"      # auto | exact | threshold | pallas |
                                    # twostage
+    wire_codec: str = "fp32"       # fp32 | int8[:BLOCK] | fp8[:BLOCK]
+    clip_grad_norm: Optional[float] = None  # default per dataset
     nsteps_update: int = 1
+    warmup_epochs: int = 0         # linear lr ramp over the first N epochs
+    dense_warmup_epochs: int = 0   # sparse modes: dense exchange for the
+                                   # first N epochs
+    momentum_correction: bool = False  # sparse modes: DGC velocity before
+                                   # selection, masked where sent
+    restore_rejected_u: bool = False   # ablation of momentum_correction
+                                   # only (the JAX package measured it
+                                   # to diverge)
     max_epochs: int = 140
     nworkers: int = 1
     data_dir: Optional[str] = None
@@ -71,11 +87,13 @@ class TrainConfig:
         cfg = dataclasses.replace(self)
         if cfg.dataset is None:
             cfg.dataset = get_model(cfg.dnn)[1].dataset
-        lr, wd = _DATASET_DEFAULTS.get(cfg.dataset, (0.1, 0.0))
+        lr, wd, clip = _DATASET_DEFAULTS.get(cfg.dataset, (0.1, 0.0, None))
         if cfg.lr is None:
             cfg.lr = lr
         if cfg.weight_decay is None:
             cfg.weight_decay = wd
+        if cfg.clip_grad_norm is None:
+            cfg.clip_grad_norm = clip
         return cfg
 
 
@@ -116,24 +134,59 @@ class Trainer:
             self.train_data, cfg.batch_size, cfg.nsteps_update)
         self.layout = flat_layout(self.model)
         self.num_params = self.layout.n
-        self.optimizer = GTopKSGD(
-            self.model.parameters(), self.lr_schedule(),
-            momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-            compression=cfg.compression, density=cfg.density,
-            topk_method=cfg.topk_method, layout=self.layout,
-            process_group=self.group)
+        self.optimizer = self.make_optimizer()
         mean, std = _WIRE_STATS[cfg.dataset]
         self._mean = torch.as_tensor(mean, device=self.device)
         self._std = torch.as_tensor(std, device=self.device)
         self._batches = iter(self.train_data)
         self.step = 0
 
+    def make_optimizer(self, warmup_dense_steps: Optional[int] = None):
+        """The optimizer; ``warmup_dense_steps`` overrides the config's
+        ``dense_warmup_epochs * steps_per_epoch``, as the JAX trainer's
+        ``_make_tx`` allows."""
+        cfg = self.cfg
+        if warmup_dense_steps is None:
+            warmup_dense_steps = cfg.dense_warmup_epochs * self.steps_per_epoch
+        return GTopKSGD(
+            self.model.parameters(), self.lr_schedule(),
+            momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+            nesterov=cfg.nesterov, compression=cfg.compression,
+            density=cfg.density, topk_method=cfg.topk_method,
+            wire_codec=cfg.wire_codec, clip_grad_norm=cfg.clip_grad_norm,
+            warmup_dense_steps=warmup_dense_steps,
+            momentum_correction=cfg.momentum_correction,
+            _restore_rejected_u=cfg.restore_rejected_u,
+            layout=self.layout, process_group=self.group)
+
     def lr_schedule(self):
-        """lr(count): the cifar10 step schedule, x0.1 at 50% and 75% of
-        max_epochs (boundaries that collide or land at step 0 dropped),
-        computed in float32 like the JAX schedule; constant elsewhere."""
+        """lr(count) in float32, bitwise the JAX trainer's: the cifar10
+        step schedule, x0.1 at 50% and 75% of max_epochs (boundaries that
+        collide or land at step 0 dropped), constant for other datasets;
+        with ``warmup_epochs``, first a linear ramp from lr/10 to lr over
+        w = warmup_epochs * steps_per_epoch steps. The JAX ramp is written
+        base * (0.1 + 0.9 * min(step, w) / w); XLA folds 0.9 / w into one
+        float32 constant c = 0.9 * (1 / w) and fuses the multiply and add
+        into an FMA, base * fma(step, c, 0.1), and that is what the port
+        computes (the product exact in float64, rounded once)."""
         cfg = self.cfg
         base = np.float32(cfg.lr)
+        inner = self._dataset_schedule(base)
+        if cfg.warmup_epochs <= 0:
+            return inner
+        f32 = np.float32
+        w = cfg.warmup_epochs * self.steps_per_epoch
+        c = float(f32(0.9) * (f32(1.0) / f32(w)))
+
+        def schedule(count: int) -> float:
+            if count >= w:
+                return inner(count)
+            return float(base * f32(count * c + float(f32(0.1))))
+
+        return schedule
+
+    def _dataset_schedule(self, base: np.float32):
+        cfg = self.cfg
         if cfg.dataset != "cifar10":
             return lambda count: float(base)
         bounds = sorted({int(cfg.max_epochs * f) * self.steps_per_epoch

@@ -23,6 +23,7 @@ at step 1 with 0.9862 (2706 of 2744), the mean of its three steps being
 """
 
 import json
+from unittest import mock
 
 import numpy as np
 import optax
@@ -36,10 +37,15 @@ from jax.sharding import PartitionSpec as P
 import test_torch_rank_programs as programs
 from test_torch_slice import jax_state_as_numpy
 from gtopkssgd_tpu.compression import TopKCompressor as JaxTopK
+import gtopkssgd_tpu.optimizer as jax_optimizer_module
 from gtopkssgd_tpu.data.cifar import CIFAR10Dataset as JaxCifar
 from gtopkssgd_tpu.optimizer import GTopKSGDState, gtopk_sgd
+from gtopkssgd_tpu.modes import ALLGATHER_MODES as JAX_ALLGATHER_MODES
+from gtopkssgd_tpu.parallel import get_codec as jax_get_codec
 from gtopkssgd_tpu.parallel import gtopk_allreduce as jax_gtopk
 from gtopkssgd_tpu.parallel import make_mesh
+from gtopkssgd_tpu.parallel import roundtrip_aligned as jax_roundtrip
+from gtopkssgd_tpu.parallel import topk_allgather as jax_allgather
 from gtopkssgd_tpu.trainer import TrainConfig as JaxConfig
 from gtopkssgd_tpu.trainer import Trainer as JaxTrainer
 from gtopkssgd_tpu.trainer import shard_steps_per_epoch as jax_spe
@@ -59,46 +65,87 @@ BN_TOL = 1e-5
 
 
 def _jax_optimizer_run(p0, grads, p, opt_kwargs):
-    """The JAX optimizer over a P-device mesh, three steps; per step the
-    params, the per-device residual [P, N] and the global set."""
+    """The JAX optimizer over a P-device mesh, one step per entry of
+    `grads`; per step the params, the per-device residual ([P, N], or a
+    {"v", "u"} dict of them under momentum correction) and what the step
+    exchanged: the global set (gtopk) or the dense union (the allgather
+    modes), recomputed from the step's inputs as ``update_fn`` computes
+    them (clip, velocity, selection, codec fold). Steps of a dense warm-up
+    exchange no set (None)."""
     n = p0.shape[0]
-    tx = gtopk_sgd(axis_name="dp", axis_size=p, comm_plan="tree",
+    mode = opt_kwargs["compression"]
+    tx = gtopk_sgd(axis_name="dp", axis_size=p,
+                   comm_plan="tree" if mode == "gtopk" else "allgather",
                    **opt_kwargs)
     comp = JaxTopK(density=opt_kwargs["density"],
                    method=opt_kwargs["topk_method"])
     k = comp.k(n)
+    codec = jax_get_codec(opt_kwargs.get("wire_codec", "fp32"))
+    clip = opt_kwargs.get("clip_grad_norm")
+    correction = opt_kwargs.get("momentum_correction", False)
+    warmup = opt_kwargs.get("warmup_dense_steps", 0)
     mesh = make_mesh(p)
-    spec = GTopKSGDState(count=P(), residual=P("dp"), inner=P(),
+    res_spec = {"v": P("dp"), "u": P("dp")} if correction else P("dp")
+    spec = GTopKSGDState(count=P(), residual=res_spec, inner=P(),
                          telemetry=P())
+    row = lambda tree: jax.tree.map(lambda x: x[0], tree)  # noqa: E731
+    stack = lambda tree: jax.tree.map(lambda x: x[None], tree)  # noqa: E731
 
     def step(params, state, g):
-        state = state._replace(residual=state.residual[0])
-        upd, state = tx.update({"w": g[0]}, state, params)
+        upd, state = tx.update({"w": g[0]},
+                               state._replace(residual=row(state.residual)),
+                               params)
         return (optax.apply_updates(params, upd),
-                state._replace(residual=state.residual[None]))
+                state._replace(residual=stack(state.residual)))
 
-    def global_set(g, res):
-        acc = g[0] + res[0]
-        vals, idx, _ = comp.compress(acc, grad=g[0], residual=res[0])
-        gv, gi = jax_gtopk(vals, idx, k=k, n=n, axis_name="dp", axis_size=p)
-        return gv[None], gi[None]
+    def exchanged(g, res):
+        flat, res = g[0], row(res)
+        if clip is not None:
+            flat = flat * jnp.minimum(
+                1.0, clip / (jnp.sqrt(jnp.sum(flat * flat)) + 1e-6))
+        src, r = flat, res
+        if correction:
+            src, r = opt_kwargs["momentum"] * res["u"] + flat, res["v"]
+        vals, idx, _ = comp.compress(src + r, grad=src, residual=r)
+        if codec.lossy and mode != "topk":
+            vals = jax_roundtrip(codec, vals, idx, n=n)
+        if mode in JAX_ALLGATHER_MODES:
+            return stack(jax_allgather(vals, idx, k=k, n=n, axis_name="dp",
+                                       axis_size=p, codec=codec))
+        return stack(jax_gtopk(vals, idx, k=k, n=n, axis_name="dp",
+                               axis_size=p, codec=codec))
 
     step = jax.jit(jax.shard_map(step, mesh=mesh,
                                  in_specs=(P(), spec, P("dp")),
                                  out_specs=(P(), spec), check_vma=False))
-    global_set = jax.jit(jax.shard_map(
-        global_set, mesh=mesh, in_specs=(P("dp"), P("dp")),
-        out_specs=(P("dp"), P("dp")), check_vma=False))
+    exchanged = jax.jit(jax.shard_map(
+        exchanged, mesh=mesh, in_specs=(P("dp"), res_spec),
+        out_specs=P("dp"), check_vma=False))
     params = {"w": jnp.asarray(p0)}
     state = tx.init(params)
-    state = state._replace(residual=jnp.zeros((p, n), jnp.float32))
+    state = state._replace(residual=jax.tree.map(
+        lambda x: jnp.zeros((p, n), jnp.float32), state.residual))
     out = []
-    for g in grads:
-        gv, gi = global_set(jnp.asarray(g), state.residual)
-        params, state = step(params, state, jnp.asarray(g))
-        out.append({"params": np.asarray(params["w"]),
-                    "residual": np.asarray(state.residual),
-                    "gvals": np.asarray(gv)[0], "gidx": np.asarray(gi)[0]})
+    # The JAX planner prices every mode it plans, and its comm model knows
+    # 'allgather' but not 'topk' / 'topkA' / 'topk_allgather', so those
+    # modes raise at P > 1. They exchange as 'allgather' does; the plan
+    # is priced as 'allgather' here, and nothing else changes.
+    resolve = jax_optimizer_module.resolve_plan
+    with mock.patch.object(
+            jax_optimizer_module, "resolve_plan",
+            lambda m, *a, **kw: resolve(
+                "allgather" if m in JAX_ALLGATHER_MODES else m, *a, **kw)):
+        for i, g in enumerate(grads):
+            sent = None
+            if i >= warmup:
+                sent = jax.tree.map(lambda x: np.asarray(x)[0],
+                                    exchanged(jnp.asarray(g),
+                                              state.residual))
+            params, state = step(params, state, jnp.asarray(g))
+            out.append({"params": np.asarray(params["w"]),
+                        "residual": jax.tree.map(np.asarray,
+                                                 state.residual),
+                        "sent": sent})
     return out
 
 
@@ -118,9 +165,10 @@ def test_optimizer_at_p4_matches_jax():
     for step, w in enumerate(want):
         for r in range(p):
             g = got[r][step]
-            np.testing.assert_array_equal(g["gidx"], w["gidx"],
+            gvals, gidx = w["sent"]
+            np.testing.assert_array_equal(g["gidx"], gidx,
                                           err_msg=f"step {step} rank {r}")
-            np.testing.assert_array_equal(g["gvals"], w["gvals"])
+            np.testing.assert_array_equal(g["gvals"], gvals)
             np.testing.assert_allclose(g["params"], w["params"], rtol=0,
                                        atol=SGD_TOL)
             np.testing.assert_allclose(g["residual"], w["residual"][r],
@@ -200,16 +248,28 @@ def test_rank_batches_match_the_jax_pipeline(p, rank):
         np.testing.assert_array_equal(a["label"], b["label"])
 
 
-@pytest.mark.parametrize("mode", ["gtopk", "dense"])
-def test_cli_trains_at_p2_on_cpu(capsys, mode):
+CLI_RUNS = {
+    "gtopk": ("gtopk", "fp32", []),
+    "dense": ("dense", "fp32", []),
+    "gtopk-int8-correction": ("gtopk", "int8", [
+        "--wire-codec", "int8", "--momentum-correction",
+        "--dense-warmup-epochs", "0"]),
+    "allgather": ("allgather", "fp32", []),
+}
+
+
+@pytest.mark.parametrize("run", CLI_RUNS)
+def test_cli_trains_at_p2_on_cpu(capsys, run):
+    mode, codec, extra = CLI_RUNS[run]
     rc = dist_trainer.main([
         "--nworkers", "2", "--device", "cpu", "--compression", mode,
         "--density", "0.001", "--topk-method", "pallas", "--num-iters", "2",
-        "--batch-size", "4"])
+        "--batch-size", "4"] + extra)
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["nworkers"] == 2 and out["dist_backend"] == "gloo"
     assert out["num_params"] == 272_474 and len(out["losses"]) == 2
     assert all(np.isfinite(out["losses"]))
+    assert out["wire_codec"] == codec
     assert out["wire_bytes_per_step"] == comm_bytes_per_step(
-        mode, 272_474, 273, 2)
+        mode, 272_474, 273, 2, codec=codec)

@@ -39,8 +39,11 @@ def test_registry():
     assert isinstance(get_compressor("dense"), NoneCompressor)
     c = get_compressor("gtopk", density=0.01, method="pallas")
     assert isinstance(c, TopKCompressor) and c.method == "pallas"
-    with pytest.raises(ValueError):
-        get_compressor("allgather")
+    for mode in ("allgather", "topk", "topkA", "topk_allgather"):
+        assert get_compressor(mode, density=0.01) == TopKCompressor(0.01)
+    for mode in ("gtopk_hier", "gtopk_layerwise", "nope"):
+        with pytest.raises(ValueError):
+            get_compressor(mode)
 
 
 @pytest.mark.parametrize("method", ["exact", "threshold", "pallas",
@@ -179,4 +182,4 @@ def test_flat_layout_permutes_and_round_trips():
     lay.unravel_into(flat, out)
     assert torch.equal(out[0], a) and torch.equal(out[1], b)
     with pytest.raises(ValueError, match="not in the port"):
-        GTopKSGD([torch.nn.Parameter(a)], 0.1, compression="allgather")
+        GTopKSGD([torch.nn.Parameter(a)], 0.1, compression="gtopk_hier")

@@ -34,10 +34,48 @@ def gtopk_over_groups(device, sets, k, n):
     return out
 
 
+def codec_collectives(device, tree_sets, gather_sets, k, n):
+    """For each (codec, P) of `tree_sets` ({(codec, P): (vals f32[P, k],
+    idx i32[P, k])}), the first P ranks run ``gtopk_allreduce`` with that
+    codec over a group of their own; likewise ``topk_allgather`` for
+    `gather_sets`. This rank's results and wire counters, by (kind,
+    codec, P)."""
+    rank = dist.get_rank()
+    cases = [("tree", c, p, s) for (c, p), s in sorted(tree_sets.items())]
+    cases += [("gather", c, p, s)
+              for (c, p), s in sorted(gather_sets.items())]
+    groups = {p: dist.new_group(list(range(p)))  # every rank calls it
+              for p in sorted({case[2] for case in cases})}
+    out = {}
+    for kind, codec, p, (vals, idx) in cases:
+        if rank >= p:
+            continue
+        v = torch.from_numpy(vals[rank]).to(device)
+        i = torch.from_numpy(idx[rank]).to(device)
+        collectives.reset_wire()
+        if kind == "tree":
+            gv, gi = collectives.gtopk_allreduce(v, i, k=k, n=n,
+                                                 group=groups[p], codec=codec)
+            res = {"vals": gv, "idx": gi}
+        else:
+            res = {"dense": collectives.topk_allgather(
+                v, i, k=k, n=n, group=groups[p], codec=codec)}
+        out[(kind, codec, p)] = {**res, **collectives.wire}
+    return out
+
+
+def _residual_copy(residual):
+    if isinstance(residual, dict):
+        return {key: t.clone() for key, t in residual.items()}
+    return residual.clone()
+
+
 def optimizer_steps(device, p0, grads, opt_kwargs):
     """``GTopKSGD`` over the whole world on one flat parameter from `p0`,
     one step per entry of `grads` (f32[P, N] each, row = rank); after each
-    step the parameter, the residual and the global set."""
+    step the parameter, the residual (a {"v", "u"} dict under momentum
+    correction), and the global set (gtopk) or the dense union (the
+    allgather modes), None after a dense warm-up step."""
     rank = dist.get_rank()
     param = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(device))
     opt = GTopKSGD([param], process_group=dist.group.WORLD, **opt_kwargs)
@@ -45,11 +83,18 @@ def optimizer_steps(device, p0, grads, opt_kwargs):
     for g in grads:
         param.grad = torch.from_numpy(g[rank].copy()).to(device)
         opt.step()
-        gvals, gidx = opt.last_global
+        gvals, gidx = opt.last_global or (None, None)
         out.append({"params": param.detach().clone(),
-                    "residual": opt.state["residual"].clone(),
-                    "gvals": gvals, "gidx": gidx})
+                    "residual": _residual_copy(opt.state["residual"]),
+                    "gvals": gvals, "gidx": gidx, "union": opt.last_union})
     return out
+
+
+def optimizer_cases(device, p0, grads, cases):
+    """``optimizer_steps`` for each {name: opt_kwargs} of `cases`, in one
+    world; the results by name."""
+    return {name: optimizer_steps(device, p0, grads, kw)
+            for name, kw in cases.items()}
 
 
 def trainer_steps_from_states(device, cfg_kwargs, states):

@@ -45,11 +45,12 @@ def jax_state_as_numpy(jt: JaxTrainer) -> dict:
     """The JAX trainer's whole training state as numpy trees, in the
     arguments of ``convert.load_jax_state``."""
     st = jt.state
-    trace = next(s.trace for s in st.opt_state.inner[1] if hasattr(s, "trace"))
+    trace = next((s.trace for s in st.opt_state.inner[1]
+                  if hasattr(s, "trace")), None)  # None: no SGD momentum
     to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
     return dict(params=to_np(st.params), batch_stats=to_np(st.batch_stats),
-                momentum=to_np(trace),
-                residual=np.asarray(st.opt_state.residual),
+                momentum=None if trace is None else to_np(trace),
+                residual=to_np(st.opt_state.residual),
                 count=int(st.opt_state.count))
 
 
@@ -136,7 +137,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import gtopkssgd_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 19, names\n"
+        "assert len(names) >= 22, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
