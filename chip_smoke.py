@@ -8,7 +8,9 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
 1. Card identity (nvidia-smi name and power limit); build the CUDA kernels
    from ``gtopkssgd_tpu_torch/ops/csrc/topk_kernels.cu`` (one nvcc call).
 2. Each kernel against its plain PyTorch twin on the card, BITWISE, at
-   N = 272,474 (ResNet-20) and N = 25,557,032 (ResNet-50's size); per
+   N = 272,474 (ResNet-20), N = 14,986,698 (VGG-16), N = 25,557,032
+   (ResNet-50) and N = 61,100,840 (AlexNet, the largest flat gradient of
+   the zoo); per
    kernel the median device time of 20 calls (CUDA events, the card kept
    busy ahead of each call so host overhead is not timed), beside the
    twin's, a one-call library yardstick the port never uses, and the bound
@@ -72,7 +74,29 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        gtopk and, for the allgather modes, the dense union bitwise equal
        across ranks and at step 1 to the rank-order sum of the decoded
        sets on the CPU.
-7. A ``kernels`` JSON line, then the last line
+7. The vision zoo on the card, at full width and depth, float32 with TF32
+   off, density 0.001, batch 32 a rank (see ``zoo_phase``):
+   (a) ResNet-50 on synthetic ImageNet (224x224, k = 25,558 of N =
+       25,557,032): 10 steps ``twostage`` (stage-1 kernel, one launch a
+       step), 10 ``pallas`` (residual-mode multisection, one a step), 5
+       dense (none); then ``test()`` on 2 batches: a finite loss, top-1
+       and top-5 in [0, 1].
+   (b) VGG-16 on synthetic CIFAR-10 (N = 14,986,698): 10 steps
+       ``twostage``, then ``test()``.
+   (c) AlexNet on synthetic ImageNet (N = 61,100,840): 10 steps
+       ``pallas``, then ``test()``.
+   (d) ResNet-50 at P = 4 ``pallas``, 5 steps: the abs-mode multisection
+       kernel once a step on every rank, with phase 5's checks.
+   (e) Each of the three models one step on the card (the kernels) and on
+       the CPU (the twins) from the same seed at batch 2, dropout off on
+       both: losses within 1e-3 relative, keep sets with a Jaccard index
+       of at least 0.999 (1.0000 and 0.99997 measured: the two sum the
+       convolutions in different orders, which flips a coordinate or two
+       at tau); then a second step on the card, whose keep mask and
+       residual must equal, bitwise, the CPU twins' selection on the
+       card's own flat gradient and residual.
+   Every run prints its median step ms and samples/s.
+8. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -86,9 +110,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-SIZES = (272_474, 25_557_032)
+SIZES = (272_474, 14_986_698, 25_557_032, 61_100_840)
 REPS = 20
 LOSS_RTOL = 1e-3
+ZOO_JACCARD = 0.999  # phase 7e; 1.0000 and 0.99997 measured
 SOURCE = "gtopkssgd_tpu_torch/ops/csrc/topk_kernels.cu"
 # Entries of the kernels line, one per launch counter of
 # ``cuda_topk.launches``: counter -> the TPU kernel it replaces.
@@ -292,25 +317,30 @@ def stage1_edge_phase() -> int:
     return cases
 
 
-def train_run(method: str, compression: str, steps: int):
+def train_run(method: str, compression: str, steps: int,
+              dnn: str = "resnet20"):
+    """`steps` steps of a fresh trainer on the card at batch 32; returns
+    the launches (counters zeroed just before the run) and the
+    trainer."""
     from gtopkssgd_tpu_torch.ops import cuda_topk
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
     trainer = Trainer(TrainConfig(
-        dnn="resnet20", batch_size=32, compression=compression,
-        density=0.001, topk_method=method, device="cuda"))
+        dnn=dnn, batch_size=32, compression=compression, density=0.001,
+        topk_method=method, eval_batches=2, device="cuda"))
     cuda_topk.reset_launches()
     stats = trainer.train(steps)
     launches = dict(cuda_topk.launches)
     losses = stats["losses"]
     check(all(math.isfinite(v) for v in losses),
-          f"{compression}/{method}: non-finite loss {losses}")
+          f"{dnn} {compression}/{method}: non-finite loss {losses}")
     med = statistics.median(stats["step_times"])
-    print(f"train resnet20 {compression}/{method}: {steps} steps, "
+    print(f"train {dnn} {compression}/{method}: {steps} steps, "
           f"params={trainer.num_params}, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, median step {med * 1e3:.3f} ms, "
+          f"{trainer.cfg.batch_size / med:.1f} samples/s, "
           f"launches {launches}")
-    return launches
+    return launches, trainer
 
 
 def reference_phase():
@@ -369,7 +399,6 @@ CODEC_RUNS = (("twostage", "gtopk", 4, "int8"),
               ("twostage", "allgather", 4, "int8"),
               ("pallas", "topk", 4, "fp32"))
 DIST_STEPS = 10
-N_RESNET20, K_RESNET20 = 272_474, 273
 
 
 def rank_order_union(local, k: int, n: int, codec: str):
@@ -388,7 +417,7 @@ def rank_order_union(local, k: int, n: int, codec: str):
 
 
 def dist_rank(device, method: str, compression: str, nworkers: int,
-              steps: int, codec: str) -> dict:
+              steps: int, codec: str, dnn: str = "resnet20") -> dict:
     """One rank of a P > 1 run (spawned by ``dist_phase``): trains `steps`
     steps and checks, after each, that every rank holds the same global
     set (gtopk) or dense union (the allgather modes); returns this rank's
@@ -401,7 +430,7 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
     trainer = Trainer(TrainConfig(
-        dnn="resnet20", batch_size=32, compression=compression,
+        dnn=dnn, batch_size=32, compression=compression,
         density=0.001, topk_method=method, device=str(device),
         nworkers=nworkers, wire_codec=codec))
     opt, rank = trainer.optimizer, dist.get_rank()
@@ -454,19 +483,21 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
     wire = dict(collectives.wire)
     flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
     params = gather(flat)
-    return dict(rank=rank, device=str(device), launches=launches,
-                wire=wire, step_times=times, losses=losses,
+    return dict(rank=rank, device=str(device), n=trainer.num_params,
+                launches=launches, wire=wire, step_times=times,
+                losses=losses,
                 sets_agree=agree, ref_ok=ref_ok, mass_ok=mass_ok,
                 params_agree=all(torch.equal(x, params[0]) for x in params))
 
 
-def dist_phase(runs) -> dict:
-    """The P > 1 `runs` (see the module docstring, phases 5 and 6c);
-    returns the launches per kernel, summed over every rank of every
-    run."""
+def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS) -> dict:
+    """The P > 1 `runs` of `steps` steps of `dnn` (see the module
+    docstring, phases 5, 6c and 7d); returns the launches per kernel,
+    summed over every rank of every run."""
     import torch
 
     from gtopkssgd_tpu_torch.modes import ALLGATHER_MODES
+    from gtopkssgd_tpu_torch.ops.topk import k_for_density
     from gtopkssgd_tpu_torch.parallel import comm_bytes_per_step, tree_rounds
     from gtopkssgd_tpu_torch.parallel.codec import get_codec
     from gtopkssgd_tpu_torch.parallel.collectives import _tree_plan
@@ -478,14 +509,17 @@ def dist_phase(runs) -> dict:
         backend = "nccl" if cards >= p else "gloo"
         used = min(cards, p)
         t0 = time.perf_counter()
-        ranks = spawn(dist_rank, p, method, compression, p, DIST_STEPS,
-                      codec, backend=backend, device="cuda", timeout=300)
+        ranks = spawn(dist_rank, p, method, compression, p, steps,
+                      codec, dnn, backend=backend, device="cuda",
+                      timeout=300)
         wall = time.perf_counter() - t0
-        run = f"P={p} {compression}/{method}/{codec}"
+        run = f"{dnn} P={p} {compression}/{method}/{codec}"
+        n = ranks[0]["n"]
+        k = k_for_density(n, 0.001)
         sparse = compression != "dense"
         want_launches = {
-            "twostage": {"fused_stage1_candidates": DIST_STEPS},
-            "pallas": {"multisection_tau_lo[abs]": DIST_STEPS},
+            "twostage": {"fused_stage1_candidates": steps},
+            "pallas": {"multisection_tau_lo[abs]": steps},
         }.get(method, {}) if sparse else {}
         for r in ranks:
             check_launches(r["launches"], want_launches,
@@ -496,10 +530,9 @@ def dist_phase(runs) -> dict:
                                      "across ranks")
             for name in REPLACES:
                 total[name] += r["launches"][name]
-        per_step = [r["wire"]["bytes"] / DIST_STEPS for r in ranks]
-        rounds = [r["wire"]["rounds"] / DIST_STEPS for r in ranks]
-        model = comm_bytes_per_step(compression, N_RESNET20, K_RESNET20, p,
-                                    codec=codec)
+        per_step = [r["wire"]["bytes"] / steps for r in ranks]
+        rounds = [r["wire"]["rounds"] / steps for r in ranks]
+        model = comm_bytes_per_step(compression, n, k, p, codec=codec)
         if sparse:
             what = ("dense unions" if compression in ALLGATHER_MODES
                     else "global sets")
@@ -511,8 +544,7 @@ def dist_phase(runs) -> dict:
             check(rounds == [tree_rounds(p)] * p,
                   f"{run}: {rounds} tree rounds a step, model "
                   f"{tree_rounds(p)}")
-            set_bytes = get_codec(codec).wire_set_bytes(K_RESNET20,
-                                                        N_RESNET20)
+            set_bytes = get_codec(codec).wire_set_bytes(k, n)
             sends = sum(len(pairs) for pairs in _tree_plan(p))
             check(sum(per_step) == sends * set_bytes,
                   f"{run}: {per_step} bytes a step, {sends} sets of "
@@ -528,10 +560,11 @@ def dist_phase(runs) -> dict:
         med = statistics.median(
             t for r in ranks for t in r["step_times"][1:])
         print(f"dist {run}: backend {backend}, {used} card(s) for {p} "
-              f"ranks, {DIST_STEPS} steps, loss "
+              f"ranks, {steps} steps, loss "
               f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f}, "
-              f"median step {med * 1e3:.3f} ms (steps 2-{DIST_STEPS}, all "
-              f"ranks), bytes sent a step per rank {per_step} "
+              f"median step {med * 1e3:.3f} ms (steps 2-{steps}, all "
+              f"ranks), {32 * p / med:.1f} samples/s in all, "
+              f"bytes sent a step per rank {per_step} "
               f"(comm_bytes_per_step {model}), launches "
               f"per rank {ranks[0]['launches']}, final params bitwise "
               f"equal across ranks"
@@ -719,6 +752,99 @@ def codec_phase() -> None:
     print("codec_ms " + json.dumps(timings))
 
 
+def evaluate(trainer, run: str) -> None:
+    """``test()`` of `trainer`: a finite loss, top-1 and top-5 in [0, 1]."""
+    t0 = time.perf_counter()
+    metrics = trainer.test()
+    wall = time.perf_counter() - t0
+    check(math.isfinite(metrics["val_loss"])
+          and 0.0 <= metrics["val_top1"] <= metrics["val_top5"] <= 1.0,
+          f"{run}: test() gave {metrics}")
+    print(f"test {run}: {trainer.cfg.eval_batches} batches of "
+          f"{trainer.cfg.batch_size}, {metrics}, {wall:.2f} s")
+
+
+# (dnn, [(method, compression, steps)]) of phase 7, P = 1
+ZOO_RUNS = (("resnet50", (("twostage", "gtopk", 10), ("pallas", "gtopk", 10),
+                          ("exact", "dense", 5))),
+            ("vgg16", (("twostage", "gtopk", 10),)),
+            ("alexnet", (("pallas", "gtopk", 10),)))
+ZOO_DIST_RUNS = (("pallas", "gtopk", 4, "fp32"),)
+ZOO_DIST_STEPS = 5
+
+
+def zoo_phase() -> dict:
+    """Phase 7 (a)-(d) (see the module docstring); returns the launches
+    per kernel."""
+    total = {name: 0 for name in REPLACES}
+    want = {"twostage": "fused_stage1_candidates",
+            "pallas": "multisection_tau_lo[residual]"}
+    for dnn, runs in ZOO_RUNS:
+        for method, compression, steps in runs:
+            launches, trainer = train_run(method, compression, steps, dnn)
+            check_launches(launches, {want[method]: steps}
+                           if compression == "gtopk" else {},
+                           f"{dnn} P=1 {compression}/{method}, {steps} "
+                           "steps")
+            for name in REPLACES:
+                total[name] += launches[name]
+        evaluate(trainer, f"{dnn} after {compression}/{method}")
+        del trainer
+    for name, count in dist_phase(ZOO_DIST_RUNS, "resnet50",
+                                  ZOO_DIST_STEPS).items():
+        total[name] += count
+    return total
+
+
+def zoo_reference_phase() -> None:
+    """Phase 7e: one step of each zoo model on the card and on the CPU
+    from the same seed (the same weights and batches), dropout off; then
+    a second step on the card, its selection held bitwise to the CPU
+    twins' on the card's own gradient and residual."""
+    import torch
+
+    from gtopkssgd_tpu_torch.compression import TopKCompressor
+    from gtopkssgd_tpu_torch.models import Dropout
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    for dnn, method in (("resnet50", "twostage"), ("vgg16", "twostage"),
+                        ("alexnet", "pallas")):
+        cfg = dict(dnn=dnn, batch_size=2, compression="gtopk",
+                   density=0.001, topk_method=method)
+        pair = [Trainer(TrainConfig(device=d, **cfg))
+                for d in ("cuda", "cpu")]
+        for trainer in pair:
+            for mod in trainer.model.modules():
+                if isinstance(mod, Dropout):
+                    mod.rate = 0.0
+        lg, lc = (t.train(1)["loss"] for t in pair)
+        kg, kc = (t.optimizer.last_keep.cpu() for t in pair)
+        jac = float((kg & kc).sum()) / float((kg | kc).sum())
+        check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
+              f"reference {dnn} {method}: step-1 loss {lg} vs cpu {lc}")
+        check(jac >= ZOO_JACCARD,
+              f"reference {dnn} {method}: step-1 jaccard {jac}")
+
+        card = pair[0]
+        del pair
+        opt = card.optimizer
+        res_in = opt.state["residual"].cpu()
+        card.train(1)
+        grad = opt.flat_grad.cpu()
+        keep, res, _ = TopKCompressor(0.001, method).compress_by_threshold(
+            grad + res_in, grad=grad, residual=res_in)
+        same = (torch.equal(keep, opt.last_keep.cpu())
+                and torch.equal(res, opt.state["residual"].cpu()))
+        print(f"reference {dnn} {method}: step-1 loss card {lg:.6f} cpu "
+              f"{lc:.6f}, keep {int(kg.sum())} vs {int(kc.sum())}, "
+              f"jaccard {jac:.5f}; step-2 selection on the card's "
+              f"gradient (N = {card.num_params}): "
+              f"{'bitwise' if same else 'DIFFERENT'} "
+              f"({int(keep.sum())} kept)")
+        check(same, f"reference {dnn} {method}: card selection != cpu "
+              "twins")
+
+
 def main() -> int:
     import torch
 
@@ -746,9 +872,9 @@ def main() -> int:
     kernels = {n: kernel_phase(n) for n in SIZES}
     print(f"stage-1 edge cases: {stage1_edge_phase()} bitwise")
 
-    runs = [train_run("twostage", "gtopk", 20),
-            train_run("pallas", "gtopk", 10),
-            train_run("exact", "dense", 10)]
+    runs = [train_run("twostage", "gtopk", 20)[0],
+            train_run("pallas", "gtopk", 10)[0],
+            train_run("exact", "dense", 10)[0]]
     check_launches(runs[0], {"fused_stage1_candidates": 20},
                    "P=1 twostage, 20 steps")
     check_launches(runs[1], {"multisection_tau_lo[residual]": 10},
@@ -765,6 +891,9 @@ def main() -> int:
     codec_phase()
     for name, count in dist_phase(CODEC_RUNS).items():
         total[name] += count
+    for name, count in zoo_phase().items():
+        total[name] += count
+    zoo_reference_phase()
 
     n0 = SIZES[0]
     line = []
@@ -778,11 +907,12 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "n": n0, "match": "bitwise", "launch_floor_ms": floor,
             "on_path": total[name] > 0,
-            "at_n_25557032": {key: kernels[SIZES[1]][name][key] for key in
-                              ("ms", "plain_ms", "bound_ms", "library_ms",
-                               "max_abs_err", "replaced_ms")
-                              if key in rec},
         }
+        for n in SIZES[1:]:
+            entry[f"at_n_{n}"] = {
+                key: kernels[n][name][key] for key in
+                ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
+                 "replaced_ms") if key in rec}
         if "replaced_ms" in rec:
             entry["replaced_ms"] = rec["replaced_ms"]
         if name == "fused_stage1_candidates":

@@ -1,20 +1,29 @@
-"""Carry weights between the JAX package's flax ResNets and the port's, and
-fix the flat gradient order.
+"""Carry weights between the JAX package's flax models and the port's, and
+fix the flat gradient order, for every model of the zoo.
 
 * ``from_jax_params(params, batch_stats)`` turns flax's nested numpy trees
-  into a ``state_dict`` for ``models.ResNetCIFAR``: conv kernels HWIO ->
-  OIHW, Dense (in, out) -> (out, in), BatchNorm scale/bias/mean/var ->
+  into a ``state_dict`` for the port's model: conv kernels HWIO -> OIHW,
+  Dense (in, out) -> (out, in), BatchNorm scale/bias/mean/var ->
   weight/bias/running_mean/running_var.
 * ``load_jax_state(trainer, ...)`` carries a JAX trainer's whole state
-  into a port ``Trainer``: weights and BatchNorm statistics, the SGD
-  momentum, this rank's row of the per-rank ``[P, N]`` residual (or of
-  its {"v", "u"} pair under momentum correction), and the step count.
+  into a port ``Trainer``: weights and BatchNorm statistics (none for
+  AlexNet), the SGD momentum, this rank's row of the per-rank ``[P, N]``
+  residual (or of its {"v", "u"} pair under momentum correction), and the
+  step count.
 * ``flat_layout(model)`` orders the model's parameters as the JAX package's
-  ``ravel_pytree`` does -- flax's sorted module paths (``BasicBlock_0`` ..
-  ``BasicBlock_8``, ``BatchNorm_0``, ``Conv_0``, ``Dense_0``; in a block
-  ``BatchNorm_0..2`` before ``Conv_0..2``; ``bias`` before ``scale``),
-  each kernel in the reference's layout. The two-stage top-k buckets are
-  positions in that flat vector, so this order decides what is selected.
+  ``ravel_pytree`` does -- flax's module paths sorted as strings at each
+  level (``BasicBlock_10`` before ``BasicBlock_2``, ``BatchNorm_0`` before
+  ``Conv_0``; ``bias`` before ``kernel`` and ``scale``), each kernel in the
+  reference's layout. The two-stage top-k buckets are positions in that
+  flat vector, so this order decides what is selected.
+
+The port's module names map onto flax's auto-generated ones:
+
+* the ResNets: ``conv``, ``bn``, ``fc`` are ``Conv_0``, ``BatchNorm_0``,
+  ``Dense_0``; ``blocks.i`` is ``BasicBlock_i`` and ``bottlenecks.i`` is
+  ``BottleneckBlock_i``, whose layers are named in ``_BLOCKS``;
+* VGG-16 and AlexNet: ``convs.i``, ``bns.i``, ``fcs.i`` are ``Conv_i``,
+  ``BatchNorm_i``, ``Dense_i``.
 """
 
 from __future__ import annotations
@@ -29,13 +38,21 @@ from gtopkssgd_tpu_torch.optimizer import FlatLayout
 
 Path = Tuple[str, ...]
 
-# The port's module names -> flax's auto-generated ones.
 _TOP = {"conv": "Conv_0", "bn": "BatchNorm_0", "fc": "Dense_0"}
-_BLOCK = {"conv1": "Conv_0", "bn1": "BatchNorm_0", "conv2": "Conv_1",
-          "bn2": "BatchNorm_1", "shortcut.0": "Conv_2",
-          "shortcut.1": "BatchNorm_2"}
+_LISTS = {"convs": "Conv", "bns": "BatchNorm", "fcs": "Dense"}
+# Block lists: port list name -> (flax block class, port layer -> flax).
+_BLOCKS = {
+    "blocks": ("BasicBlock", {
+        "conv1": "Conv_0", "bn1": "BatchNorm_0", "conv2": "Conv_1",
+        "bn2": "BatchNorm_1", "shortcut.0": "Conv_2",
+        "shortcut.1": "BatchNorm_2"}),
+    "bottlenecks": ("BottleneckBlock", {
+        "conv1": "Conv_0", "bn1": "BatchNorm_0", "conv2": "Conv_1",
+        "bn2": "BatchNorm_1", "conv3": "Conv_2", "bn3": "BatchNorm_2",
+        "shortcut.0": "Conv_3", "shortcut.1": "BatchNorm_3"}),
+}
 _LEAF = {
-    "Conv": {"weight": "kernel"},
+    "Conv": {"weight": "kernel", "bias": "bias"},
     "Dense": {"weight": "kernel", "bias": "bias"},
     "BatchNorm": {"weight": "scale", "bias": "bias",
                   "running_mean": "mean", "running_var": "var"},
@@ -48,14 +65,17 @@ _FROM_REF = {4: (3, 2, 0, 1), 2: (1, 0), 1: (0,)}
 
 def flax_path(name: str) -> Path:
     """'blocks.3.shortcut.1.weight' -> ('BasicBlock_3', 'BatchNorm_2',
-    'scale'); parameters and BatchNorm buffers alike."""
+    'scale'), 'convs.4.bias' -> ('Conv_4', 'bias'); parameters and
+    BatchNorm buffers alike."""
     parts = name.split(".")
-    module, leaf = ".".join(parts[:-1]), parts[-1]
-    if parts[0] == "blocks":
-        inner = ".".join(parts[2:-1])
-        prefix = (f"BasicBlock_{parts[1]}", _BLOCK[inner])
+    head, leaf = parts[0], parts[-1]
+    if head in _BLOCKS:
+        cls, layers = _BLOCKS[head]
+        prefix = (f"{cls}_{parts[1]}", layers[".".join(parts[2:-1])])
+    elif head in _LISTS:
+        prefix = (f"{_LISTS[head]}_{parts[1]}",)
     else:
-        prefix = (_TOP[module],)
+        prefix = (_TOP[".".join(parts[:-1])],)
     kind = prefix[-1].split("_")[0]
     return prefix + (_LEAF[kind][leaf],)
 
@@ -71,11 +91,12 @@ def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
 
 
 def from_jax_params(params: Mapping[str, Any],
-                    batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A ``state_dict`` for ``ResNetCIFAR`` from flax's params and
-    batch_stats trees (numpy or jax arrays)."""
-    by_path = {**_flatten(params), **_flatten(batch_stats)}
-    names = _torch_names(by_path)
+                    batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for the port's model from flax's params and
+    batch_stats trees (numpy or jax arrays; no batch_stats for AlexNet)."""
+    by_path = {**_flatten(params), **_flatten(batch_stats or {})}
+    names = _port_names(by_path)
     out = {}
     for path, value in by_path.items():
         t = torch.from_numpy(np.array(value, dtype=np.float32))
@@ -84,7 +105,7 @@ def from_jax_params(params: Mapping[str, Any],
 
 
 def load_jax_state(trainer, params: Mapping[str, Any],
-                   batch_stats: Mapping[str, Any],
+                   batch_stats: Optional[Mapping[str, Any]],
                    momentum: Optional[Mapping[str, Any]], residual,
                    count: int) -> None:
     """Load a JAX trainer's state, as numpy trees, into `trainer` (one
@@ -115,22 +136,35 @@ def load_jax_state(trainer, params: Mapping[str, Any],
     opt.state["count"] = int(count)
 
 
-def _torch_names(paths) -> Dict[Path, str]:
-    """flax path -> port name, for every path of a ResNetCIFAR tree."""
-    nblocks = len({p[0] for p in paths if p[0].startswith("BasicBlock_")})
-    model_names = []
-    for i in range(nblocks):
-        for mod in _BLOCK:
-            model_names.append(f"blocks.{i}.{mod}")
-    model_names += list(_TOP)
+def _inverse(mapping: Mapping[str, str]) -> Dict[str, str]:
+    return {v: k for k, v in mapping.items()}
+
+
+def _port_name(path: Path, resnet: bool) -> str:
+    """The inverse of ``flax_path``; `resnet`: the tree holds blocks, so
+    its top-level ``Conv_0``, ``BatchNorm_0``, ``Dense_0`` are ``conv``,
+    ``bn``, ``fc`` rather than ``convs.0``, ``bns.0``, ``fcs.0``."""
+    *mods, leaf = path
+    cls, _, idx = mods[0].rpartition("_")
+    if len(mods) == 2:
+        head = next(h for h, (c, _) in _BLOCKS.items() if c == cls)
+        mod = f"{head}.{idx}.{_inverse(_BLOCKS[head][1])[mods[1]]}"
+    elif resnet:
+        mod = _inverse(_TOP)[mods[0]]
+    else:
+        mod = f"{_inverse(_LISTS)[cls]}.{idx}"
+    return f"{mod}.{_inverse(_LEAF[mods[-1].split('_')[0]])[leaf]}"
+
+
+def _port_names(paths) -> Dict[Path, str]:
+    """flax path -> port name, for every path of a zoo model's tree."""
+    resnet = any(len(p) > 2 for p in paths)
     names = {}
-    for mod in model_names:
-        kind = flax_path(mod + ".weight")[-2].split("_")[0]
-        for leaf in _LEAF[kind]:
-            names[flax_path(f"{mod}.{leaf}")] = f"{mod}.{leaf}"
-    missing = set(paths) - set(names)
-    if missing:
-        raise ValueError(f"no port name for flax paths {sorted(missing)}")
+    for path in paths:
+        try:
+            names[path] = _port_name(path, resnet)
+        except (KeyError, StopIteration):
+            raise ValueError(f"no port name for flax path {path}") from None
     return names
 
 

@@ -1,17 +1,19 @@
 """Data pipelines by the reference's ``--dataset`` flag string. The port has
-CIFAR-10 (real pickles or the synthetic stand-in) so far."""
+CIFAR-10 (real pickles or the synthetic stand-in) and ImageNet (the
+synthetic stand-in) so far."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 from gtopkssgd_tpu_torch.data.cifar import CIFAR10Dataset
+from gtopkssgd_tpu_torch.data.imagenet import ImageNetDataset
 from gtopkssgd_tpu_torch.data.partition import (
     DataPartitioner,
     partition_indices,
 )
 
-_DATASETS = {"cifar10": CIFAR10Dataset}
+_DATASETS = {"cifar10": CIFAR10Dataset, "imagenet": ImageNetDataset}
 
 
 def get_dataset(name: str, *, split: str = "train", batch_size: int = 32,
@@ -27,5 +29,5 @@ def get_dataset(name: str, *, split: str = "train", batch_size: int = 32,
                nworkers=nworkers, data_dir=data_dir, seed=seed)
 
 
-__all__ = ["CIFAR10Dataset", "DataPartitioner", "get_dataset",
-           "partition_indices"]
+__all__ = ["CIFAR10Dataset", "DataPartitioner", "ImageNetDataset",
+           "get_dataset", "partition_indices"]

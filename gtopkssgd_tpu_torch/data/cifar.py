@@ -14,7 +14,7 @@ from __future__ import annotations
 import functools
 import os
 import pickle
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -120,19 +120,22 @@ class CIFAR10Dataset:
         flips = rng.random(b) < 0.5
         return cifar_augment_batch(x, ys, xs, flips)
 
-    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """One pass over this rank's shard. Augmentation draws come from a
-        generator seeded by (seed, rank, epoch), so batch b of epoch e is a
-        pure function of those four values."""
+    def epoch(self, epoch: int = 0, batches: Optional[range] = None
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        """One pass over this rank's shard, the batches numbered in
+        `batches` (all when None). Augmentation draws come from a
+        generator seeded by (seed, rank, epoch), drawn for every batch,
+        so batch b of epoch e is a pure function of those four values."""
         idx = self.partitioner.indices(epoch)
         rng = np.random.default_rng(
             np.random.SeedSequence([self._seed, self._rank + 1, epoch]))
-        for lo in range(0, len(idx) - self.batch_size + 1, self.batch_size):
-            sel = idx[lo:lo + self.batch_size]
+        for b in range(len(idx) // self.batch_size):
+            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
             x = self.images[sel]
             if self.augment:
                 x = self._augment(x, rng)
-            yield {"image": x, "label": self.labels[sel]}
+            if batches is None or b in batches:
+                yield {"image": x, "label": self.labels[sel]}
 
     def __iter__(self):
         """Endless stream across epochs."""

@@ -1,17 +1,23 @@
 """Command line of the port's trainer (the JAX package's flag names).
 
-    python -m gtopkssgd_tpu_torch.dist_trainer --dnn resnet20 \\
+    python -m gtopkssgd_tpu_torch.dist_trainer \\
+        --dnn resnet20|resnet56|vgg16|resnet50|alexnet [--s2d] \\
         --compression gtopk --density 0.001 --topk-method twostage \\
-        --num-iters 20 [--nworkers P] [--device cpu] [--dist-backend gloo] \\
-        [--wire-codec int8] [--momentum-correction] [--nesterov] \\
-        [--clip-grad-norm C] [--warmup-epochs E] [--dense-warmup-epochs E]
+        [--num-iters 20] [--eval-batches B] [--nworkers P] [--device cpu] \\
+        [--dist-backend gloo] [--wire-codec int8] [--momentum-correction] \\
+        [--nesterov] [--clip-grad-norm C] [--warmup-epochs E] \\
+        [--dense-warmup-epochs E]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group: NCCL with one rank
 per card by default on CUDA (P cards needed), gloo on the CPU;
 ``--dist-backend gloo`` with ``--device cuda`` lets the ranks share the
-visible cards. Rank 0 prints one JSON line with the per-step losses,
-step times and the gradient bytes a rank shipped per step.
+visible cards. With ``--num-iters N`` the trainer takes N steps and then
+evaluates (``Trainer.test()``, at most ``--eval-batches`` batches);
+without it, ``Trainer.fit()`` trains and evaluates each of
+``--max-epochs`` epochs, as the JAX CLI does. Rank 0 prints one JSON line
+with the per-step losses, step times, the gradient bytes a rank shipped
+per step and the validation metrics.
 """
 
 from __future__ import annotations
@@ -74,7 +80,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="default: nccl on cuda, gloo on cpu")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--num-iters", type=int, default=20)
+    p.add_argument("--s2d", action="store_true",
+                   help="resnet50: space-to-depth stem (4x4x12 conv on 2x2 "
+                        "pixel blocks)")
+    p.add_argument("--num-iters", type=int, default=None,
+                   help="train a fixed number of steps instead of epochs")
+    p.add_argument("--eval-batches", type=int, default=None,
+                   help="cap on the validation batches (default: all)")
     p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     return p
 
@@ -90,15 +102,20 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         warmup_epochs=args.warmup_epochs,
         dense_warmup_epochs=args.dense_warmup_epochs,
         momentum_correction=args.momentum_correction,
+        space_to_depth=args.s2d, eval_batches=args.eval_batches,
         nworkers=args.nworkers, data_dir=args.data_dir, seed=args.seed,
         device=args.device)
 
 
-def run(cfg: TrainConfig, num_iters: int) -> dict:
-    """Train `num_iters` steps on this process (one rank) and summarize."""
+def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
+    """On this process (one rank): train `num_iters` steps and evaluate,
+    or ``fit()`` when `num_iters` is None; summarize."""
     trainer = Trainer(cfg)
     collectives.reset_wire()
-    stats = trainer.train(num_iters)
+    if num_iters is not None:
+        stats = {**trainer.train(num_iters), **trainer.test()}
+    else:
+        stats = trainer.fit()
     return {
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
@@ -110,11 +127,13 @@ def run(cfg: TrainConfig, num_iters: int) -> dict:
         "losses": stats["losses"],
         "median_step_s": statistics.median(stats["step_times"]),
         "throughput": stats["throughput"],
-        "wire_bytes_per_step": collectives.wire["bytes"] / max(1, num_iters),
+        "wire_bytes_per_step": collectives.wire["bytes"] / max(1,
+                                                               trainer.step),
+        **{key: stats[key] for key in stats if key.startswith("val_")},
     }
 
 
-def _rank_run(device, cfg: TrainConfig, num_iters: int) -> dict:
+def _rank_run(device, cfg: TrainConfig, num_iters: Optional[int]) -> dict:
     return run(dataclasses.replace(cfg, device=str(device)), num_iters)
 
 

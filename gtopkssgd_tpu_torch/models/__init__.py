@@ -1,5 +1,6 @@
-"""Model zoo by the reference's ``--dnn`` flag string. The port has the
-CIFAR ResNets so far (ResNet-20, ResNet-56)."""
+"""Model zoo by the reference's ``--dnn`` flag string: the vision zoo
+(VGG-16 and the CIFAR ResNets on CIFAR-10, ResNet-50 and AlexNet on
+ImageNet)."""
 
 from __future__ import annotations
 
@@ -8,35 +9,66 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from gtopkssgd_tpu_torch.models.resnet import BasicBlock, ResNetCIFAR
+from gtopkssgd_tpu_torch.models.alexnet import AlexNet
+from gtopkssgd_tpu_torch.models.layers import BatchNorm, Dropout, seed_dropout
+from gtopkssgd_tpu_torch.models.resnet import (
+    BasicBlock,
+    BottleneckBlock,
+    ResNetCIFAR,
+    ResNetImageNet,
+)
+from gtopkssgd_tpu_torch.models.vgg import VGG16
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """A zoo entry: constructor, canonical dataset, example input shape
-    (NHWC, without the batch dimension)."""
+    (NHWC, without the batch dimension), and whether the model has
+    BatchNorm statistics (the JAX zoo's field, held equal to it by the
+    tests; the trainer averages whatever buffers a model has)."""
 
     name: str
-    build: Callable[[], nn.Module]
+    build: Callable[..., nn.Module]
     dataset: str
     example_shape: Tuple[int, ...]
+    has_batchnorm: bool = True
 
 
-_ZOO: Dict[str, ModelSpec] = {
-    "resnet20": ModelSpec("resnet20", lambda: ResNetCIFAR(depth=20),
-                          "cifar10", (32, 32, 3)),
-    "resnet56": ModelSpec("resnet56", lambda: ResNetCIFAR(depth=56),
-                          "cifar10", (32, 32, 3)),
-}
+_ZOO: Dict[str, ModelSpec] = {spec.name: spec for spec in (
+    ModelSpec("vgg16", VGG16, "cifar10", (32, 32, 3)),
+    ModelSpec("resnet20", lambda **kw: ResNetCIFAR(depth=20, **kw),
+              "cifar10", (32, 32, 3)),
+    ModelSpec("resnet56", lambda **kw: ResNetCIFAR(depth=56, **kw),
+              "cifar10", (32, 32, 3)),
+    ModelSpec("resnet50", ResNetImageNet, "imagenet", (224, 224, 3)),
+    ModelSpec("alexnet", AlexNet, "imagenet", (224, 224, 3),
+              has_batchnorm=False),
+)}
 
 
-def get_model(dnn: str) -> Tuple[nn.Module, ModelSpec]:
+def model_spec(dnn: str) -> ModelSpec:
     try:
-        spec = _ZOO[dnn]
+        return _ZOO[dnn]
     except KeyError:
         raise ValueError(
             f"unknown dnn {dnn!r}; the port has {sorted(_ZOO)}") from None
-    return spec.build(), spec
 
 
-__all__ = ["BasicBlock", "ModelSpec", "ResNetCIFAR", "get_model"]
+def get_model(dnn: str, space_to_depth: bool = False
+              ) -> Tuple[nn.Module, ModelSpec]:
+    """Build a zoo model by its ``--dnn`` flag string. Only resnet50
+    takes ``space_to_depth``; any other model rejects a true value with
+    the JAX package's error."""
+    spec = model_spec(dnn)
+    if not space_to_depth:
+        return spec.build(), spec
+    if dnn != "resnet50":
+        raise ValueError(
+            f"--s2d is a resnet50 stem transform; --dnn {dnn} "
+            "does not take it")
+    return spec.build(space_to_depth=True), spec
+
+
+__all__ = ["AlexNet", "BasicBlock", "BatchNorm", "BottleneckBlock",
+           "Dropout", "ModelSpec", "ResNetCIFAR", "ResNetImageNet", "VGG16",
+           "get_model", "model_spec", "seed_dropout"]

@@ -1,56 +1,39 @@
-"""CIFAR ResNets (ResNet-20/56), the port of
-``gtopkssgd_tpu/models/resnet.py``'s ``BasicBlock`` and ``ResNetCIFAR``.
+"""ResNets, the port of ``gtopkssgd_tpu/models/resnet.py``: the CIFAR
+ResNets (ResNet-20/56) and the ImageNet bottleneck ResNet (ResNet-50).
 
-He et al.'s CIFAR design: 3x3 stem, three stages of basic blocks at widths
-16/32/64, depth = 6n+2, global average pool, linear head; a 1x1 projection
-shortcut where the shape changes. The model takes NHWC input, as the JAX
-model does, and permutes to NCHW once inside. Computation is float32.
+* ``ResNetCIFAR``: He et al.'s CIFAR design, 3x3 stem, three stages of
+  basic blocks at widths 16/32/64, depth = 6n+2, global average pool,
+  linear head.
+* ``ResNetImageNet``: 7x7/2 stem (or the space-to-depth stem) and a 3x3/2
+  max pool, stages [3, 4, 6, 3] of bottleneck blocks at widths
+  256/512/1024/2048 for ResNet-50, the stride on the 3x3 conv, the last
+  BatchNorm of each block starting at scale 0.
 
-``BatchNorm`` reproduces flax's ``nn.BatchNorm`` rather than
-``torch.nn.BatchNorm2d``: running average with momentum 0.99 (flax's
-convention: ra = 0.99*ra + 0.01*batch), eps 1e-5, and a BIASED batch
-variance, both for normalizing and for the running average
-(``BatchNorm2d`` stores the unbiased one).
+A 1x1 projection shortcut where the shape changes. The models take NHWC
+input, as the JAX models do, and permute to NCHW once inside. Computation
+is float32.
 """
 
 from __future__ import annotations
 
-import math
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-class BatchNorm(nn.Module):
-    def __init__(self, features: int, momentum: float = 0.99,
-                 eps: float = 1e-5):
-        super().__init__()
-        self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False,
-                                eps=self.eps)
-        # F.batch_norm normalizes with the biased batch variance but would
-        # store the unbiased one, so the running stats are updated here.
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        return F.batch_norm(x, None, None, self.weight, self.bias,
-                            training=True, eps=self.eps)
+from gtopkssgd_tpu_torch.models.layers import BatchNorm, flax_init
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride,
                      padding=kernel // 2, bias=False)
+
+
+def _shortcut(cin: int, filters: int, stride: int):
+    if cin == filters and stride == 1:
+        return None
+    return nn.Sequential(_conv(cin, filters, 1, stride), BatchNorm(filters))
 
 
 class BasicBlock(nn.Module):
@@ -60,14 +43,34 @@ class BasicBlock(nn.Module):
         self.bn1 = BatchNorm(filters)
         self.conv2 = _conv(filters, filters, 3)
         self.bn2 = BatchNorm(filters)
-        self.shortcut = None
-        if cin != filters or stride != 1:
-            self.shortcut = nn.Sequential(_conv(cin, filters, 1, stride),
-                                          BatchNorm(filters))
+        self.shortcut = _shortcut(cin, filters, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
+        if self.shortcut is not None:
+            x = self.shortcut(x)
+        return F.relu(x + y)
+
+
+class BottleneckBlock(nn.Module):
+    """`filters` is the output width, 4x the inner width."""
+
+    def __init__(self, cin: int, filters: int, stride: int = 1):
+        super().__init__()
+        inner = filters // 4
+        self.conv1 = _conv(cin, inner, 1)
+        self.bn1 = BatchNorm(inner)
+        self.conv2 = _conv(inner, inner, 3, stride)
+        self.bn2 = BatchNorm(inner)
+        self.conv3 = _conv(inner, filters, 1)
+        self.bn3 = BatchNorm(filters, zero_scale=True)
+        self.shortcut = _shortcut(cin, filters, stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
         if self.shortcut is not None:
             x = self.shortcut(x)
         return F.relu(x + y)
@@ -99,20 +102,50 @@ class ResNetCIFAR(nn.Module):
         return self.fc(x.mean(dim=(2, 3)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's initializers, drawn from `generator`: LeCun-normal
-        (truncated normal, variance 1/fan_in) for conv and dense kernels,
-        zero biases, BatchNorm scale 1 and bias 0."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                fan_in = mod.weight[0].numel()
-                # Truncation at +-2 std shrinks the variance by 0.7737.
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                      2 * std, generator=generator)
-                if getattr(mod, "bias", None) is not None:
-                    nn.init.zeros_(mod.bias)
-            elif isinstance(mod, BatchNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+        flax_init(self, generator)
+
+
+class ResNetImageNet(nn.Module):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 num_classes: int = 1000, space_to_depth: bool = False):
+        super().__init__()
+        self.space_to_depth = space_to_depth
+        if space_to_depth:
+            # 2x2 pixel blocks as 12 channels, then a 4x4 VALID conv: the
+            # same linear map as an 8x8/2 conv, a superset of the 7x7/2.
+            self.conv = nn.Conv2d(12, 64, 4, bias=False)
+        else:
+            self.conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn = BatchNorm(64)
+        blocks, cin = [], 64
+        for stage, size in enumerate(stage_sizes):
+            width = 256 * 2 ** stage
+            for block in range(size):
+                stride = 2 if stage > 0 and block == 0 else 1
+                blocks.append(BottleneckBlock(cin, width, stride))
+                cin = width
+        self.bottlenecks = nn.ModuleList(blocks)
+        self.fc = nn.Linear(cin, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NHWC float32 -> logits f32[B, num_classes]."""
+        if self.space_to_depth:
+            b, h, w, c = x.shape
+            if h % 2 or w % 2:
+                raise ValueError(f"--s2d needs even input H/W (2x2 pixel "
+                                 f"blocks), got {h}x{w}")
+            # The JAX stem's NHWC rearrangement, so that the carried
+            # (4, 4, 12, 64) kernel reads channels in (dy, dx, c) order.
+            x = F.pad(x, (0, 0, 3, 3, 3, 3))
+            x = x.reshape(b, (h + 6) // 2, 2, (w + 6) // 2, 2, c)
+            x = x.permute(0, 1, 3, 2, 4, 5).reshape(
+                b, (h + 6) // 2, (w + 6) // 2, 4 * c)
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self.bn(self.conv(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for block in self.bottlenecks:
+            x = block(x)
+        return self.fc(x.mean(dim=(2, 3)))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        flax_init(self, generator)

@@ -243,11 +243,17 @@ def dense_allreduce(x: torch.Tensor, *, group=None) -> torch.Tensor:
     return _all_reduce_sum(x, group)
 
 
+def psum(x: torch.Tensor, *, group=None) -> torch.Tensor:
+    """Sum of `x` over the ranks of `group` (a new tensor); not counted
+    in ``wire``, which is the gradient exchange's."""
+    return _all_reduce_sum(x, group or dist.group.WORLD)
+
+
 def pmean(x: torch.Tensor, *, group=None) -> torch.Tensor:
     """Mean of `x` over the ranks of `group` (a new tensor); not counted
-    in ``wire``, which is the gradient exchange's."""
+    in ``wire``."""
     group = group or dist.group.WORLD
-    return _all_reduce_sum(x, group) / dist.get_world_size(group)
+    return psum(x, group=group) / dist.get_world_size(group)
 
 
 def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

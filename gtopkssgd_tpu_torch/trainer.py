@@ -2,21 +2,25 @@
 ranks, one process each.
 
 ``TrainConfig`` keeps the JAX trainer's flag names and per-dataset defaults
-(cifar10: lr 0.1, weight decay 5e-4, no clip); ``Trainer.train(n)`` runs n
-optimizer steps of the model on its dataset through
-``optimizer.GTopKSGD``, with ``nsteps_update`` micro-batches accumulated
-per step, the cifar10 step schedule (lr x0.1 at 50% and 75% of
-``max_epochs``) behind an optional linear ramp over ``warmup_epochs``, and
-``dense_warmup_epochs`` of dense exchange before the sparse one. Batches
-cross to the device as uint8 NHWC and are normalized there. Float32
-throughout: TF32 is switched off for convolutions and matrix products, as
-the JAX model computes in float32.
+(``dataset_defaults``); ``Trainer.train(n)`` runs n optimizer steps of the
+model on its dataset through ``optimizer.GTopKSGD``, with
+``nsteps_update`` micro-batches accumulated per step, the dataset's step
+schedule (cifar10: lr x0.1 at 50% and 75% of ``max_epochs``; imagenet:
+x0.1 at epochs 30, 60 and 80) behind an optional linear ramp over
+``warmup_epochs``, and ``dense_warmup_epochs`` of dense exchange before
+the sparse one. ``Trainer.test()`` evaluates on the test split (loss,
+top-1, top-5) and ``Trainer.fit()`` trains and evaluates epoch by epoch.
+Batches cross to the device as uint8 NHWC and are normalized there.
+Float32 throughout: TF32 is switched off for convolutions and matrix
+products, as the JAX model computes in float32. Dropout draws its masks
+from a generator on the device, seeded from the seed and the rank.
 
 At ``nworkers`` P > 1 the trainer is one rank of an initialized process
 group of P ranks (``parallel.dist``): every rank builds the same initial
 weights from the seed, draws its own shard of the data, and after each
-step the ranks average the BatchNorm running statistics and the reported
-loss and top-1, as the JAX trainer's ``pmean`` does.
+step the ranks average the BatchNorm running statistics (if the model has
+any) and the reported loss and top-1, as the JAX trainer's ``pmean``
+does.
 
 A step is three profiler ranges (``torch.profiler.record_function``):
 "data" (host batch + copy to the device), "forward_backward" and
@@ -39,14 +43,22 @@ from torch.profiler import record_function
 from gtopkssgd_tpu_torch.convert import flat_layout
 from gtopkssgd_tpu_torch.data import get_dataset
 from gtopkssgd_tpu_torch.data.cifar import CIFAR_MEAN, CIFAR_STD
-from gtopkssgd_tpu_torch.models import get_model
+from gtopkssgd_tpu_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
+from gtopkssgd_tpu_torch.models import get_model, model_spec, seed_dropout
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
-from gtopkssgd_tpu_torch.parallel.collectives import pmean
+from gtopkssgd_tpu_torch.parallel.collectives import pmean, psum
 
-# dataset: (lr, weight_decay, clip_grad_norm) -- the reference hardcoded
-# these per dataset.
-_DATASET_DEFAULTS = {"cifar10": (0.1, 5e-4, None)}
-_WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD)}
+_WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD),
+               "imagenet": (IMAGENET_MEAN, IMAGENET_STD)}
+
+
+def dataset_defaults(dataset: str, dnn: str):
+    """(lr, weight_decay, clip_grad_norm) by dataset, as the reference
+    hardcoded them; AlexNet on imagenet starts at lr 0.01."""
+    return {
+        "cifar10": (0.1, 5e-4, None),
+        "imagenet": (0.01 if dnn == "alexnet" else 0.1, 1e-4, None),
+    }.get(dataset, (0.1, 0.0, None))
 
 
 @dataclasses.dataclass
@@ -78,6 +90,8 @@ class TrainConfig:
                                    # only (the JAX package measured it
                                    # to diverge)
     max_epochs: int = 140
+    space_to_depth: bool = False   # resnet50: the space-to-depth stem
+    eval_batches: Optional[int] = None  # cap on test()'s batches
     nworkers: int = 1
     data_dir: Optional[str] = None
     seed: int = 42
@@ -86,8 +100,8 @@ class TrainConfig:
     def resolved(self) -> "TrainConfig":
         cfg = dataclasses.replace(self)
         if cfg.dataset is None:
-            cfg.dataset = get_model(cfg.dnn)[1].dataset
-        lr, wd, clip = _DATASET_DEFAULTS.get(cfg.dataset, (0.1, 0.0, None))
+            cfg.dataset = model_spec(cfg.dnn).dataset
+        lr, wd, clip = dataset_defaults(cfg.dataset, cfg.dnn)
         if cfg.lr is None:
             cfg.lr = lr
         if cfg.weight_decay is None:
@@ -123,13 +137,20 @@ class Trainer:
         self.device = torch.device(cfg.device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.model, self.spec = get_model(cfg.dnn)
+        self.model, self.spec = get_model(
+            cfg.dnn, space_to_depth=cfg.space_to_depth)
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         self.model.to(self.device).train()
+        # The JAX trainer folds the rank into its dropout key: the ranks
+        # draw different masks.
+        seed_dropout(self.model, int(np.random.SeedSequence(
+            [cfg.seed, self.rank]).generate_state(1)[0]))
+        data_kw = dict(batch_size=cfg.batch_size, data_dir=cfg.data_dir,
+                       seed=cfg.seed)
         self.train_data = get_dataset(
-            cfg.dataset, split="train", batch_size=cfg.batch_size,
-            rank=self.rank, nworkers=cfg.nworkers, data_dir=cfg.data_dir,
-            seed=cfg.seed)
+            cfg.dataset, split="train", rank=self.rank,
+            nworkers=cfg.nworkers, **data_kw)
+        self.val_data = get_dataset(cfg.dataset, split="test", **data_kw)
         self.steps_per_epoch = shard_steps_per_epoch(
             self.train_data, cfg.batch_size, cfg.nsteps_update)
         self.layout = flat_layout(self.model)
@@ -162,7 +183,8 @@ class Trainer:
     def lr_schedule(self):
         """lr(count) in float32, bitwise the JAX trainer's: the cifar10
         step schedule, x0.1 at 50% and 75% of max_epochs (boundaries that
-        collide or land at step 0 dropped), constant for other datasets;
+        collide or land at step 0 dropped), the imagenet one, x0.1 at
+        epochs 30, 60 and 80, constant for other datasets;
         with ``warmup_epochs``, first a linear ramp from lr/10 to lr over
         w = warmup_epochs * steps_per_epoch steps. The JAX ramp is written
         base * (0.1 + 0.9 * min(step, w) / w); XLA folds 0.9 / w into one
@@ -186,11 +208,14 @@ class Trainer:
         return schedule
 
     def _dataset_schedule(self, base: np.float32):
-        cfg = self.cfg
-        if cfg.dataset != "cifar10":
+        cfg, spe = self.cfg, self.steps_per_epoch
+        if cfg.dataset == "cifar10":
+            bounds = sorted({int(cfg.max_epochs * f) * spe
+                             for f in (0.5, 0.75)} - {0})
+        elif cfg.dataset == "imagenet":
+            bounds = [30 * spe, 60 * spe, 80 * spe]
+        else:
             return lambda count: float(base)
-        bounds = sorted({int(cfg.max_epochs * f) * self.steps_per_epoch
-                         for f in (0.5, 0.75)} - {0})
 
         def schedule(count: int) -> float:
             v = base
@@ -210,8 +235,9 @@ class Trainer:
     @torch.no_grad()
     def _average_over_ranks(self, loss: torch.Tensor,
                             top1: torch.Tensor):
-        """One all-reduce averages the BatchNorm running statistics, the
-        loss and the top-1 over the ranks; returns (loss, top1)."""
+        """One all-reduce averages the BatchNorm running statistics (none
+        for AlexNet), the loss and the top-1 over the ranks; returns
+        (loss, top1)."""
         bufs = list(self.model.buffers())
         flat = torch.cat([b.reshape(-1) for b in bufs]
                          + [loss.reshape(1), top1.reshape(1)])
@@ -272,3 +298,53 @@ class Trainer:
             "throughput": (num_iters * cfg.batch_size * cfg.nsteps_update
                            / wall) if wall > 0 else 0.0,
         }
+
+    @torch.no_grad()
+    def test(self) -> Dict[str, float]:
+        """Validation metrics, the JAX trainer's ``test()`` for the vision
+        models: in eval mode (BatchNorm on its running statistics, no
+        dropout), each batch's mean loss, top-1 and top-5 over the first
+        ``cfg.eval_batches`` batches of the test split (all when None),
+        averaged with the batch sizes as weights. At P > 1 rank r makes
+        and evaluates batches r, r + P, ...; the ranks sum one float64 table
+        of (loss, top1, top5, size) rows in which each filled its own rows
+        and left zeros elsewhere (adding zeros is exact), so every rank
+        returns what one rank doing every batch returns."""
+        cfg, model = self.cfg, self.model
+        nb = self.val_data.steps_per_epoch()
+        if cfg.eval_batches is not None:
+            nb = min(nb, cfg.eval_batches)
+        if nb == 0:
+            return {"val_loss": float("nan")}
+        table = torch.zeros(nb, 4, dtype=torch.float64)
+        model.eval()
+        try:
+            mine = range(self.rank, nb, cfg.nworkers)
+            for i, batch in zip(mine, self.val_data.epoch(0, mine)):
+                x, y = self._device_batch(batch)
+                logits = model(x)
+                top5 = logits.topk(min(5, logits.shape[-1]), dim=-1).indices
+                table[i] = torch.tensor([
+                    float(F.cross_entropy(logits, y)),
+                    float((logits.argmax(-1) == y).float().mean()),
+                    float((top5 == y[:, None]).any(-1).float().mean()),
+                    len(y)], dtype=torch.float64)
+        finally:
+            model.train()
+        if self.group is not None:
+            table = psum(table.to(self.device), group=self.group).cpu()
+        t = table.numpy()
+        return {key: float(np.average(t[:, j], weights=t[:, 3]))
+                for j, key in enumerate(("val_loss", "val_top1",
+                                         "val_top5"))}
+
+    def fit(self, max_epochs: Optional[int] = None) -> Dict[str, object]:
+        """Train and evaluate epoch by epoch, from the epoch ``self.step``
+        has reached up to `max_epochs` (default ``cfg.max_epochs``):
+        ``steps_per_epoch`` steps, then ``test()``. Returns the last
+        epoch's ``train`` statistics and metrics."""
+        result: Dict[str, object] = {}
+        for _ in range(self.step // self.steps_per_epoch,
+                       max_epochs or self.cfg.max_epochs):
+            result = {**self.train(self.steps_per_epoch), **self.test()}
+        return result

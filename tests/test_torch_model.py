@@ -103,7 +103,7 @@ def test_resnet20_param_count_and_zoo():
     model56, _ = get_model("resnet56")
     assert sum(p.numel() for p in model56.parameters()) == 855_770
     with pytest.raises(ValueError, match="unknown dnn"):
-        get_model("vgg16")
+        get_model("lstm")
 
 
 def test_eval_mode_uses_running_stats():

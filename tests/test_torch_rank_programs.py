@@ -6,9 +6,13 @@ A rank process imports this module afresh, so it imports torch, numpy and
 the port only -- never jax or the JAX package.
 """
 
+import dataclasses
+import functools
+
 import torch
 import torch.distributed as dist
 
+from gtopkssgd_tpu_torch import data, models
 from gtopkssgd_tpu_torch.convert import load_jax_state
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 from gtopkssgd_tpu_torch.parallel import collectives
@@ -112,3 +116,30 @@ def trainer_steps_from_states(device, cfg_kwargs, states):
                     "buffers": {name: b.clone() for name, b
                                 in trainer.model.named_buffers()}})
     return out
+
+
+def small_alexnet_steps_and_test(device, cfg_kwargs, steps):
+    """AlexNet at 64x64 with 10 classes on a synthetic ImageNet of that
+    size (the zoo's and the dataset registry's entries replaced in this
+    rank process only): `steps` trainer steps at P ranks, then
+    ``test()``; also the ``test()`` of a P = 1 trainer holding the same
+    weights. This rank's flat parameters, losses, both metrics and the
+    number of validation batches it synthesized."""
+    models._ZOO["alexnet"] = dataclasses.replace(
+        models._ZOO["alexnet"],
+        build=functools.partial(models.AlexNet, num_classes=10,
+                                image_size=64))
+    data._DATASETS["imagenet"] = functools.partial(
+        data.ImageNetDataset, image_size=64, num_classes=10)
+    trainer = Trainer(TrainConfig(device=str(device), **cfg_kwargs))
+    losses = trainer.train(steps)["losses"]
+    made = []
+    synth = trainer.val_data._synth_batch
+    trainer.val_data._synth_batch = lambda sel: made.append(1) or synth(sel)
+    metrics = trainer.test()
+    one = Trainer(TrainConfig(device=str(device),
+                              **{**cfg_kwargs, "nworkers": 1}))
+    one.model.load_state_dict(trainer.model.state_dict())
+    flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
+    return {"params": flat, "losses": losses, "metrics": metrics,
+            "p1_metrics": one.test(), "val_batches_made": len(made)}
