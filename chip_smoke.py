@@ -8,7 +8,8 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
 1. Card identity (nvidia-smi name and power limit); build the CUDA kernels
    from ``gtopkssgd_tpu_torch/ops/csrc/topk_kernels.cu`` (one nvcc call).
 2. Each kernel against its plain PyTorch twin on the card, BITWISE, at
-   N = 272,474 (ResNet-20), N = 14,986,698 (VGG-16), N = 25,557,032
+   N = 272,474 (ResNet-20), N = 14,986,698 (VGG-16), N = 19,775,200 (the
+   PTB LSTM), N = 20,340,477 (the AN4 DeepSpeech model), N = 25,557,032
    (ResNet-50) and N = 61,100,840 (AlexNet, the largest flat gradient of
    the zoo); per
    kernel the median device time of 20 calls (CUDA events, the card kept
@@ -75,7 +76,8 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        across ranks and at step 1 to the rank-order sum of the decoded
        sets on the CPU.
 7. The vision zoo on the card, at full width and depth, float32 with TF32
-   off, density 0.001, batch 32 a rank (see ``zoo_phase``):
+   off, density 0.001, batch 32 a rank (see ``model_phase`` and
+   ``reference_steps``):
    (a) ResNet-50 on synthetic ImageNet (224x224, k = 25,558 of N =
        25,557,032): 10 steps ``twostage`` (stage-1 kernel, one launch a
        step), 10 ``pallas`` (residual-mode multisection, one a step), 5
@@ -96,7 +98,33 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        residual must equal, bitwise, the CPU twins' selection on the
        card's own flat gradient and residual.
    Every run prints its median step ms and samples/s.
-8. A ``kernels`` JSON line, then the last line
+8. The recurrent zoo on the card, at full width, float32 with TF32 off
+   (cuDNN's LSTM included), density 0.001, batch 32 a rank (see
+   ``model_phase`` and ``reference_steps``):
+   (a) The PTB LSTM on synthetic PTB (N = 19,775,200, k = 19,776; BPTT
+       35, clip 0.25): 10 steps ``twostage`` (stage-1 kernel, one launch a
+       step), 10 ``pallas`` (residual-mode multisection, one a step), 5
+       dense (none); then ``test()`` on 2 windows: a finite loss and
+       ``val_ppl`` == exp(``val_loss``).
+   (b) The AN4 DeepSpeech model on synthetic AN4 padded to 400 frames (N
+       = 20,340,477; clip 400): 10 steps ``twostage``, across the 8-step
+       epoch, so the 1/1.01 anneal has taken effect; then ``test()`` on 2
+       batches: a finite loss, CER and WER >= 0.
+   (c) The PTB LSTM at P = 4 ``pallas``, 5 steps: the abs-mode
+       multisection kernel once a step on every rank, with phase 5's
+       checks, and each rank's carry distinct from every other's.
+   (d) Each model one step on the card and on the CPU from the same seed
+       at batch 2, dropout off (the PTB LSTM with ``twostage`` and with
+       ``pallas``, the AN4 model with ``pallas``): losses within 1e-3
+       relative, keep sets over the coordinates whose accumulator is
+       nonzero (a PTB gradient is mostly exact zeros: the embedding rows a
+       batch does not touch) with a Jaccard index of at least
+       ``REFERENCE_JACCARD``; then a second step on the card, whose keep
+       mask and residual must equal, bitwise, the CPU twins' selection on
+       the card's own clipped flat gradient and residual.
+   Every run prints its median step ms and samples/s, and tokens/s for
+   PTB.
+9. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -110,10 +138,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-SIZES = (272_474, 14_986_698, 25_557_032, 61_100_840)
+SIZES = (272_474, 14_986_698, 19_775_200, 20_340_477, 25_557_032,
+         61_100_840)
 REPS = 20
 LOSS_RTOL = 1e-3
-ZOO_JACCARD = 0.999  # phase 7e; 1.0000 and 0.99997 measured
+# Phases 7e and 8d; 1.00000 and 0.99997 measured (7e), 1.00000 (8d).
+REFERENCE_JACCARD = 0.999
 SOURCE = "gtopkssgd_tpu_torch/ops/csrc/topk_kernels.cu"
 # Entries of the kernels line, one per launch counter of
 # ``cuda_topk.launches``: counter -> the TPU kernel it replaces.
@@ -335,10 +365,14 @@ def train_run(method: str, compression: str, steps: int,
     check(all(math.isfinite(v) for v in losses),
           f"{dnn} {compression}/{method}: non-finite loss {losses}")
     med = statistics.median(stats["step_times"])
+    tokens = ""
+    if trainer.kind == "ptb":
+        per_step = trainer.cfg.batch_size * trainer.train_data.bptt
+        tokens = f"{per_step / med:.1f} tokens/s, "
     print(f"train {dnn} {compression}/{method}: {steps} steps, "
           f"params={trainer.num_params}, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, median step {med * 1e3:.3f} ms, "
-          f"{trainer.cfg.batch_size / med:.1f} samples/s, "
+          f"{trainer.cfg.batch_size / med:.1f} samples/s, {tokens}"
           f"launches {launches}")
     return launches, trainer
 
@@ -483,9 +517,14 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
     wire = dict(collectives.wire)
     flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
     params = gather(flat)
+    carry_distinct = None
+    if trainer.carry is not None:  # each rank carries its own rows
+        hs = gather(trainer.carry[-1][1])
+        carry_distinct = all(not torch.equal(a, b) for i, a in enumerate(hs)
+                             for b in hs[i + 1:])
     return dict(rank=rank, device=str(device), n=trainer.num_params,
                 launches=launches, wire=wire, step_times=times,
-                losses=losses,
+                losses=losses, carry_distinct=carry_distinct,
                 sets_agree=agree, ref_ok=ref_ok, mass_ok=mass_ok,
                 params_agree=all(torch.equal(x, params[0]) for x in params))
 
@@ -528,6 +567,8 @@ def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS) -> dict:
                   f"{run} rank {r['rank']}: non-finite loss {r['losses']}")
             check(r["params_agree"], f"{run}: final parameters differ "
                                      "across ranks")
+            check(r["carry_distinct"] is not False,
+                  f"{run}: two ranks hold the same carry")
             for name in REPLACES:
                 total[name] += r["launches"][name]
         per_step = [r["wire"]["bytes"] / steps for r in ranks]
@@ -571,6 +612,8 @@ def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS) -> dict:
               + (f", {what} bitwise equal across ranks and at step 1 to "
                  "the CPU reference" if sparse else "")
               + (", nothing folded" if compression == "topk" else "")
+              + (", each rank's carry distinct"
+                 if ranks[0]["carry_distinct"] else "")
               + f"; spawn to join {wall:.1f} s")
     return total
 
@@ -753,13 +796,21 @@ def codec_phase() -> None:
 
 
 def evaluate(trainer, run: str) -> None:
-    """``test()`` of `trainer`: a finite loss, top-1 and top-5 in [0, 1]."""
+    """``test()`` of `trainer`: a finite loss, and top-1 and top-5 in
+    [0, 1] (vision), perplexity exp(loss) (PTB), or CER and WER >= 0
+    (AN4)."""
     t0 = time.perf_counter()
     metrics = trainer.test()
     wall = time.perf_counter() - t0
-    check(math.isfinite(metrics["val_loss"])
-          and 0.0 <= metrics["val_top1"] <= metrics["val_top5"] <= 1.0,
-          f"{run}: test() gave {metrics}")
+    loss = metrics["val_loss"]
+    if trainer.kind == "ptb":
+        ok = math.isclose(metrics["val_ppl"], math.exp(min(loss, 20.0)),
+                          rel_tol=1e-12)
+    elif trainer.kind == "an4":
+        ok = metrics["val_cer"] >= 0.0 and metrics["val_wer"] >= 0.0
+    else:
+        ok = 0.0 <= metrics["val_top1"] <= metrics["val_top5"] <= 1.0
+    check(math.isfinite(loss) and ok, f"{run}: test() gave {metrics}")
     print(f"test {run}: {trainer.cfg.eval_batches} batches of "
           f"{trainer.cfg.batch_size}, {metrics}, {wall:.2f} s")
 
@@ -769,18 +820,31 @@ ZOO_RUNS = (("resnet50", (("twostage", "gtopk", 10), ("pallas", "gtopk", 10),
                           ("exact", "dense", 5))),
             ("vgg16", (("twostage", "gtopk", 10),)),
             ("alexnet", (("pallas", "gtopk", 10),)))
-ZOO_DIST_RUNS = (("pallas", "gtopk", 4, "fp32"),)
-ZOO_DIST_STEPS = 5
+# (dnn, P > 1 runs, their steps) of phase 7d
+ZOO_DIST = ("resnet50", (("pallas", "gtopk", 4, "fp32"),), 5)
+# (dnn, method) of phase 7e
+ZOO_REFERENCE = (("resnet50", "twostage"), ("vgg16", "twostage"),
+                 ("alexnet", "pallas"))
+# The same for phase 8
+RECURRENT_RUNS = (("lstm", (("twostage", "gtopk", 10), ("pallas", "gtopk", 10),
+                            ("exact", "dense", 5))),
+                  ("lstman4", (("twostage", "gtopk", 10),)))
+RECURRENT_DIST = ("lstm", (("pallas", "gtopk", 4, "fp32"),), 5)
+RECURRENT_REFERENCE = (("lstm", "twostage"), ("lstm", "pallas"),
+                       ("lstman4", "pallas"))
 
 
-def zoo_phase() -> dict:
-    """Phase 7 (a)-(d) (see the module docstring); returns the launches
-    per kernel."""
+def model_phase(runs, dist) -> dict:
+    """Phases 7 (a)-(d) and 8 (a)-(c) (see the module docstring): the P =
+    1 `runs`, each model's last trainer then ``test()``, and the P > 1
+    runs of `dist`; returns the launches per kernel."""
+    import numpy as np
+
     total = {name: 0 for name in REPLACES}
     want = {"twostage": "fused_stage1_candidates",
             "pallas": "multisection_tau_lo[residual]"}
-    for dnn, runs in ZOO_RUNS:
-        for method, compression, steps in runs:
+    for dnn, dnn_runs in runs:
+        for method, compression, steps in dnn_runs:
             launches, trainer = train_run(method, compression, steps, dnn)
             check_launches(launches, {want[method]: steps}
                            if compression == "gtopk" else {},
@@ -788,27 +852,39 @@ def zoo_phase() -> dict:
                            "steps")
             for name in REPLACES:
                 total[name] += launches[name]
+        if trainer.kind == "an4":
+            # The last step's lr is the schedule's at count steps - 1,
+            # past the first epoch: base * (1/1.01).
+            spe, base = trainer.steps_per_epoch, trainer.cfg.lr
+            lr = trainer.optimizer.param_groups[0]["lr"]
+            annealed = float(np.float32(base) * np.float32(1 / 1.01))
+            check(steps > spe and lr == annealed,
+                  f"{dnn}: lr {lr} after {steps} steps of {spe} an epoch, "
+                  f"expected {annealed}")
+            print(f"train {dnn}: {spe} steps an epoch, lr {base} -> {lr} "
+                  "(the 1/1.01 anneal)")
         evaluate(trainer, f"{dnn} after {compression}/{method}")
         del trainer
-    for name, count in dist_phase(ZOO_DIST_RUNS, "resnet50",
-                                  ZOO_DIST_STEPS).items():
+    dnn, dist_runs, steps = dist
+    for name, count in dist_phase(dist_runs, dnn, steps).items():
         total[name] += count
     return total
 
 
-def zoo_reference_phase() -> None:
-    """Phase 7e: one step of each zoo model on the card and on the CPU
-    from the same seed (the same weights and batches), dropout off; then
-    a second step on the card, its selection held bitwise to the CPU
-    twins' on the card's own gradient and residual."""
+def reference_steps(cases) -> None:
+    """Phases 7e and 8d: for each (dnn, method) of `cases`, one step on
+    the card and on the CPU from the same seed (the same weights and
+    batches), dropout off; then a second step on the card, its selection
+    held bitwise to the CPU twins' on the card's own (clipped) gradient
+    and residual."""
     import torch
 
     from gtopkssgd_tpu_torch.compression import TopKCompressor
     from gtopkssgd_tpu_torch.models import Dropout
+    from gtopkssgd_tpu_torch.optimizer import clip_by_global_norm
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
-    for dnn, method in (("resnet50", "twostage"), ("vgg16", "twostage"),
-                        ("alexnet", "pallas")):
+    for dnn, method in cases:
         cfg = dict(dnn=dnn, batch_size=2, compression="gtopk",
                    density=0.001, topk_method=method)
         pair = [Trainer(TrainConfig(device=d, **cfg))
@@ -818,31 +894,36 @@ def zoo_reference_phase() -> None:
                 if isinstance(mod, Dropout):
                     mod.rate = 0.0
         lg, lc = (t.train(1)["loss"] for t in pair)
-        kg, kc = (t.optimizer.last_keep.cpu() for t in pair)
+        # Step 1 starts from a zero residual: acc != 0 where grad != 0.
+        kg, kc = ((t.optimizer.last_keep & (t.optimizer.flat_grad != 0)
+                   ).cpu() for t in pair)
+        nonzero = int((pair[1].optimizer.flat_grad != 0).sum())
         jac = float((kg & kc).sum()) / float((kg | kc).sum())
+        run = f"reference {dnn} {method}"
         check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
-              f"reference {dnn} {method}: step-1 loss {lg} vs cpu {lc}")
-        check(jac >= ZOO_JACCARD,
-              f"reference {dnn} {method}: step-1 jaccard {jac}")
+              f"{run}: step-1 loss {lg} vs cpu {lc}")
+        check(jac >= REFERENCE_JACCARD, f"{run}: step-1 jaccard {jac}")
 
         card = pair[0]
         del pair
         opt = card.optimizer
         res_in = opt.state["residual"].cpu()
         card.train(1)
-        grad = opt.flat_grad.cpu()
+        grad = opt.flat_grad
+        if card.cfg.clip_grad_norm is not None:
+            grad = clip_by_global_norm(grad, card.cfg.clip_grad_norm)
+        grad = grad.cpu()
         keep, res, _ = TopKCompressor(0.001, method).compress_by_threshold(
             grad + res_in, grad=grad, residual=res_in)
         same = (torch.equal(keep, opt.last_keep.cpu())
                 and torch.equal(res, opt.state["residual"].cpu()))
-        print(f"reference {dnn} {method}: step-1 loss card {lg:.6f} cpu "
-              f"{lc:.6f}, keep {int(kg.sum())} vs {int(kc.sum())}, "
-              f"jaccard {jac:.5f}; step-2 selection on the card's "
+        print(f"{run}: step-1 loss card {lg:.6f} cpu {lc:.6f}, "
+              f"keep {int(kg.sum())} vs {int(kc.sum())} of {nonzero:,} "
+              f"nonzero, jaccard {jac:.5f}; step-2 selection on the card's "
               f"gradient (N = {card.num_params}): "
               f"{'bitwise' if same else 'DIFFERENT'} "
               f"({int(keep.sum())} kept)")
-        check(same, f"reference {dnn} {method}: card selection != cpu "
-              "twins")
+        check(same, f"{run}: card selection != cpu twins")
 
 
 def main() -> int:
@@ -891,9 +972,12 @@ def main() -> int:
     codec_phase()
     for name, count in dist_phase(CODEC_RUNS).items():
         total[name] += count
-    for name, count in zoo_phase().items():
+    for name, count in model_phase(ZOO_RUNS, ZOO_DIST).items():
         total[name] += count
-    zoo_reference_phase()
+    reference_steps(ZOO_REFERENCE)
+    for name, count in model_phase(RECURRENT_RUNS, RECURRENT_DIST).items():
+        total[name] += count
+    reference_steps(RECURRENT_REFERENCE)
 
     n0 = SIZES[0]
     line = []

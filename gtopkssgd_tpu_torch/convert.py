@@ -7,9 +7,10 @@ fix the flat gradient order, for every model of the zoo.
   weight/bias/running_mean/running_var.
 * ``load_jax_state(trainer, ...)`` carries a JAX trainer's whole state
   into a port ``Trainer``: weights and BatchNorm statistics (none for
-  AlexNet), the SGD momentum, this rank's row of the per-rank ``[P, N]``
-  residual (or of its {"v", "u"} pair under momentum correction), and the
-  step count.
+  AlexNet and the PTB model), the SGD momentum, this rank's row of the
+  per-rank ``[P, N]`` residual (or of its {"v", "u"} pair under momentum
+  correction), the step count, and for the PTB model this rank's row of
+  the BPTT carry.
 * ``flat_layout(model)`` orders the model's parameters as the JAX package's
   ``ravel_pytree`` does -- flax's module paths sorted as strings at each
   level (``BasicBlock_10`` before ``BasicBlock_2``, ``BatchNorm_0`` before
@@ -22,13 +23,18 @@ The port's module names map onto flax's auto-generated ones:
 * the ResNets: ``conv``, ``bn``, ``fc`` are ``Conv_0``, ``BatchNorm_0``,
   ``Dense_0``; ``blocks.i`` is ``BasicBlock_i`` and ``bottlenecks.i`` is
   ``BottleneckBlock_i``, whose layers are named in ``_BLOCKS``;
-* VGG-16 and AlexNet: ``convs.i``, ``bns.i``, ``fcs.i`` are ``Conv_i``,
-  ``BatchNorm_i``, ``Dense_i``.
+* VGG-16, AlexNet and the AN4 model: ``convs.i``, ``bns.i``, ``fcs.i`` are
+  ``Conv_i``, ``BatchNorm_i``, ``Dense_i``;
+* the recurrent models: ``cells.i.kernel.<gate>`` and
+  ``cells.i.bias.<gate>`` are ``OptimizedLSTMCell_i/<gate>/kernel`` and
+  ``.../bias`` (gates ``ii if ig io hi hf hg ho``, biases on the ``h``
+  ones only), ``embed`` is ``Embed_0`` (its table is (vocab, features)
+  in both layouts) and ``fc`` is ``Dense_0``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +44,9 @@ from gtopkssgd_tpu_torch.optimizer import FlatLayout
 
 Path = Tuple[str, ...]
 
-_TOP = {"conv": "Conv_0", "bn": "BatchNorm_0", "fc": "Dense_0"}
+_TOP = {"conv": "Conv_0", "bn": "BatchNorm_0", "fc": "Dense_0",
+        "embed": "Embed_0"}
+_CELL = "OptimizedLSTMCell"
 _LISTS = {"convs": "Conv", "bns": "BatchNorm", "fcs": "Dense"}
 # Block lists: port list name -> (flax block class, port layer -> flax).
 _BLOCKS = {
@@ -56,6 +64,7 @@ _LEAF = {
     "Dense": {"weight": "kernel", "bias": "bias"},
     "BatchNorm": {"weight": "scale", "bias": "bias",
                   "running_mean": "mean", "running_var": "var"},
+    "Embed": {"weight": "embedding"},
 }
 # Port layout -> reference layout, by tensor rank: conv OIHW -> HWIO,
 # Linear (out, in) -> (in, out), vectors unchanged.
@@ -65,10 +74,13 @@ _FROM_REF = {4: (3, 2, 0, 1), 2: (1, 0), 1: (0,)}
 
 def flax_path(name: str) -> Path:
     """'blocks.3.shortcut.1.weight' -> ('BasicBlock_3', 'BatchNorm_2',
-    'scale'), 'convs.4.bias' -> ('Conv_4', 'bias'); parameters and
-    BatchNorm buffers alike."""
+    'scale'), 'convs.4.bias' -> ('Conv_4', 'bias'), 'cells.1.kernel.if'
+    -> ('OptimizedLSTMCell_1', 'if', 'kernel'); parameters and BatchNorm
+    buffers alike."""
     parts = name.split(".")
     head, leaf = parts[0], parts[-1]
+    if head == "cells":
+        return (f"{_CELL}_{parts[1]}", parts[3], parts[2])
     if head in _BLOCKS:
         cls, layers = _BLOCKS[head]
         prefix = (f"{cls}_{parts[1]}", layers[".".join(parts[2:-1])])
@@ -90,31 +102,43 @@ def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
     return out
 
 
+def _perm(path: Path, dim: int, table) -> Tuple[int, ...]:
+    """`table`'s permutation (``_TO_REF`` or ``_FROM_REF``) for the tensor
+    of rank `dim` at flax path `path`; an embedding table is (vocab,
+    features) in both layouts."""
+    return (0, 1) if path[0].startswith("Embed_") else table[dim]
+
+
 def from_jax_params(params: Mapping[str, Any],
                     batch_stats: Optional[Mapping[str, Any]] = None
                     ) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for the port's model from flax's params and
-    batch_stats trees (numpy or jax arrays; no batch_stats for AlexNet)."""
+    batch_stats trees (numpy or jax arrays; no batch_stats for AlexNet
+    and the PTB model)."""
     by_path = {**_flatten(params), **_flatten(batch_stats or {})}
     names = _port_names(by_path)
     out = {}
     for path, value in by_path.items():
         t = torch.from_numpy(np.array(value, dtype=np.float32))
-        out[names[path]] = t.permute(_FROM_REF[t.dim()]).contiguous()
+        perm = _perm(path, t.dim(), _FROM_REF)
+        out[names[path]] = t.permute(perm).contiguous()
     return out
 
 
 def load_jax_state(trainer, params: Mapping[str, Any],
                    batch_stats: Optional[Mapping[str, Any]],
                    momentum: Optional[Mapping[str, Any]], residual,
-                   count: int) -> None:
+                   count: int, carry: Sequence = ()) -> None:
     """Load a JAX trainer's state, as numpy trees, into `trainer` (one
     rank): ``momentum`` is optax's SGD trace, a tree like ``params``, or
     None where there is none (under momentum correction the SGD step has
     no momentum); ``residual`` is f32[N] at P = 1 and the per-rank
     f32[P, N] above it, of which this rank takes row ``trainer.rank`` --
     under momentum correction a mapping {"v": ..., "u": ...} of two such
-    arrays, the accumulated and the local velocity."""
+    arrays, the accumulated and the local velocity; ``carry`` is the JAX
+    trainer's BPTT carry, one (c, h) pair of f32[P, B, H] per layer (empty
+    for the other models), of which this rank takes row
+    ``trainer.rank``."""
     trainer.model.load_state_dict(from_jax_params(params, batch_stats))
     named = dict(trainer.model.named_parameters())
     opt = trainer.optimizer
@@ -134,19 +158,30 @@ def load_jax_state(trainer, params: Mapping[str, Any],
     else:
         opt.state["residual"] = row(residual)
     opt.state["count"] = int(count)
+    if len(carry):
+        trainer.carry = tuple(
+            tuple(torch.from_numpy(np.array(x, dtype=np.float32)[
+                trainer.rank]).to(device) for x in pair)
+            for pair in carry)
 
 
 def _inverse(mapping: Mapping[str, str]) -> Dict[str, str]:
     return {v: k for k, v in mapping.items()}
 
 
-def _port_name(path: Path, resnet: bool) -> str:
+def _port_name(path: Path, resnet: bool, recurrent: bool) -> str:
     """The inverse of ``flax_path``; `resnet`: the tree holds blocks, so
     its top-level ``Conv_0``, ``BatchNorm_0``, ``Dense_0`` are ``conv``,
-    ``bn``, ``fc`` rather than ``convs.0``, ``bns.0``, ``fcs.0``."""
+    ``bn``, ``fc`` rather than ``convs.0``, ``bns.0``, ``fcs.0``;
+    `recurrent`: the tree holds LSTM cells, so ``Embed_0`` and ``Dense_0``
+    are ``embed`` and ``fc``."""
     *mods, leaf = path
     cls, _, idx = mods[0].rpartition("_")
-    if len(mods) == 2:
+    if cls == _CELL:
+        return f"cells.{idx}.{leaf}.{mods[1]}"
+    if recurrent and cls in ("Embed", "Dense"):
+        mod = _inverse(_TOP)[mods[0]]
+    elif len(mods) == 2:
         head = next(h for h, (c, _) in _BLOCKS.items() if c == cls)
         mod = f"{head}.{idx}.{_inverse(_BLOCKS[head][1])[mods[1]]}"
     elif resnet:
@@ -158,11 +193,12 @@ def _port_name(path: Path, resnet: bool) -> str:
 
 def _port_names(paths) -> Dict[Path, str]:
     """flax path -> port name, for every path of a zoo model's tree."""
-    resnet = any(len(p) > 2 for p in paths)
+    recurrent = any(p[0].startswith(_CELL) for p in paths)
+    resnet = not recurrent and any(len(p) > 2 for p in paths)
     names = {}
     for path in paths:
         try:
-            names[path] = _port_name(path, resnet)
+            names[path] = _port_name(path, resnet, recurrent)
         except (KeyError, StopIteration):
             raise ValueError(f"no port name for flax path {path}") from None
     return names
@@ -170,6 +206,7 @@ def _port_names(paths) -> Dict[Path, str]:
 
 def flat_layout(model: nn.Module) -> FlatLayout:
     """The model's parameters in ``ravel_pytree`` order and layout."""
-    named = sorted(model.named_parameters(),
-                   key=lambda item: flax_path(item[0]))
-    return FlatLayout([(p, _TO_REF[p.dim()]) for _, p in named])
+    named = sorted((flax_path(name), p)
+                   for name, p in model.named_parameters())
+    return FlatLayout([(p, _perm(path, p.dim(), _TO_REF))
+                       for path, p in named])

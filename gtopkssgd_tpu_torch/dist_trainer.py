@@ -1,7 +1,8 @@
 """Command line of the port's trainer (the JAX package's flag names).
 
     python -m gtopkssgd_tpu_torch.dist_trainer \\
-        --dnn resnet20|resnet56|vgg16|resnet50|alexnet [--s2d] \\
+        --dnn resnet20|resnet56|vgg16|resnet50|alexnet|lstm|lstman4 \\
+        [--dataset cifar10|imagenet|ptb|an4] [--s2d] \\
         --compression gtopk --density 0.001 --topk-method twostage \\
         [--num-iters 20] [--eval-batches B] [--nworkers P] [--device cpu] \\
         [--dist-backend gloo] [--wire-codec int8] [--momentum-correction] \\
@@ -15,9 +16,13 @@ per card by default on CUDA (P cards needed), gloo on the CPU;
 visible cards. With ``--num-iters N`` the trainer takes N steps and then
 evaluates (``Trainer.test()``, at most ``--eval-batches`` batches);
 without it, ``Trainer.fit()`` trains and evaluates each of
-``--max-epochs`` epochs, as the JAX CLI does. Rank 0 prints one JSON line
-with the per-step losses, step times, the gradient bytes a rank shipped
-per step and the validation metrics.
+``--max-epochs`` epochs, as the JAX CLI does. The dataset defaults to the
+model's (``lstm``: PTB, ``lstman4``: AN4; synthetic unless ``--data-dir``
+holds the real files), and so do lr, weight decay and the clip (PTB 1.0,
+0, 0.25; AN4 3e-4, 0, 400). Rank 0 prints one JSON line with the
+per-step losses, step times, the gradient bytes a rank shipped per step
+and the validation metrics (``val_loss`` and ``val_top1``/``val_top5``,
+``val_ppl``, or ``val_cer``/``val_wer``).
 """
 
 from __future__ import annotations

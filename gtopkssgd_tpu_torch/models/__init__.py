@@ -1,6 +1,7 @@
 """Model zoo by the reference's ``--dnn`` flag string: the vision zoo
 (VGG-16 and the CIFAR ResNets on CIFAR-10, ResNet-50 and AlexNet on
-ImageNet)."""
+ImageNet) and the recurrent zoo (the 2-layer LSTM on PTB, the DeepSpeech
+BiLSTM on AN4)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from torch import nn
 
 from gtopkssgd_tpu_torch.models.alexnet import AlexNet
 from gtopkssgd_tpu_torch.models.layers import BatchNorm, Dropout, seed_dropout
+from gtopkssgd_tpu_torch.models.lstm import PTBLSTM
+from gtopkssgd_tpu_torch.models.lstman4 import DeepSpeechAN4
 from gtopkssgd_tpu_torch.models.resnet import (
     BasicBlock,
     BottleneckBlock,
@@ -23,15 +26,17 @@ from gtopkssgd_tpu_torch.models.vgg import VGG16
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """A zoo entry: constructor, canonical dataset, example input shape
-    (NHWC, without the batch dimension), and whether the model has
-    BatchNorm statistics (the JAX zoo's field, held equal to it by the
-    tests; the trainer averages whatever buffers a model has)."""
+    (NHWC for images, (T,) tokens, (T, bins) spectrograms; without the
+    batch dimension), whether the model has BatchNorm statistics (the JAX
+    zoo's field, held equal to it by the tests; the trainer averages
+    whatever buffers a model has), and whether it is recurrent."""
 
     name: str
     build: Callable[..., nn.Module]
     dataset: str
     example_shape: Tuple[int, ...]
     has_batchnorm: bool = True
+    recurrent: bool = False
 
 
 _ZOO: Dict[str, ModelSpec] = {spec.name: spec for spec in (
@@ -43,6 +48,9 @@ _ZOO: Dict[str, ModelSpec] = {spec.name: spec for spec in (
     ModelSpec("resnet50", ResNetImageNet, "imagenet", (224, 224, 3)),
     ModelSpec("alexnet", AlexNet, "imagenet", (224, 224, 3),
               has_batchnorm=False),
+    ModelSpec("lstm", PTBLSTM, "ptb", (35,), has_batchnorm=False,
+              recurrent=True),
+    ModelSpec("lstman4", DeepSpeechAN4, "an4", (200, 161), recurrent=True),
 )}
 
 
@@ -70,5 +78,6 @@ def get_model(dnn: str, space_to_depth: bool = False
 
 
 __all__ = ["AlexNet", "BasicBlock", "BatchNorm", "BottleneckBlock",
-           "Dropout", "ModelSpec", "ResNetCIFAR", "ResNetImageNet", "VGG16",
-           "get_model", "model_spec", "seed_dropout"]
+           "DeepSpeechAN4", "Dropout", "ModelSpec", "PTBLSTM",
+           "ResNetCIFAR", "ResNetImageNet", "VGG16", "get_model",
+           "model_spec", "seed_dropout"]

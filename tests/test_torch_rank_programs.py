@@ -143,3 +143,26 @@ def small_alexnet_steps_and_test(device, cfg_kwargs, steps):
     flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
     return {"params": flat, "losses": losses, "metrics": metrics,
             "p1_metrics": one.test(), "val_batches_made": len(made)}
+
+
+def small_ptb_steps_and_test(device, cfg_kwargs, steps):
+    """The PTB LSTM at hidden 64 (the zoo's entry replaced in this rank
+    process only): `steps` trainer steps at P ranks, then ``test()``; also
+    the ``test()`` of a P = 1 trainer holding the same weights. This
+    rank's global index set of each step, its final carry, flat
+    parameters, losses and both metrics."""
+    models._ZOO["lstm"] = dataclasses.replace(
+        models._ZOO["lstm"],
+        build=functools.partial(models.PTBLSTM, hidden_size=64))
+    trainer = Trainer(TrainConfig(device=str(device), **cfg_kwargs))
+    gidx, losses = [], []
+    for _ in range(steps):
+        losses.append(trainer.train(1)["loss"])
+        gidx.append(trainer.optimizer.last_global[1].clone())
+    metrics = trainer.test()
+    one = Trainer(TrainConfig(device=str(device),
+                              **{**cfg_kwargs, "nworkers": 1}))
+    one.model.load_state_dict(trainer.model.state_dict())
+    flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
+    return {"gidx": gidx, "carry": trainer.carry, "params": flat,
+            "losses": losses, "metrics": metrics, "p1_metrics": one.test()}
