@@ -10,13 +10,20 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
 2. Each kernel against its plain PyTorch twin on the card, BITWISE, at
    N = 272,474 (ResNet-20), N = 14,986,698 (VGG-16), N = 19,775,200 (the
    PTB LSTM), N = 20,340,477 (the AN4 DeepSpeech model), N = 25,557,032
-   (ResNet-50) and N = 61,100,840 (AlexNet, the largest flat gradient of
-   the zoo); per
+   (ResNet-50), N = 61,100,840 (AlexNet, the largest flat gradient of
+   the zoo), and the largest leaves of ResNet-20 (36,864) and ResNet-50
+   (2,359,296), which ``gtopk_layerwise`` selects over; per
    kernel the median device time of 20 calls (CUDA events, the card kept
    busy ahead of each call so host overhead is not timed), beside the
-   twin's, a one-call library yardstick the port never uses, and the bound
+   twin's, a library yardstick the port never uses (one call, or for the
+   stage-1 kernel three: add, abs and the bucket maxima over g and r
+   padded beforehand), and the bound
    max(bytes / 3.35 TB/s, operations / 67 TFLOP/s); first, an empty
-   kernel's time, ``launch_floor_ms``. The multisection
+   kernel's time, ``launch_floor_ms``. Untimed, the stage-1 kernel and
+   the multisection kernel in both modes at every distinct leaf size of
+   ResNet-20 and ResNet-50 (31 sizes, 10 to 2,359,296), on leaves at an
+   odd offset into their buffers, with the k and groups the per-leaf
+   selection gives them. The multisection
    kernel (lo, the 4x8 thresholds and the 4x8 counts, in abs and in
    residual mode) is also held to the four-launch path it replaced (the
    round loop counting with the single-pass count kernel), whose lo must
@@ -124,7 +131,36 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        the card's own clipped flat gradient and residual.
    Every run prints its median step ms and samples/s, and tokens/s for
    PTB.
-9. A ``kernels`` JSON line, then the last line
+9. The rest of the JAX optimizer's modes, batch 32 a rank, density 0.001,
+   TF32 off (see ``layerwise_phase``, ``dist_phase``, ``planner_phase``):
+   (a) ResNet-50 ``gtopk_layerwise`` (``--buckets concat``, 161 leaves) at
+       P = 1: 10 steps ``twostage`` (one stage-1 launch a leaf a step:
+       1,610) and 10 ``pallas`` (one residual-mode multisection launch a
+       leaf a step: 1,610); then, for each method, one step card against
+       CPU as in 7e, the step-2 selection held leaf by leaf (all 161
+       leaves, so every per-leaf call of either kernel on this path is
+       held to its twin at its own size).
+   (b) ResNet-50 ``gtopk_layerwise`` at P = 4, 5 steps ``twostage`` with
+       ``--buckets concat`` (161 launches a rank a step) and 5 with
+       ``--buckets 4`` (4), in one spawn: phase 5's checks, the reference
+       per bucket, bytes equal to the model summed over the buckets.
+   (c) ResNet-20 ``gtopk_hier`` ``twostage``, 10 steps: P = 4 with slices
+       of 2 at fp32 and int8, P = 6 with slices of 3 (a ragged slice):
+       the slice members hold bitwise the same slice sum (and a plain
+       recursive-doubling sum's) and residual, the tree over one member
+       of each slice as reference; bytes: the tree's sets as the model
+       counts them, plus the 4N buffers the rank ships in the in-slice
+       sum (``ici_psum_sends``: 4N at slices of 2, the model's term; at
+       slices of 3, 8N, 4N and 4N by offset).
+   (d) ResNet-20 ``gtopk --comm-plan balanced`` ``pallas``, 10 steps, at P
+       = 4 and P = 3 (n < chunk * p) at fp32 and fp8:32: ``balanced_ref``
+       at step 1, bytes (2p - 1) cap-sets at every P.
+   (e) Every P > 1 run prints its plan decision; at P = 4 'auto' must keep
+       the tree (the (b) runs), and the planner's choices and scores with
+       each committed fit (gloo, NCCL) at P = 2..8 for ResNet-20's and
+       ResNet-50's N.
+   The runs of one P share one spawn.
+10. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -139,7 +175,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 SIZES = (272_474, 14_986_698, 19_775_200, 20_340_477, 25_557_032,
-         61_100_840)
+         61_100_840, 36_864, 2_359_296)
+# The kernels run once a leaf under gtopk_layerwise: phase 2 holds them
+# bitwise, untimed, at every distinct leaf size of these models.
+LEAF_MODELS = ("resnet20", "resnet50")
 REPS = 20
 LOSS_RTOL = 1e-3
 # Phases 7e and 8d; 1.00000 and 0.99997 measured (7e), 1.00000 (8d).
@@ -235,31 +274,33 @@ def kernel_phase(n: int):
     thr = torch.cat([q, mag[:1]]).contiguous()  # one threshold == a datum
     nb = max(1, -(-n // cuda_topk.BLOCK))
     L = nb * groups * cuda_topk.LANES
-    buckets = torch.nn.functional.pad(
-        mag, (0, nb * cuda_topk.BLOCK - n), value=-1.0).view(
-        nb, groups, cuda_topk.BLOCK_ROWS // groups, cuda_topk.LANES)
+    tile = (nb, groups, cuda_topk.BLOCK_ROWS // groups, cuda_topk.LANES)
+    pad = (0, nb * cuda_topk.BLOCK - n)
+    g_pad = torch.nn.functional.pad(g, pad)
+    r_pad = torch.nn.functional.pad(r, pad)
     cases = {
         "multi_threshold_count": dict(
             run=lambda: cuda_topk.multi_threshold_count(mag, thr),
             ref=lambda: cuda_topk.multi_threshold_count_ref(mag, thr),
             lib=lambda: (mag[:, None] >= thr).sum(0),
             bytes=4 * n + 64, ops=8 * n),
-        # Library: the bucket maxima and their rows over a precomputed,
-        # padded |acc| (no add, CUDA's own tie rule); torch.topk is the
+        # Library: three calls that read g and r as K2 does -- add, abs,
+        # then the bucket maxima and their rows (CUDA's own tie rule) --
+        # over g and r padded to the tile beforehand; torch.topk is the
         # whole selection's yardstick, not this kernel's.
         "fused_stage1_candidates": dict(
             run=lambda: cuda_topk.fused_stage1_candidates(
                 g, None, r, groups=groups),
             ref=lambda: cuda_topk.fused_stage1_candidates_ref(
                 g, None, r, groups=groups),
-            lib=lambda: torch.max(buckets, dim=2),
+            lib=lambda: torch.max((g_pad + r_pad).abs().view(tile), dim=2),
             bytes=8 * n + 8 * L, ops=3 * n),
         "fused_stage1_candidates+counts": dict(
             run=lambda: cuda_topk.fused_stage1_candidates(
                 g, thr, r, groups=groups),
             ref=lambda: cuda_topk.fused_stage1_candidates_ref(
                 g, thr, r, groups=groups),
-            lib=lambda: torch.max(buckets, dim=2),
+            lib=lambda: torch.max((g_pad + r_pad).abs().view(tile), dim=2),
             bytes=8 * n + 8 * L + 64, ops=11 * n),
         "fused_multi_threshold_count": dict(
             run=lambda: cuda_topk.fused_multi_threshold_count(g, thr, r),
@@ -326,6 +367,57 @@ def kernel_phase(n: int):
     print(f"kernel fused_stage1_candidates n={n:>10,d} without residual, "
           "counts off and on: match=bitwise (not timed)")
     return out
+
+
+def leaf_sizes() -> list:
+    """Every distinct leaf size of the `LEAF_MODELS`, ascending."""
+    import torch
+
+    from gtopkssgd_tpu_torch.convert import flat_layout
+    from gtopkssgd_tpu_torch.models import get_model
+
+    sizes = set()
+    for dnn in LEAF_MODELS:
+        with torch.device("meta"):
+            model, _ = get_model(dnn)
+        sizes.update(flat_layout(model).sizes)
+    return sorted(sizes)
+
+
+def leaf_phase() -> None:
+    """K2 and the multisection kernel (abs and residual mode) against
+    their twins, bitwise and untimed, at every size of ``leaf_sizes``,
+    with the k and groups the per-leaf selection gives them, on a leaf at
+    an odd offset into its buffer (as a layout's leaf views are)."""
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk, topk
+
+    for n in leaf_sizes():
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        buf = torch.randn(2 * n + 1, device="cuda", generator=gen)
+        g, r = buf[1:n + 1], 0.3 * buf[n + 1:]
+        k = topk.k_for_density(n, 0.001)
+        groups = topk._twostage_pallas_groups(n, k)
+        pairs = (
+            (cuda_topk.fused_stage1_candidates(g, None, r, groups=groups),
+             cuda_topk.fused_stage1_candidates_ref(g, None, r,
+                                                   groups=groups)),
+            (cuda_topk.multisection_tau_lo(g, k, r),
+             cuda_topk.multisection_tau_lo_ref(g, k, r)),
+            (cuda_topk.multisection_tau_lo(g + r, k),
+             cuda_topk.multisection_tau_lo_ref(g + r, k)))
+        for name, (got, want) in zip(
+                ("fused_stage1_candidates", "multisection_tau_lo[residual]",
+                 "multisection_tau_lo[abs]"), pairs):
+            for a, b in zip(got, want):
+                if a is None or b is None:
+                    check(a is None and b is None, f"{name} n={n}: outputs")
+                    continue
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"{name} leaf n={n} k={k}: kernel != twin")
+        print(f"kernel leaf n={n:>9,d} k={k} groups={groups}: stage-1, "
+              "multisection abs and residual match=bitwise (not timed)")
 
 
 def stage1_edge_phase() -> int:
@@ -450,12 +542,36 @@ def rank_order_union(local, k: int, n: int, codec: str):
     return out[:n]
 
 
+def slice_sum_ref(xs):
+    """The in-slice sum each of the len(xs) members ends with, by the
+    association ``ici_dense_psum`` uses: extras folded into the largest
+    power-of-two block, recursive doubling there, the sum sent back."""
+    s = len(xs)
+    m = 1 << (s.bit_length() - 1)
+    x = [xs[j] + xs[j + m] if j < s - m else xs[j] for j in range(m)]
+    r = 1
+    while r < m:
+        x = [x[j] + x[j ^ r] for j in range(m)]
+        r <<= 1
+    return x + [x[j - m] for j in range(m, s)]
+
+
+def _set_list(sets):
+    """A step's sets as a list, one a merge (a bucket)."""
+    return sets if isinstance(sets, list) else [sets]
+
+
 def dist_rank(device, method: str, compression: str, nworkers: int,
-              steps: int, codec: str, dnn: str = "resnet20") -> dict:
+              steps: int, codec: str, dnn: str = "resnet20",
+              extra: dict = None) -> dict:
     """One rank of a P > 1 run (spawned by ``dist_phase``): trains `steps`
     steps and checks, after each, that every rank holds the same global
-    set (gtopk) or dense union (the allgather modes); returns this rank's
-    launch and wire counters and its checks."""
+    sets (the gtopk family; one a bucket) or dense union (the allgather
+    modes), at step 1 that they equal the plain reference over the
+    gathered local sets, and under gtopk_hier that the members of a slice
+    hold the same slice sum (and the reference's) and residual; returns
+    this rank's launch and wire counters, its checks and (rank 0) the
+    plan's record."""
     import torch
     import torch.distributed as dist
 
@@ -463,11 +579,15 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
     from gtopkssgd_tpu_torch.parallel import collectives
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
+    extra = extra or {}
     trainer = Trainer(TrainConfig(
         dnn=dnn, batch_size=32, compression=compression,
         density=0.001, topk_method=method, device=str(device),
-        nworkers=nworkers, wire_codec=codec))
+        nworkers=nworkers, wire_codec=codec, **extra))
     opt, rank = trainer.optimizer, dist.get_rank()
+    ici = opt.ici
+    n = trainer.num_params
+    sizes = opt.bucket_plan.sizes if opt.bucket_plan else [n]
 
     def gather(t):
         """Every rank's copy of t, on the CPU, in rank order."""
@@ -478,33 +598,46 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
     def wire_set(vals, idx):
         return torch.cat([vals.view(torch.int32), idx])
 
-    def local_sets():
-        k = opt.last_local[0].shape[0]
+    def local_sets(local):
+        k = local[0].shape[0]
         return k, [(x[:k].view(torch.float32), x[k:])
-                   for x in gather(wire_set(*opt.last_local))]
+                   for x in gather(wire_set(*local))]
+
+    def reference(local, n_b):
+        """This rank's set by the plain reference of the run's schedule."""
+        k, sets = local_sets(local)
+        if opt.plan.schedule == "balanced":
+            return collectives.balanced_ref(sets, k, n_b, codec=codec)[rank]
+        if ici > 1:  # the tree runs over one member of each slice
+            return collectives.merge_tree_ref(sets[::ici], k, n_b,
+                                              codec=codec)[rank // ici]
+        return collectives.merge_tree_ref(sets, k, n_b, codec=codec)[rank]
 
     cuda_topk.reset_launches()
     collectives.reset_wire()
     times, losses, agree, ref_ok, mass_ok = [], [], True, None, None
+    slice_ok = None
     for step in range(steps):
         res_old = opt.state["residual"].clone()
         stats = trainer.train(1)
         times.append(stats["step_times"][0])
         losses.append(stats["loss"])
-        n = trainer.num_params
         if opt.last_global is not None:
-            sets = gather(wire_set(*opt.last_global))
-            agree = agree and all(torch.equal(x, sets[0]) for x in sets)
+            mine = _set_list(opt.last_global)
+            for b, gset in enumerate(mine):
+                sets = gather(wire_set(*gset))
+                agree = agree and all(torch.equal(x, sets[0]) for x in sets)
             if step == 0:
-                k, local = local_sets()
-                want = collectives.merge_tree_ref(local, k, n,
-                                                  codec=codec)[rank]
-                ref_ok = torch.equal(wire_set(*want), sets[rank])
+                ref_ok = all(
+                    torch.equal(wire_set(*reference(local, n_b)),
+                                wire_set(*gset).cpu())
+                    for local, gset, n_b in zip(
+                        _set_list(opt.last_local), mine, sizes))
         elif opt.last_union is not None:
             unions = gather(opt.last_union.view(torch.int32))
             agree = agree and all(torch.equal(x, unions[0]) for x in unions)
             if step == 0:
-                k, local = local_sets()
+                k, local = local_sets(opt.last_local)
                 want = rank_order_union(local, k, n, codec)
                 ref_ok = torch.equal(want.view(torch.int32), unions[rank])
             if compression == "topk":  # every pick ships as it is
@@ -515,6 +648,13 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
                 mass_ok = ok if mass_ok is None else mass_ok and ok
     launches = dict(cuda_topk.launches)
     wire = dict(collectives.wire)
+    if ici > 1:  # after the counters: this exchange is the check's own
+        summed = collectives.ici_dense_psum(opt.flat_grad, ici_size=ici)
+        grads = gather(opt.flat_grad)
+        want = slice_sum_ref(grads[rank - rank % ici:][:ici])[rank % ici]
+        residuals = gather(opt.state["residual"])
+        slice_ok = (torch.equal(summed.cpu(), want) and torch.equal(
+            residuals[rank], residuals[rank - rank % ici]))
     flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
     params = gather(flat)
     carry_distinct = None
@@ -522,100 +662,164 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
         hs = gather(trainer.carry[-1][1])
         carry_distinct = all(not torch.equal(a, b) for i, a in enumerate(hs)
                              for b in hs[i + 1:])
-    return dict(rank=rank, device=str(device), n=trainer.num_params,
+    decision = trainer.plan_decision
+    return dict(rank=rank, device=str(device), n=n,
                 launches=launches, wire=wire, step_times=times,
                 losses=losses, carry_distinct=carry_distinct,
                 sets_agree=agree, ref_ok=ref_ok, mass_ok=mass_ok,
+                slice_ok=slice_ok, units=len(opt._units()),
+                merges=len(sizes),
+                schedule=None if decision is None else decision.plan.schedule,
+                record=(decision.record() if decision is not None
+                        and rank == 0 else None),
+                model_bytes=(None if decision is None else next(
+                    c["wire_bytes"] for c in decision.candidates
+                    if c["name"] == decision.plan.name)),
                 params_agree=all(torch.equal(x, params[0]) for x in params))
+
+
+def dist_ranks(device, runs, steps: int, dnn: str) -> list:
+    """``dist_rank`` for each (method, compression, P, codec, extras) of
+    `runs`, one after the other in this rank's process."""
+    return [dist_rank(device, method, compression, p, steps, codec, dnn,
+                      extra) for method, compression, p, codec, extra in runs]
 
 
 def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS) -> dict:
     """The P > 1 `runs` of `steps` steps of `dnn` (see the module
-    docstring, phases 5, 6c and 7d); returns the launches per kernel,
-    summed over every rank of every run."""
+    docstring, phases 5, 6c, 7d and 9b-9d), each (method, compression, P,
+    codec[, TrainConfig extras]); the runs of one P share one spawn of P
+    ranks. Returns the launches per kernel, summed over every rank of
+    every run."""
     import torch
 
-    from gtopkssgd_tpu_torch.modes import ALLGATHER_MODES
-    from gtopkssgd_tpu_torch.ops.topk import k_for_density
-    from gtopkssgd_tpu_torch.parallel import comm_bytes_per_step, tree_rounds
-    from gtopkssgd_tpu_torch.parallel.codec import get_codec
-    from gtopkssgd_tpu_torch.parallel.collectives import _tree_plan
     from gtopkssgd_tpu_torch.parallel.dist import spawn
 
     cards = torch.cuda.device_count()
     total = {name: 0 for name in REPLACES}
-    for method, compression, p, codec in runs:
+    by_p = {}
+    for method, compression, p, codec, *more in runs:
+        by_p.setdefault(p, []).append(
+            (method, compression, p, codec, more[0] if more else {}))
+    for p, group in by_p.items():
         backend = "nccl" if cards >= p else "gloo"
-        used = min(cards, p)
         t0 = time.perf_counter()
-        ranks = spawn(dist_rank, p, method, compression, p, steps,
-                      codec, dnn, backend=backend, device="cuda",
-                      timeout=300)
-        wall = time.perf_counter() - t0
-        run = f"{dnn} P={p} {compression}/{method}/{codec}"
-        n = ranks[0]["n"]
-        k = k_for_density(n, 0.001)
-        sparse = compression != "dense"
-        want_launches = {
-            "twostage": {"fused_stage1_candidates": steps},
-            "pallas": {"multisection_tau_lo[abs]": steps},
-        }.get(method, {}) if sparse else {}
-        for r in ranks:
-            check_launches(r["launches"], want_launches,
-                           f"{run} rank {r['rank']}")
-            check(all(math.isfinite(v) for v in r["losses"]),
-                  f"{run} rank {r['rank']}: non-finite loss {r['losses']}")
-            check(r["params_agree"], f"{run}: final parameters differ "
-                                     "across ranks")
-            check(r["carry_distinct"] is not False,
-                  f"{run}: two ranks hold the same carry")
-            for name in REPLACES:
-                total[name] += r["launches"][name]
-        per_step = [r["wire"]["bytes"] / steps for r in ranks]
-        rounds = [r["wire"]["rounds"] / steps for r in ranks]
-        model = comm_bytes_per_step(compression, n, k, p, codec=codec)
-        if sparse:
-            what = ("dense unions" if compression in ALLGATHER_MODES
-                    else "global sets")
-            check(all(r["sets_agree"] for r in ranks),
-                  f"{run}: {what} differ across ranks")
-            check(all(r["ref_ok"] for r in ranks),
-                  f"{run}: step 1 differs from the CPU reference")
-        if compression == "gtopk":
-            check(rounds == [tree_rounds(p)] * p,
-                  f"{run}: {rounds} tree rounds a step, model "
-                  f"{tree_rounds(p)}")
-            set_bytes = get_codec(codec).wire_set_bytes(k, n)
-            sends = sum(len(pairs) for pairs in _tree_plan(p))
-            check(sum(per_step) == sends * set_bytes,
-                  f"{run}: {per_step} bytes a step, {sends} sets of "
-                  f"{set_bytes} bytes expected in all")
-        elif compression in ALLGATHER_MODES:
-            check(rounds == [1] * p, f"{run}: {rounds} rounds a step")
-        if compression == "topk":
-            check(all(r["mass_ok"] for r in ranks),
-                  f"{run}: residual + shipped picks != accumulator")
-        if p & (p - 1) == 0:
-            check(per_step == [model] * p,
-                  f"{run}: {per_step} bytes a step, model {model}")
-        med = statistics.median(
-            t for r in ranks for t in r["step_times"][1:])
-        print(f"dist {run}: backend {backend}, {used} card(s) for {p} "
-              f"ranks, {steps} steps, loss "
-              f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f}, "
-              f"median step {med * 1e3:.3f} ms (steps 2-{steps}, all "
-              f"ranks), {32 * p / med:.1f} samples/s in all, "
-              f"bytes sent a step per rank {per_step} "
-              f"(comm_bytes_per_step {model}), launches "
-              f"per rank {ranks[0]['launches']}, final params bitwise "
-              f"equal across ranks"
-              + (f", {what} bitwise equal across ranks and at step 1 to "
-                 "the CPU reference" if sparse else "")
-              + (", nothing folded" if compression == "topk" else "")
-              + (", each rank's carry distinct"
-                 if ranks[0]["carry_distinct"] else "")
-              + f"; spawn to join {wall:.1f} s")
+        results = spawn(dist_ranks, p, group, steps, dnn, backend=backend,
+                        device="cuda", timeout=600)
+        print(f"dist {dnn} P={p}: {len(group)} run(s) in one spawn of {p} "
+              f"ranks, spawn to join {time.perf_counter() - t0:.1f} s")
+        for i, run in enumerate(group):
+            _dist_checks(run, [results[r][i] for r in range(p)], dnn,
+                         steps, backend, min(cards, p), total)
     return total
+
+
+def _dist_checks(run_spec, ranks, dnn: str, steps: int, backend: str,
+                 used: int, total: dict) -> None:
+    """``dist_phase``'s checks and line for one run; adds its launches to
+    `total`."""
+    from gtopkssgd_tpu_torch.modes import ALLGATHER_MODES
+    from gtopkssgd_tpu_torch.ops.topk import k_for_density
+    from gtopkssgd_tpu_torch.parallel import comm_bytes_per_step, tree_rounds
+    from gtopkssgd_tpu_torch.parallel.codec import get_codec
+    from gtopkssgd_tpu_torch.parallel.collectives import (
+        _tree_plan,
+        ici_psum_sends,
+    )
+
+    method, compression, p, codec, extra = run_spec
+    run = (f"{dnn} P={p} {compression}/{method}/{codec}"
+           + "".join(f" {key}={v}" for key, v in extra.items()))
+    n = ranks[0]["n"]
+    k = k_for_density(n, 0.001)
+    sparse = compression != "dense"
+    units = ranks[0]["units"]
+    want_launches = {
+        "twostage": {"fused_stage1_candidates": steps * units},
+        "pallas": {"multisection_tau_lo[abs]": steps * units},
+    }.get(method, {}) if sparse else {}
+    for r in ranks:
+        check_launches(r["launches"], want_launches,
+                       f"{run} rank {r['rank']}")
+        check(all(math.isfinite(v) for v in r["losses"]),
+              f"{run} rank {r['rank']}: non-finite loss {r['losses']}")
+        check(r["params_agree"], f"{run}: final parameters differ "
+                                 "across ranks")
+        check(r["carry_distinct"] is not False,
+              f"{run}: two ranks hold the same carry")
+        check(r["slice_ok"] is not False,
+              f"{run}: the members of a slice differ in their slice "
+              "sum or residual, or it is not the reference's")
+        for name in REPLACES:
+            total[name] += r["launches"][name]
+    per_step = [r["wire"]["bytes"] / steps for r in ranks]
+    rounds = [r["wire"]["rounds"] / steps for r in ranks]
+    model = ranks[0]["model_bytes"]
+    if model is None:
+        model = comm_bytes_per_step(compression, n, k, p, codec=codec)
+    # The in-slice sum counts what each rank ships; the model counts 4N.
+    ici = extra.get("hier_ici", 1)
+    want_bytes = [model + (ici_psum_sends(r % ici, ici) - 1) * 4 * n
+                  if ici > 1 else model for r in range(p)]
+    schedule = ranks[0]["schedule"]
+    if sparse:
+        what = ("dense unions" if compression in ALLGATHER_MODES
+                else "global sets")
+        check(all(r["sets_agree"] for r in ranks),
+              f"{run}: {what} differ across ranks")
+        check(all(r["ref_ok"] for r in ranks),
+              f"{run}: step 1 differs from the CPU reference")
+    if (p == 4 and compression in ("gtopk", "gtopk_layerwise")
+            and "comm_plan" not in extra):
+        check(schedule == "tree", f"{run}: 'auto' chose {schedule} at "
+                                  "P = 4")
+    if schedule == "balanced":
+        want_rounds = p * ranks[0]["merges"]
+        check(per_step == [model] * p,
+              f"{run}: {per_step} bytes a step, model {model}")
+    elif compression in ALLGATHER_MODES:
+        want_rounds = 1
+    elif sparse:
+        want_rounds = tree_rounds(p // ici) * ranks[0]["merges"]
+    else:
+        want_rounds = 0
+    check(rounds == [want_rounds] * p,
+          f"{run}: {rounds} rounds a step, model {want_rounds}")
+    if compression == "gtopk" and schedule == "tree":
+        set_bytes = get_codec(codec).wire_set_bytes(k, n)
+        sends = sum(len(pairs) for pairs in _tree_plan(p))
+        check(sum(per_step) == sends * set_bytes,
+              f"{run}: {per_step} bytes a step, {sends} sets of "
+              f"{set_bytes} bytes expected in all")
+    if compression == "topk":
+        check(all(r["mass_ok"] for r in ranks),
+              f"{run}: residual + shipped picks != accumulator")
+    if (p // ici) & (p // ici - 1) == 0:
+        check(per_step == want_bytes,
+              f"{run}: {per_step} bytes a step, want {want_bytes} "
+              f"(model {model})")
+    med = statistics.median(
+        t for r in ranks for t in r["step_times"][1:])
+    if ranks[0]["record"] is not None:
+        print(f"plan {run}: " + json.dumps(ranks[0]["record"]))
+    print(f"dist {run}: backend {backend}, {used} card(s) for {p} "
+          f"ranks, {steps} steps, loss "
+          f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f}, "
+          f"median step {med * 1e3:.3f} ms (steps 2-{steps}, all "
+          f"ranks), {32 * p / med:.1f} samples/s in all, "
+          f"bytes sent a step per rank {per_step} (model {model}"
+          + (f"; with the in-slice sends {want_bytes}" if ici > 1 else "")
+          + "), "
+          f"rounds {rounds[0]}, schedule {schedule}, launches "
+          f"per rank {ranks[0]['launches']}, final params bitwise "
+          f"equal across ranks"
+          + (f", {what} bitwise equal across ranks and at step 1 to "
+             "the CPU reference" if sparse else "")
+          + (", slice sums and residuals bitwise equal in each slice "
+             "and to the reference sum" if ici > 1 else "")
+          + (", nothing folded" if compression == "topk" else "")
+          + (", each rank's carry distinct"
+             if ranks[0]["carry_distinct"] else ""))
 
 
 def correction_phase() -> dict:
@@ -872,11 +1076,12 @@ def model_phase(runs, dist) -> dict:
 
 
 def reference_steps(cases) -> None:
-    """Phases 7e and 8d: for each (dnn, method) of `cases`, one step on
-    the card and on the CPU from the same seed (the same weights and
-    batches), dropout off; then a second step on the card, its selection
-    held bitwise to the CPU twins' on the card's own (clipped) gradient
-    and residual."""
+    """Phases 7e, 8d and 9a: for each (dnn, method[, compression]) of
+    `cases`, one step on the card and on the CPU from the same seed (the
+    same weights and batches), dropout off; then a second step on the
+    card, its selection held bitwise to the CPU twins' on the card's own
+    (clipped) gradient and residual, unit by unit (the whole vector, or
+    each leaf under gtopk_layerwise)."""
     import torch
 
     from gtopkssgd_tpu_torch.compression import TopKCompressor
@@ -884,8 +1089,9 @@ def reference_steps(cases) -> None:
     from gtopkssgd_tpu_torch.optimizer import clip_by_global_norm
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
-    for dnn, method in cases:
-        cfg = dict(dnn=dnn, batch_size=2, compression="gtopk",
+    for dnn, method, *mode in cases:
+        compression = mode[0] if mode else "gtopk"
+        cfg = dict(dnn=dnn, batch_size=2, compression=compression,
                    density=0.001, topk_method=method)
         pair = [Trainer(TrainConfig(device=d, **cfg))
                 for d in ("cuda", "cpu")]
@@ -899,7 +1105,7 @@ def reference_steps(cases) -> None:
                    ).cpu() for t in pair)
         nonzero = int((pair[1].optimizer.flat_grad != 0).sum())
         jac = float((kg & kc).sum()) / float((kg | kc).sum())
-        run = f"reference {dnn} {method}"
+        run = f"reference {dnn} {compression} {method}"
         check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
               f"{run}: step-1 loss {lg} vs cpu {lc}")
         check(jac >= REFERENCE_JACCARD, f"{run}: step-1 jaccard {jac}")
@@ -913,8 +1119,12 @@ def reference_steps(cases) -> None:
         if card.cfg.clip_grad_norm is not None:
             grad = clip_by_global_norm(grad, card.cfg.clip_grad_norm)
         grad = grad.cpu()
-        keep, res, _ = TopKCompressor(0.001, method).compress_by_threshold(
-            grad + res_in, grad=grad, residual=res_in)
+        comp = TopKCompressor(0.001, method)
+        picks = [comp.compress_by_threshold(
+            grad[o:o + size] + res_in[o:o + size], grad=grad[o:o + size],
+            residual=res_in[o:o + size]) for o, size in opt._units()]
+        keep = torch.cat([kept for kept, _, _ in picks])
+        res = torch.cat([r for _, r, _ in picks])
         same = (torch.equal(keep, opt.last_keep.cpu())
                 and torch.equal(res, opt.state["residual"].cpu()))
         print(f"{run}: step-1 loss card {lg:.6f} cpu {lc:.6f}, "
@@ -924,6 +1134,71 @@ def reference_steps(cases) -> None:
               f"{'bitwise' if same else 'DIFFERENT'} "
               f"({int(keep.sum())} kept)")
         check(same, f"{run}: card selection != cpu twins")
+
+
+# Phase 9 (gtopk_layerwise, gtopk_hier, the balanced schedule).
+LAYERWISE_RUNS = (("twostage", 10), ("pallas", 10))
+LAYERWISE_REFERENCE = (("resnet50", "twostage", "gtopk_layerwise"),
+                       ("resnet50", "pallas", "gtopk_layerwise"))
+LAYERWISE_DIST = ("resnet50",
+                  (("twostage", "gtopk_layerwise", 4, "fp32"),
+                   ("twostage", "gtopk_layerwise", 4, "fp32",
+                    {"buckets": "4"})), 5)
+HIER_DIST = ("resnet20",
+             (("twostage", "gtopk_hier", 4, "fp32", {"hier_ici": 2}),
+              ("twostage", "gtopk_hier", 4, "int8", {"hier_ici": 2}),
+              ("twostage", "gtopk_hier", 6, "fp32", {"hier_ici": 3})), 10)
+BALANCED_DIST = ("resnet20",
+                 tuple(("pallas", "gtopk", p, codec,
+                        {"comm_plan": "balanced"})
+                       for p in (4, 3) for codec in ("fp32", "fp8:32")), 10)
+
+
+def layerwise_phase() -> dict:
+    """Phase 9a: ResNet-50 ``gtopk_layerwise`` (concat) at P = 1, 10 steps
+    ``twostage`` and 10 ``pallas``: one stage-1 launch, or one
+    residual-mode multisection launch, a leaf a step; returns the
+    launches."""
+    total = {name: 0 for name in REPLACES}
+    want = {"twostage": "fused_stage1_candidates",
+            "pallas": "multisection_tau_lo[residual]"}
+    for method, steps in LAYERWISE_RUNS:
+        launches, trainer = train_run(method, "gtopk_layerwise", steps,
+                                      "resnet50")
+        leaves = len(trainer.layout.sizes)
+        check(leaves == 161, f"resnet50 has {leaves} leaves, not 161")
+        check_launches(launches, {want[method]: steps * leaves},
+                       f"resnet50 P=1 gtopk_layerwise/{method}, {steps} "
+                       "steps")
+        for name in REPLACES:
+            total[name] += launches[name]
+        del trainer
+    return total
+
+
+def planner_phase() -> None:
+    """Phase 9e: the planner's decisions with each committed fit (gloo on
+    one card; NCCL across two cards), the one a run over that backend
+    reads, at the zoo's N for P in 2..8; at P = 4 'auto' must keep the
+    tree for gtopk and gtopk_layerwise. Prints each decision's scores."""
+    from gtopkssgd_tpu_torch.ops.topk import k_for_density
+    from gtopkssgd_tpu_torch.parallel import comm_model
+    from gtopkssgd_tpu_torch.parallel.planner import build_decision
+
+    for fit, n in ((f, n) for f in comm_model.COMMITTED_FITS.values()
+                   for n in (272_474, 25_557_032)):
+        k = k_for_density(n, 0.001)
+        for mode in ("gtopk", "gtopk_layerwise"):
+            for p in (2, 3, 4, 5, 6, 8):
+                d = build_decision(mode, p=p, n=n, k=k, fit_path=fit)
+                scores = {c["name"]: c["comm_ms"] for c in d.candidates}
+                print(f"plan auto {mode} P={p} N={n}: {d.plan.name} "
+                      f"(comm_ms {scores}, fit {d.inputs['fit_source']} "
+                      f"alpha_ms {d.inputs['alpha_ms']} beta_gbps "
+                      f"{d.inputs['beta_gbps']})")
+                if p == 4:
+                    check(d.plan.name == "tree",
+                          f"{mode} P=4 N={n}: 'auto' chose {d.plan.name}")
 
 
 def main() -> int:
@@ -952,6 +1227,7 @@ def main() -> int:
     print(f"launch_floor_ms={floor:.5f} (an empty kernel, same route)")
     kernels = {n: kernel_phase(n) for n in SIZES}
     print(f"stage-1 edge cases: {stage1_edge_phase()} bitwise")
+    leaf_phase()
 
     runs = [train_run("twostage", "gtopk", 20)[0],
             train_run("pallas", "gtopk", 10)[0],
@@ -978,6 +1254,13 @@ def main() -> int:
     for name, count in model_phase(RECURRENT_RUNS, RECURRENT_DIST).items():
         total[name] += count
     reference_steps(RECURRENT_REFERENCE)
+    for name, count in layerwise_phase().items():
+        total[name] += count
+    reference_steps(LAYERWISE_REFERENCE)
+    for dnn, runs, steps in (LAYERWISE_DIST, HIER_DIST, BALANCED_DIST):
+        for name, count in dist_phase(runs, dnn, steps).items():
+            total[name] += count
+    planner_phase()
 
     n0 = SIZES[0]
     line = []

@@ -9,8 +9,13 @@ fix the flat gradient order, for every model of the zoo.
   into a port ``Trainer``: weights and BatchNorm statistics (none for
   AlexNet and the PTB model), the SGD momentum, this rank's row of the
   per-rank ``[P, N]`` residual (or of its {"v", "u"} pair under momentum
-  correction), the step count, and for the PTB model this rank's row of
-  the BPTT carry.
+  correction; a ``gtopk_layerwise`` residual of per-leaf buffers goes
+  through ``layerwise_residual``), the step count, and for the PTB model
+  this rank's row of the BPTT carry.
+* ``layerwise_residual(residual, rank)`` carries the JAX package's
+  ``gtopk_layerwise`` residual -- a tuple of per-leaf buffers in
+  ``jax.tree`` order, or {"v": tuple, "u": tuple} under momentum
+  correction -- into the port's one flat buffer in layout order.
 * ``flat_layout(model)`` orders the model's parameters as the JAX package's
   ``ravel_pytree`` does -- flax's module paths sorted as strings at each
   level (``BasicBlock_10`` before ``BasicBlock_2``, ``BatchNorm_0`` before
@@ -153,6 +158,8 @@ def load_jax_state(trainer, params: Mapping[str, Any],
     if momentum is not None:
         for name, buf in from_jax_params(momentum, {}).items():
             opt.state[named[name]]["momentum_buffer"] = buf.to(device)
+    if _per_leaf(residual):
+        residual = layerwise_residual(residual, trainer.rank)
     if isinstance(residual, Mapping):
         opt.state["residual"] = {key: row(residual[key]) for key in "vu"}
     else:
@@ -163,6 +170,26 @@ def load_jax_state(trainer, params: Mapping[str, Any],
             tuple(torch.from_numpy(np.array(x, dtype=np.float32)[
                 trainer.rank]).to(device) for x in pair)
             for pair in carry)
+
+
+def _per_leaf(residual) -> bool:
+    """True for a gtopk_layerwise residual: a sequence of per-leaf
+    buffers, or a {"v", "u"} mapping of two."""
+    if isinstance(residual, Mapping):
+        residual = residual["v"]
+    return isinstance(residual, (tuple, list))
+
+
+def layerwise_residual(residual, rank: int = 0):
+    """The JAX package's ``gtopk_layerwise`` residual as the port's flat
+    f32[N] buffer (numpy): the per-leaf buffers (f32[n_l], or per rank
+    f32[P, n_l], of which row `rank` is taken) concatenated in leaf order,
+    which is ``ravel_pytree``'s and so the layout's. Under momentum
+    correction, {"v": tuple, "u": tuple} -> {"v": f32[N], "u": f32[N]}."""
+    if isinstance(residual, Mapping):
+        return {key: layerwise_residual(residual[key], rank) for key in "vu"}
+    leaves = [np.asarray(x, dtype=np.float32) for x in residual]
+    return np.concatenate([x[rank] if x.ndim == 2 else x for x in leaves])
 
 
 def _inverse(mapping: Mapping[str, str]) -> Dict[str, str]:

@@ -7,7 +7,9 @@
         [--num-iters 20] [--eval-batches B] [--nworkers P] [--device cpu] \\
         [--dist-backend gloo] [--wire-codec int8] [--momentum-correction] \\
         [--nesterov] [--clip-grad-norm C] [--warmup-epochs E] \\
-        [--dense-warmup-epochs E]
+        [--dense-warmup-epochs E] [--compression gtopk_hier --hier-ici S] \\
+        [--compression gtopk_layerwise --buckets concat|leaf|auto|B] \\
+        [--comm-plan auto|tree|balanced] [--comm-model-fit PATH]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group: NCCL with one rank
@@ -20,8 +22,9 @@ without it, ``Trainer.fit()`` trains and evaluates each of
 model's (``lstm``: PTB, ``lstman4``: AN4; synthetic unless ``--data-dir``
 holds the real files), and so do lr, weight decay and the clip (PTB 1.0,
 0, 0.25; AN4 3e-4, 0, 400). Rank 0 prints one JSON line with the
-per-step losses, step times, the gradient bytes a rank shipped per step
-and the validation metrics (``val_loss`` and ``val_top1``/``val_top5``,
+per-step losses, step times, the gradient bytes a rank shipped per step,
+the wire plan and the buckets (their (n_b, k_b) pairs) and the validation
+metrics (``val_loss`` and ``val_top1``/``val_top5``,
 ``val_ppl``, or ``val_cer``/``val_wer``).
 """
 
@@ -55,11 +58,19 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=None)
     p.add_argument("--nesterov", action="store_true")
     p.add_argument("--compression", default=None,
-                   choices=["none", "dense", "gtopk", "allgather", "topk"],
+                   choices=["none", "dense", "gtopk", "allgather", "topk",
+                            "gtopk_hier", "gtopk_layerwise"],
                    help="None/dense = all-reduce baseline; gtopk = tree "
                         "sparse all-reduce; allgather/topk = the Top-k "
-                        "union of every rank's picks")
+                        "union of every rank's picks; gtopk_layerwise = "
+                        "per-layer top-k and error feedback; gtopk_hier = "
+                        "dense within a slice of ranks, gtopk across "
+                        "slices (set --hier-ici)")
     p.add_argument("--density", type=float, default=0.001)
+    p.add_argument("--hier-ici", type=int, default=1,
+                   help="gtopk_hier: ranks per slice (dense sum within "
+                        "each contiguous block of this many ranks, gTop-k "
+                        "hypercube across the nworkers/hier_ici slices)")
     p.add_argument("--topk-method", default="auto",
                    help="auto | exact | threshold | pallas | twostage")
     p.add_argument("--wire-codec", default="fp32",
@@ -68,6 +79,31 @@ def build_argparser() -> argparse.ArgumentParser:
                         "bf16 scales, Elias-Fano indices; BLOCK defaults "
                         "to 64); the quantization error folds into the "
                         "error-feedback residual")
+    p.add_argument("--comm-plan", default="auto",
+                   help="wire-plan pin (parallel.planner). 'auto' "
+                        "(default) scores every schedule that realizes "
+                        "--compression with the alpha-beta model and "
+                        "keeps the historical schedule on ties; a plan "
+                        "name pins it: tree | balanced (Ok-Topk "
+                        "split-and-reduce) for gtopk/gtopk_layerwise, "
+                        "allgather / hier / dense for their modes. Rank 0 "
+                        "prints the decision as a 'plan' line")
+    p.add_argument("--buckets", default="concat",
+                   help="gtopk_layerwise only: gradient bucketing "
+                        "(parallel.bucketing). 'concat' (default): "
+                        "per-leaf selection, one concatenated merge; "
+                        "'leaf': one merge per parameter leaf; an int B "
+                        "or 'auto': contiguous byte-balanced buckets by "
+                        "an exact alpha-beta DP ('auto' picks B), one "
+                        "selection and one merge per bucket")
+    p.add_argument("--pipeline", default="serial",
+                   help="bucketed gtopk_layerwise: bucket execution order; "
+                        "'serial' (the port has no 'overlap' yet)")
+    p.add_argument("--comm-model-fit", default=None, metavar="PATH",
+                   help="alpha/beta fit file (alpha_beta_fit grammar, as "
+                        "comm_probe writes it) pricing the planner and the "
+                        "bucket DP instead of the port's committed fit for "
+                        "the run's backend (gloo or nccl)")
     p.add_argument("--clip-grad-norm", type=float, default=None)
     p.add_argument("--nsteps-update", type=int, default=1)
     p.add_argument("--max-epochs", type=int, default=140)
@@ -103,6 +139,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         nesterov=args.nesterov, compression=args.compression,
         density=args.density, topk_method=args.topk_method,
         wire_codec=args.wire_codec, clip_grad_norm=args.clip_grad_norm,
+        hier_ici=args.hier_ici, comm_plan=args.comm_plan,
+        buckets=args.buckets, pipeline=args.pipeline,
+        comm_model_fit=args.comm_model_fit,
         nsteps_update=args.nsteps_update, max_epochs=args.max_epochs,
         warmup_epochs=args.warmup_epochs,
         dense_warmup_epochs=args.dense_warmup_epochs,
@@ -126,6 +165,10 @@ def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
         "compression": trainer.cfg.compression,
         "topk_method": trainer.cfg.topk_method,
         "wire_codec": trainer.cfg.wire_codec,
+        "comm_plan": (None if trainer.plan_decision is None
+                      else trainer.plan_decision.plan.name),
+        "buckets": (None if trainer.bucket_plan is None
+                    else list(trainer.bucket_plan.pairs())),
         "device": str(trainer.device),
         "nworkers": trainer.cfg.nworkers,
         "num_params": trainer.num_params,
@@ -145,6 +188,7 @@ def _rank_run(device, cfg: TrainConfig, num_iters: Optional[int]) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
+    cfg.resolved()  # refuse a bad config before spawning ranks
     if args.nworkers > 1:
         backend = args.dist_backend or default_backend(args.device)
         try:

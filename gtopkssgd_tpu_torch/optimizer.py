@@ -1,33 +1,39 @@
-"""gTop-k S-SGD: error-feedback top-k compression of the flat gradient,
-the gTop-k all-reduce (or the Top-k allgather) over P ranks, then SGD with
-momentum and weight decay.
+"""gTop-k S-SGD: error-feedback top-k compression of the gradient, the
+gradient exchange over P ranks, then SGD with momentum and weight decay.
 
-Counterpart of the flat path of ``gtopkssgd_tpu.optimizer.gtopk_sgd``
-(``update_fn``: modes ``dense``, ``gtopk`` and ``allgather | topk | topkA
-| topk_allgather``, with every option of that path). One step:
+Counterpart of ``gtopkssgd_tpu.optimizer.gtopk_sgd`` in every mode
+(``dense``, ``gtopk``, ``allgather | topk | topkA | topk_allgather``,
+``gtopk_hier``, ``gtopk_layerwise``), with every option of the JAX
+optimizer but the ``overlap`` pipeline and the telemetry. One step:
 
 1. ravel every parameter's gradient into one flat f32[N] buffer, in the
    order and layout of the JAX package's ``ravel_pytree`` (``FlatLayout``;
    ``convert.flat_layout`` builds it for a model) -- top-k buckets are
    positions in this vector, so the order decides what is selected; with
    ``clip_grad_norm`` c, scale it by min(1, c / (||flat|| + 1e-6)) first;
+   under ``gtopk_hier`` at P > 1, then sum it within each slice of
+   ``hier_ici_size`` ranks (``ici_dense_psum``), bitwise the same on each
+   member, so a slice acts as one worker from here on;
 2. the source: the flat gradient, or under ``momentum_correction`` (DGC,
    arXiv:1712.01887) the local velocity u = momentum*u + flat, whose
    accumulation v plays the residual;
 3. during the first ``warmup_dense_steps`` steps of a sparse mode, the
-   update is the source all-reduced and divided by P; the residual (and
-   u) pass through unchanged;
+   update is the source all-reduced and divided by P (by P x the slice
+   width under ``gtopk_hier``, whose source is already a slice sum); the
+   residual (and u) pass through unchanged;
 4. sparse, at P = 1: acc = src + residual; keep = |acc| >= tau by the
    threshold-mask compressor (the selection reads src and residual
    unfused); residual = where(keep, 0, acc); u = where(keep, 0, u); the
    update is acc - residual. At P > 1: the local set (vals, idx) =
    compress(acc) in index form; a lossy wire codec's round-trip error is
    folded into the residual and the roundtripped values ship (not in mode
-   ``topk``); u is zeroed at the local picks; then ``gtopk``: the global
-   set by the hypercube merge, rejected local picks back into the
-   residual (``repair``), the update scatter_add_dense(gidx, gvals) / P;
-   the allgather modes: the update is the dense union / P, no repair;
-   ``dense``: the update is the gradient, all-reduced and divided by P;
+   ``topk``); u is zeroed at the local picks; then ``gtopk`` and
+   ``gtopk_hier``: the global set by the hypercube merge (across slices
+   for ``gtopk_hier``) or the balanced schedule, rejected local picks
+   back into the residual (``repair``), the update
+   scatter_add_dense(gidx, gvals) / P; the allgather modes: the update is
+   the dense union / P, no repair; ``dense``: the update is the
+   gradient, all-reduced and divided by P;
 5. unravel the update into the parameters' ``.grad`` and take one
    ``torch.optim.SGD`` step: g + wd*p, then buf = momentum*buf + g (with
    ``nesterov``, g + momentum*buf is applied), then p -= lr*buf -- the
@@ -36,6 +42,28 @@ Counterpart of the flat path of ``gtopkssgd_tpu.optimizer.gtopk_sgd``
    BatchNorm scale and bias included. Under momentum correction the SGD
    step runs with no momentum (the velocity lives before the exchange).
 
+``gtopk_layerwise`` selects per leaf (a leaf is an entry of the layout):
+k_l = ceil(density * n_l), the clip's norm summed over the leaves. Under
+``buckets="concat"``, at P = 1 each leaf runs step 4's threshold form on
+its own; at P > 1 each leaf selects its top-k_l, the sets are shifted by
+the leaf offsets into one set over the global index space, merged once,
+and the codec fold, the repair and the velocity mask go back to the
+leaves (a leaf's padding index n_l drops out, it does not spill into the
+next leaf). Under any other ``buckets`` spec (``parallel.bucketing``:
+``leaf``, an int B, ``auto``) each bucket -- a contiguous run of leaves,
+one slice of the flat buffer -- runs step 4 on its own with k_b =
+ceil(density * n_b) and merges over its own index space [0, n_b), one
+bucket after the other (``pipeline="serial"``). At B = 1 that is the
+flat ``gtopk`` step. The residual stays one flat f32[N] buffer in
+layout order in every mode; ``convert.layerwise_residual`` carries the
+JAX package's per-leaf tuple into it.
+
+The wire plan (``parallel.planner``): at P > 1, ``comm_plan`` ('auto', or
+a pin: tree | balanced for gtopk and gtopk_layerwise, hier, allgather,
+dense) is decided once at construction (``plan_decision``), priced with
+the comm-model fit (``comm_model_fit``, a path, or the fit committed with
+the port for the process group's backend: gloo or NCCL).
+
 The residual and the step count live in the optimizer's ``state`` (keys
 "residual" and "count"; under momentum correction the residual is
 {"v": v, "u": u}), so ``state_dict()`` saves error feedback.
@@ -43,26 +71,43 @@ The residual and the step count live in the optimizer's ``state`` (keys
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+import warnings
+from typing import (Callable, Iterable, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from gtopkssgd_tpu_torch.compression import get_compressor
-from gtopkssgd_tpu_torch.modes import ALL_MODES, DENSE_MODES
-from gtopkssgd_tpu_torch.ops import membership_mask, scatter_add_dense
+from gtopkssgd_tpu_torch.modes import (
+    ALL_MODES,
+    DENSE_MODES,
+    HIER_MODES,
+    LAYERWISE_MODES,
+)
+from gtopkssgd_tpu_torch.ops import (
+    k_for_density,
+    membership_mask,
+    scatter_add_dense,
+    select_topk,
+)
+from gtopkssgd_tpu_torch.parallel.bucketing import (
+    buckets_key,
+    parse_buckets,
+    parse_pipeline,
+    plan_buckets,
+)
 from gtopkssgd_tpu_torch.parallel.codec import get_codec, roundtrip_aligned
 from gtopkssgd_tpu_torch.parallel.collectives import (
     dense_allreduce,
+    ici_dense_psum,
     sparse_allreduce,
 )
+from gtopkssgd_tpu_torch.parallel.comm_model import committed_fit
+from gtopkssgd_tpu_torch.parallel.planner import build_decision, validate_pin
 
 Schedule = Callable[[int], float]
-
-# The JAX package's hierarchical and layer-wise modes come with ROADMAP.md
-# section 1, item 5.
-_LATER_MODES = ("gtopk_hier", "gtopk_layerwise")
 
 
 def clip_by_global_norm(flat: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -154,18 +199,41 @@ class FlatLayout:
             t.copy_(seg.permute(inv))
 
 
+def _add_at(x: torch.Tensor, pos: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """x with v added at positions pos (int64, in [0, n]); n drops out."""
+    n = x.shape[0]
+    out = torch.cat([x, x.new_zeros(1)])
+    out.index_add_(0, pos, v)
+    return out[:n]
+
+
 class GTopKSGD(torch.optim.SGD):
     """SGD (momentum, weight decay, Nesterov) on the gTop-k-compressed
-    gradient; the options of the JAX package's ``gtopk_sgd`` flat path.
+    gradient; the options of the JAX package's ``gtopk_sgd``.
 
     ``lr`` is a float or a schedule ``lr(count)`` read before every step,
     count being the number of steps taken. ``layout`` fixes the flat order
-    (default: ``params`` in the given order, each raveled as it is).
-    ``process_group`` is the group of the P data-parallel ranks, or None
-    for one worker. ``wire_codec`` is a ``parallel.codec`` spec (``fp32 |
-    int8[:B] | fp8[:B]``). ``_restore_rejected_u`` is an ablation of
-    momentum correction only: it gives globally rejected picks their
-    velocity back, which the JAX package measured to diverge.
+    and the leaves of ``gtopk_layerwise`` (default: ``params`` in the
+    given order, each raveled as it is). ``process_group`` is the group of
+    the P data-parallel ranks, or None for one worker. ``wire_codec`` is a
+    ``parallel.codec`` spec (``fp32 | int8[:B] | fp8[:B]``).
+    ``hier_ici_size`` is the slice width of ``gtopk_hier``; ``buckets``
+    and ``pipeline`` the ``parallel.bucketing`` specs of
+    ``gtopk_layerwise``; ``comm_plan`` a ``parallel.planner`` pin or
+    'auto', priced with the fit at ``comm_model_fit`` (default: the fit
+    committed with the port for ``process_group``'s backend).
+    ``_restore_rejected_u`` is an ablation of momentum correction only:
+    it gives globally rejected picks their velocity back, which the JAX
+    package measured to diverge.
+
+    After a sparse step, ``last_keep`` is the keep mask (P = 1),
+    ``last_local`` the shipped local (vals, idx) and ``last_global`` the
+    global (gvals, gidx) set (gtopk family) or ``last_union`` the dense
+    union before the division by P (the allgather modes). Under a
+    bucketed ``gtopk_layerwise`` at P > 1, ``last_local`` and
+    ``last_global`` are lists of one set a bucket, in the bucket's own
+    index space. All are None after a dense step.
     """
 
     def __init__(
@@ -181,24 +249,35 @@ class GTopKSGD(torch.optim.SGD):
         topk_method: str = "auto",
         wire_codec="fp32",
         clip_grad_norm: Optional[float] = None,
+        hier_ici_size: int = 1,
+        comm_plan: Optional[str] = "auto",
+        buckets: Union[str, int] = "concat",
+        pipeline: str = "serial",
+        comm_model_fit: Optional[str] = None,
         warmup_dense_steps: int = 0,
         momentum_correction: bool = False,
         _restore_rejected_u: bool = False,
         layout: Optional[FlatLayout] = None,
         process_group=None,
     ):
-        if compression in _LATER_MODES:
+        mode = compression
+        if mode not in ALL_MODES:
+            raise ValueError(f"unknown compression mode {mode!r}")
+        self.hier = mode in HIER_MODES
+        self.layerwise = mode in LAYERWISE_MODES
+        if hier_ici_size < 1:
             raise ValueError(
-                f"compression {compression!r} is not in the port yet, "
-                f"ROADMAP.md section 1, item 5; it has {ALL_MODES}")
-        if compression not in ALL_MODES:
-            raise ValueError(f"unknown compression mode {compression!r}")
+                f"hier_ici_size must be >= 1, got {hier_ici_size}")
+        if hier_ici_size > 1 and not self.hier:
+            raise ValueError(
+                f"hier_ici_size={hier_ici_size} only applies to "
+                f"hierarchical modes {HIER_MODES}, not {mode!r}")
         if warmup_dense_steps < 0:
             raise ValueError(
                 f"warmup_dense_steps must be >= 0, got {warmup_dense_steps}")
         if nesterov and not momentum:
             raise ValueError("nesterov momentum requires momentum > 0")
-        self.dense_mode = compression in DENSE_MODES
+        self.dense_mode = mode in DENSE_MODES
         if momentum_correction:
             if self.dense_mode:
                 raise ValueError(
@@ -214,7 +293,22 @@ class GTopKSGD(torch.optim.SGD):
             raise ValueError(
                 "_restore_rejected_u is a momentum_correction ablation knob; "
                 "it needs momentum_correction=True")
+        if momentum_correction and self.layerwise:
+            warnings.warn(
+                "gtopk_layerwise x momentum_correction measured WORSE than "
+                "either alone (benchmarks/results/warmup_ab_cpu_mesh8.json: "
+                "cold val_top1 0.250 vs 0.734/0.281; masking ablations rule "
+                "out a semantics fix) — prefer one or the other",
+                stacklevel=2)
         self.codec = get_codec(wire_codec)
+        comm_plan = validate_pin(comm_plan, mode, ici_size=hier_ici_size)
+        bucket_spec = parse_buckets(buckets)
+        if bucket_spec != "concat" and not self.layerwise:
+            raise ValueError(
+                f"--buckets {buckets!r} only applies to the layerwise mode "
+                f"{LAYERWISE_MODES}; {mode!r} has a single wire set per step "
+                "already (use --buckets concat)")
+        parse_pipeline(pipeline)  # 'serial' is the one order there is
         params = list(params)
         self.schedule = lr if callable(lr) else None
         # Under momentum correction the velocity lives before the exchange
@@ -225,8 +319,8 @@ class GTopKSGD(torch.optim.SGD):
         self.layout = layout or FlatLayout.identity(params)
         if {id(p) for p in self.layout.params} != {id(p) for p in params}:
             raise ValueError("layout does not cover exactly these params")
-        self.compressor = get_compressor(compression, density, topk_method)
-        self.mode = compression
+        self.compressor = get_compressor(mode, density, topk_method)
+        self.mode = mode
         self.clip_grad_norm = clip_grad_norm
         self.warmup_dense_steps = warmup_dense_steps
         self.correction = momentum_correction
@@ -236,8 +330,38 @@ class GTopKSGD(torch.optim.SGD):
         self.p = 1
         if process_group is not None:
             self.p = dist.get_world_size(process_group)
+            if comm_model_fit is None:
+                comm_model_fit = committed_fit(
+                    dist.get_backend(process_group))
+        p, n = self.p, self.layout.n
+        self.ici = hier_ici_size if self.hier and p > 1 else 1
+        if p % self.ici:
+            raise ValueError(f"axis size {p} not divisible by "
+                             f"hier_ici_size={hier_ici_size}")
+        #: Per-leaf k (gtopk_layerwise) and the bucket partition (a
+        #: bucketed gtopk_layerwise), else None.
+        self.leaf_ks = self.bucket_plan = None
+        if self.layerwise:
+            self.leaf_ks = [k_for_density(s, density)
+                            for s in self.layout.sizes]
+            self.bucket_plan = plan_buckets(
+                tuple(self.layout.sizes), density, buckets=bucket_spec, p=p,
+                codec=self.codec.name, mode=mode, fit_path=comm_model_fit)
+        #: The wire plan at P > 1 (parallel.planner.CommPlan) and the
+        #: decision that chose it, else None.
+        self.plan_decision = self.plan = None
+        if p > 1 and not self.dense_mode:
+            bplan = self.bucket_plan
+            k = self.compressor.k(n)
+            if self.layerwise:
+                k = bplan.k_total if bplan else sum(self.leaf_ks)
+            self.plan_decision = build_decision(
+                mode, p=p, n=n, k=k, codec=self.codec.name,
+                ici_size=self.ici, pin=comm_plan, fit_path=comm_model_fit,
+                bucketing=buckets_key(bucket_spec),
+                buckets=bplan.pairs() if bplan else None)
+            self.plan = self.plan_decision.plan
         device = params[0].device
-        n = self.layout.n
         residual = self.compressor.init_residual(n, device)
         if momentum_correction:
             residual = {"v": residual,
@@ -248,14 +372,36 @@ class GTopKSGD(torch.optim.SGD):
         #: The flat gradient of the last step, before the clip (one
         #: buffer, reused).
         self.flat_grad = torch.empty(n, dtype=torch.float32, device=device)
-        #: The keep mask of the last sparse step at P = 1.
         self.last_keep: Optional[torch.Tensor] = None
-        #: The last sparse step's shipped local (vals, idx) at P > 1, and
-        #: its global (gvals, gidx) set (gtopk) or dense union before the
-        #: division by P (the allgather modes). None after a dense step.
-        self.last_local: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        self.last_global: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.last_local = self.last_global = None
         self.last_union: Optional[torch.Tensor] = None
+
+    def _units(self) -> List[Tuple[int, int]]:
+        """The (offset, size) ranges a sparse step selects over one by one:
+        the whole vector, the buckets of a bucketed gtopk_layerwise, the
+        leaves of gtopk_layerwise at P = 1."""
+        lay = self.layout
+        if self.bucket_plan is not None:
+            bounds = self.bucket_plan.boundaries
+            return [(lay.offsets[lo], sum(lay.sizes[lo:hi]))
+                    for lo, hi in zip(bounds, bounds[1:])]
+        if self.layerwise:
+            return list(zip(lay.offsets, lay.sizes))
+        return [(0, lay.n)]
+
+    def _clip(self, flat: torch.Tensor) -> torch.Tensor:
+        """The clip before compression; under gtopk_layerwise the norm is
+        the square root of the leaves' sums of squares, summed in leaf
+        order."""
+        c = self.clip_grad_norm
+        if not self.layerwise:
+            return clip_by_global_norm(flat, c)
+        total = flat.new_zeros(())
+        for off, size in zip(self.layout.offsets, self.layout.sizes):
+            f = flat[off:off + size]
+            total = total + torch.sum(f * f)
+        scale = torch.full_like(total, c) / (torch.sqrt(total) + 1e-6)
+        return flat * torch.clamp(scale, max=1.0)
 
     def compress(self, flat: torch.Tensor) -> torch.Tensor:
         """The update for flat gradient `flat`, averaged over the P ranks;
@@ -264,7 +410,9 @@ class GTopKSGD(torch.optim.SGD):
         self.last_keep = self.last_local = None
         self.last_global = self.last_union = None
         if self.clip_grad_norm is not None:
-            flat = clip_by_global_norm(flat, self.clip_grad_norm)
+            flat = self._clip(flat)
+        if self.ici > 1:
+            flat = ici_dense_psum(flat, ici_size=self.ici, group=self.group)
         if self.dense_mode:
             if p == 1:
                 return flat
@@ -277,28 +425,58 @@ class GTopKSGD(torch.optim.SGD):
         else:
             src, res_in = flat, state
         if self.state["count"] < self.warmup_dense_steps:
-            # Dense warm-up: nothing is selected, so nothing is masked.
+            # Dense warm-up: nothing is selected, so nothing is masked. A
+            # slice sum already counts each gradient ici times.
             reduced = src if p == 1 else dense_allreduce(src,
                                                          group=self.group)
-            update, residual, u_out = _mean(reduced, p), res_in, u
+            update, residual, u_out = _mean(reduced, p * self.ici), res_in, u
+        elif self.layerwise and self.bucket_plan is None and p > 1:
+            update, residual, u_out = self._concat(src, res_in, u)
         else:
-            update, residual, u_out = self._sparse(src, res_in, u)
+            update, residual, u_out = self._by_unit(src, res_in, u)
         self.state["residual"] = ({"v": residual, "u": u_out}
                                   if self.correction else residual)
         return update
 
+    def _by_unit(self, src: torch.Tensor, res_in: torch.Tensor,
+                 u: Optional[torch.Tensor]):
+        """(update, residual, u) of a sparse step that selects and
+        exchanges each unit (``_units``) on its own."""
+        units = self._units()
+        outs = [self._sparse(src[o:o + s], res_in[o:o + s],
+                             None if u is None else u[o:o + s])
+                for o, s in units]
+        if len(outs) == 1 and self.bucket_plan is None:
+            update, residual, u_out, info = outs[0]
+            self.last_keep = info.get("keep")
+            self.last_local = info.get("local")
+            self.last_global = info.get("global")
+            self.last_union = info.get("union")
+            return update, residual, u_out
+        if self.p == 1:
+            self.last_keep = torch.cat([info["keep"] for *_, info in outs])
+        else:
+            self.last_local = [info["local"] for *_, info in outs]
+            self.last_global = [info["global"] for *_, info in outs]
+        if len(outs) == 1:
+            return outs[0][:3]
+        cat = [torch.cat([out[j] for out in outs]) for j in range(2)]
+        u_out = None if u is None else torch.cat([out[2] for out in outs])
+        return cat[0], cat[1], u_out
+
     def _sparse(self, src: torch.Tensor, res_in: torch.Tensor,
                 u: Optional[torch.Tensor]):
-        """(update, residual, u) of a sparse step from source `src`."""
+        """(update, residual, u, info) of a sparse step over the vector
+        `src` (a unit), k = ceil(density * its length); `info` holds the
+        keep mask, or the local and global sets or the union."""
         comp, p, n = self.compressor, self.p, src.shape[0]
         acc = comp.accumulate(src, res_in)
         if p == 1:
             keep, residual, _ = comp.compress_by_threshold(
                 acc, grad=src, residual=res_in)
-            self.last_keep = keep
             if u is not None:  # every local pick is delivered at P = 1
                 u = torch.where(keep, torch.zeros_like(u), u)
-            return acc - residual, residual, u
+            return acc - residual, residual, u, {"keep": keep}
         vals, idx, residual = comp.compress(acc, grad=src, residual=res_in)
         if self.codec.lossy and self.mode != "topk":
             # Ship the roundtripped values and keep their error: repair then
@@ -307,25 +485,63 @@ class GTopKSGD(torch.optim.SGD):
             vq = roundtrip_aligned(self.codec, vals, idx, n=n)
             residual = comp.fold_wire_error(residual, idx, vals - vq)
             vals = vq
-        self.last_local = (vals, idx)
         # Momentum factor masking at the local picks, delivered or not.
         u_out = None if u is None else _zero_at(u, idx)
         result, gidx, needs_repair = sparse_allreduce(
             self.mode, vals, idx, k=comp.k(n), n=n, group=self.group,
-            codec=self.codec)
+            ici_size=self.ici, codec=self.codec, plan=self.plan)
+        info = {"local": (vals, idx)}
         if not needs_repair:  # the allgather union: every pick lands
-            self.last_union = result
-            return _mean(result, p), residual, u_out
-        self.last_global = (result, gidx)
+            info["union"] = result
+            return _mean(result, p), residual, u_out, info
+        info["global"] = (result, gidx)
         residual = comp.repair(residual, vals, idx, gidx)
         if u is not None and self.restore_rejected_u:
             pos = idx.clamp(max=n).long()
             rejected = ~membership_mask(idx, gidx)
             back = torch.where(rejected, torch.cat([u, u.new_zeros(1)])[pos],
                                0.0)
-            u_out = torch.cat([u_out, u_out.new_zeros(1)])
-            u_out = u_out.index_add_(0, pos, back)[:n]
-        return _mean(scatter_add_dense(n, gidx, result), p), residual, u_out
+            u_out = _add_at(u_out, pos, back)
+        return (_mean(scatter_add_dense(n, gidx, result), p), residual,
+                u_out, info)
+
+    def _concat(self, src: torch.Tensor, res_in: torch.Tensor,
+                u: Optional[torch.Tensor]):
+        """(update, residual, u) of gtopk_layerwise under 'concat' at P >
+        1: per-leaf selection, one merge of the concatenated set in the
+        global index space."""
+        comp, p, n = self.compressor, self.p, src.shape[0]
+        lay = self.layout
+        acc = src + res_in
+        sel = [select_topk(src[o:o + s], kl, comp.method,
+                           residual=res_in[o:o + s])
+               for o, s, kl in zip(lay.offsets, lay.sizes, self.leaf_ks)]
+        vals = torch.cat([v for v, _ in sel])
+        idx = torch.cat([(i + o).to(torch.int32)
+                         for (_, i), o in zip(sel, lay.offsets)])
+        # Where each pick sits in the flat buffer; a leaf's padding index
+        # (its size) maps to n and drops out.
+        pos = torch.cat([torch.where(i < s, i.long() + o, n)
+                         for (_, i), o, s in zip(sel, lay.offsets,
+                                                 lay.sizes)])
+        residual = _zero_at(acc, pos)
+        u_out = None if u is None else _zero_at(u, pos)
+        if self.codec.lossy:
+            vq = roundtrip_aligned(self.codec, vals, idx, n=n)
+            residual = _add_at(residual, pos, vals - vq)
+            vals = vq
+        gvals, gidx, _ = sparse_allreduce(
+            self.mode, vals, idx, k=sum(self.leaf_ks), n=n,
+            group=self.group, codec=self.codec, plan=self.plan)
+        self.last_local, self.last_global = (vals, idx), (gvals, gidx)
+        rejected = ~membership_mask(idx, gidx)
+        residual = _add_at(residual, pos, torch.where(rejected, vals, 0.0))
+        if u is not None and self.restore_rejected_u:
+            back = torch.where(rejected, torch.cat([u, u.new_zeros(1)])[pos],
+                               0.0)
+            u_out = _add_at(u_out, pos, back)
+        return (_mean(scatter_add_dense(n, gidx, gvals), p), residual,
+                u_out)
 
     @torch.no_grad()
     def step(self, closure=None):

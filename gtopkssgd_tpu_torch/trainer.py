@@ -32,7 +32,9 @@ group of P ranks (``parallel.dist``): every rank builds the same initial
 weights from the seed, draws its own shard of the data, and after each
 step the ranks average the BatchNorm running statistics (if the model has
 any) and the reported loss (and top-1), as the JAX trainer's ``pmean``
-does.
+does. The optimizer decides the wire plan once (``plan_decision``; the
+layer-wise ``bucket_plan`` with it), and rank 0 prints the decision's
+record as one ``plan {...}`` line.
 
 A step is three profiler ranges (``torch.profiler.record_function``):
 "data" (host batch + copy to the device), "forward_backward" and
@@ -43,6 +45,7 @@ reads them.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Dict, List, Optional
 
@@ -58,6 +61,7 @@ from gtopkssgd_tpu_torch.data import get_dataset
 from gtopkssgd_tpu_torch.data.cifar import CIFAR_MEAN, CIFAR_STD
 from gtopkssgd_tpu_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
 from gtopkssgd_tpu_torch.models import get_model, model_spec, seed_dropout
+from gtopkssgd_tpu_torch.modes import HIER_MODES
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 from gtopkssgd_tpu_torch.parallel.collectives import pmean, psum
 
@@ -89,11 +93,23 @@ class TrainConfig:
     nesterov: bool = False
     compression: Optional[str] = None     # None/'dense' | 'gtopk' |
                                           # 'allgather' | 'topk' | 'topkA'
-                                          # | 'topk_allgather'
+                                          # | 'topk_allgather' |
+                                          # 'gtopk_hier' | 'gtopk_layerwise'
     density: float = 0.001
     topk_method: str = "auto"      # auto | exact | threshold | pallas |
                                    # twostage
     wire_codec: str = "fp32"       # fp32 | int8[:BLOCK] | fp8[:BLOCK]
+    hier_ici: int = 1              # gtopk_hier: ranks per slice (dense sum
+                                   # within it, gTop-k across slices)
+    comm_plan: str = "auto"        # wire-plan pin (parallel.planner):
+                                   # auto | tree | balanced | hier |
+                                   # allgather | dense
+    buckets: str = "concat"        # gtopk_layerwise: concat | leaf | auto
+                                   # | <int B> (parallel.bucketing)
+    pipeline: str = "serial"       # bucketed gtopk_layerwise: serial
+    comm_model_fit: Optional[str] = None  # alpha-beta fit file pricing
+                                   # the planner (default: the port's own
+                                   # for the backend)
     clip_grad_norm: Optional[float] = None  # default per dataset
     nsteps_update: int = 1
     warmup_epochs: int = 0         # linear lr ramp over the first N epochs
@@ -113,6 +129,12 @@ class TrainConfig:
     device: str = "cuda"
 
     def resolved(self) -> "TrainConfig":
+        """The config with the dataset's defaults filled in; refuses a
+        gtopk_hier slice width that does not divide the ranks."""
+        if (self.compression in HIER_MODES and self.nworkers > 1
+                and self.nworkers % self.hier_ici):
+            raise ValueError(f"axis size {self.nworkers} not divisible by "
+                             f"hier_ici_size={self.hier_ici}")
         cfg = dataclasses.replace(self)
         if cfg.dataset is None:
             cfg.dataset = model_spec(cfg.dnn).dataset
@@ -176,6 +198,16 @@ class Trainer:
         self.layout = flat_layout(self.model)
         self.num_params = self.layout.n
         self.optimizer = self.make_optimizer()
+        #: The wire plan's decision at P > 1 (parallel.planner) and the
+        #: layer-wise bucket partition (parallel.bucketing), resolved once
+        #: here; None where there is none. Rank 0 prints them.
+        self.plan_decision = self.optimizer.plan_decision
+        self.bucket_plan = self.optimizer.bucket_plan
+        if self.rank == 0 and self.plan_decision is not None:
+            record = self.plan_decision.record()
+            if self.bucket_plan is not None:
+                record.update(self.bucket_plan.to_manifest())
+            print("plan " + json.dumps(record), flush=True)
         if self.kind == "vision":
             mean, std = _WIRE_STATS[cfg.dataset]
             self._mean = torch.as_tensor(mean, device=self.device)
@@ -204,6 +236,9 @@ class Trainer:
             nesterov=cfg.nesterov, compression=cfg.compression,
             density=cfg.density, topk_method=cfg.topk_method,
             wire_codec=cfg.wire_codec, clip_grad_norm=cfg.clip_grad_norm,
+            hier_ici_size=cfg.hier_ici, comm_plan=cfg.comm_plan,
+            buckets=cfg.buckets, pipeline=cfg.pipeline,
+            comm_model_fit=cfg.comm_model_fit,
             warmup_dense_steps=warmup_dense_steps,
             momentum_correction=cfg.momentum_correction,
             _restore_rejected_u=cfg.restore_rejected_u,

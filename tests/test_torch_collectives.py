@@ -22,7 +22,7 @@ from gtopkssgd_tpu.ops import merge_sparse_sets as jax_merge
 from gtopkssgd_tpu.parallel import collectives as jcoll
 from gtopkssgd_tpu.parallel import make_mesh
 from gtopkssgd_tpu_torch.ops import merge_sparse_sets
-from gtopkssgd_tpu_torch.parallel import codec, collectives
+from gtopkssgd_tpu_torch.parallel import bucketing, codec, collectives
 from gtopkssgd_tpu_torch.parallel.dist import spawn
 
 torch.set_num_threads(2)
@@ -158,22 +158,29 @@ def test_tree_rounds_and_comm_bytes_match_jax(p):
 
 
 def test_later_modes_schedules_and_codecs_are_refused():
-    """What the port does not have yet (the hierarchical and layer-wise
-    modes, the balanced schedule) is refused naming its ROADMAP item;
-    the allgather modes and the int8/fp8 codecs are accepted (their
-    results are held to JAX in tests/test_torch_codec.py)."""
+    """The hierarchical and layer-wise modes and the balanced schedule are
+    in the port now (held to JAX in tests/test_torch_hier_balanced.py and
+    tests/test_torch_planner.py); what stays refused is a schedule that
+    does not realize the mode, an unknown mode or codec, and the
+    ``overlap`` and ``auto`` pipelines, by their ROADMAP item. The
+    allgather modes and the int8/fp8 codecs are accepted."""
     v, i = torch.zeros(K), torch.full((K,), N, dtype=torch.int32)
     for mode in ("gtopk_hier", "gtopk_layerwise"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            collectives.sparse_allreduce(mode, v, i, k=K, n=N)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            collectives.comm_bytes_per_step(mode, N, K, 4)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        collectives.sparse_allreduce("gtopk", v, i, k=K, n=N,
-                                     plan="balanced")
+        for p in (2, 4, 8):
+            assert (collectives.comm_bytes_per_step(mode, N, K, p)
+                    == jcoll.comm_bytes_per_step(mode, N, K, p))
+    assert (collectives.comm_bytes_per_step("gtopk", N, K, 4,
+                                            schedule="balanced")
+            == 7 * 8 * collectives.balanced_cap(K, 4, N))
+    for pipeline in ("overlap", "auto"):
+        with pytest.raises(ValueError, match="ROADMAP.md section 1, item 5"):
+            bucketing.parse_pipeline(pipeline)
     with pytest.raises(ValueError, match="schedule"):
         collectives.sparse_allreduce("gtopk", v, i, k=K, n=N,
                                      plan="allgather")
+    with pytest.raises(ValueError, match="schedule"):
+        collectives.sparse_allreduce("gtopk_hier", v, i, k=K, n=N,
+                                     plan="balanced")
     for spec in ("int8", "fp8", "fp8:32"):
         set_bytes = codec.get_codec(spec).wire_set_bytes(K, N)
         assert set_bytes < 8 * K

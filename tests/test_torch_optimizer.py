@@ -41,9 +41,11 @@ def test_registry():
     assert isinstance(c, TopKCompressor) and c.method == "pallas"
     for mode in ("allgather", "topk", "topkA", "topk_allgather"):
         assert get_compressor(mode, density=0.01) == TopKCompressor(0.01)
-    for mode in ("gtopk_hier", "gtopk_layerwise", "nope"):
-        with pytest.raises(ValueError):
-            get_compressor(mode)
+    # As in the JAX registry: every sparse mode selects with top-k.
+    for mode in ("gtopk_hier", "gtopk_layerwise"):
+        assert get_compressor(mode, density=0.01) == TopKCompressor(0.01)
+    with pytest.raises(ValueError):
+        get_compressor("nope")
 
 
 @pytest.mark.parametrize("method", ["exact", "threshold", "pallas",
@@ -182,4 +184,5 @@ def test_flat_layout_permutes_and_round_trips():
     lay.unravel_into(flat, out)
     assert torch.equal(out[0], a) and torch.equal(out[1], b)
     with pytest.raises(ValueError, match="not in the port"):
-        GTopKSGD([torch.nn.Parameter(a)], 0.1, compression="gtopk_hier")
+        GTopKSGD([torch.nn.Parameter(a)], 0.1, compression="gtopk_layerwise",
+                 buckets=2, pipeline="overlap")

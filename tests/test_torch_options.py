@@ -214,6 +214,12 @@ BAD = [
     dict(compression="gtopk", _restore_rejected_u=True),
     dict(compression="gtopk", wire_codec="int4"),
     dict(compression="nope"),
+    dict(compression="gtopk_hier", hier_ici_size=0),
+    dict(compression="gtopk", hier_ici_size=2),
+    dict(compression="gtopk", buckets="leaf"),
+    dict(compression="gtopk_layerwise", buckets=0),
+    dict(compression="gtopk_hier", comm_plan="balanced"),
+    dict(compression="allgather", comm_plan="tree"),
 ]
 
 
@@ -230,9 +236,14 @@ def test_option_errors_match_jax(bad):
 
 @pytest.mark.parametrize("mode", ["gtopk_hier", "gtopk_layerwise"])
 def test_later_modes_are_refused_by_the_optimizer(mode):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        GTopKSGD([torch.nn.Parameter(torch.zeros(8))], 0.1,
-                 compression=mode)
+    """Both modes are in the port (tests/test_torch_layerwise.py); the
+    bucketed wire's ``overlap`` and ``auto`` pipelines are not, and are
+    refused naming their ROADMAP item."""
+    params = [torch.nn.Parameter(torch.zeros(8))]
+    assert GTopKSGD(params, 0.1, compression=mode).mode == mode
+    for pipeline in ("overlap", "auto"):
+        with pytest.raises(ValueError, match="ROADMAP.md section 1, item 5"):
+            GTopKSGD(params, 0.1, compression=mode, pipeline=pipeline)
 
 
 def test_lr_ramp_is_bitwise_the_jax_schedule():

@@ -68,6 +68,50 @@ def codec_collectives(device, tree_sets, gather_sets, k, n):
     return out
 
 
+def hier_and_balanced_over_groups(device, psum_cases, hier_cases,
+                                  balanced_cases, k, n):
+    """The first P ranks of the world, in a group of their own, run
+    ``ici_dense_psum`` on each of `psum_cases` ({(P, ici): f32[P, m]}),
+    ``ici_dense_psum`` then ``hier_gtopk_allreduce`` on each of
+    `hier_cases` ({(P, ici, codec): (vals f32[P, k], idx i32[P, k])}) and
+    ``balanced_gtopk_allreduce`` on each of `balanced_cases` ({(P,
+    codec): (vals, idx)}); this rank's results and wire counters by
+    case."""
+    rank = dist.get_rank()
+    ps = {key[0] for cases in (psum_cases, hier_cases, balanced_cases)
+          for key in cases}
+    groups = {p: dist.new_group(list(range(p)))  # every rank calls it
+              for p in sorted(ps)}
+    out = {}
+
+    def row(x):
+        return torch.from_numpy(x[rank]).to(device)
+
+    for (p, ici), x in sorted(psum_cases.items()):
+        if rank < p:
+            collectives.reset_wire()
+            got = collectives.ici_dense_psum(row(x), ici_size=ici,
+                                             group=groups[p])
+            out[("psum", p, ici)] = {"sum": got, **collectives.wire}
+    for (p, ici, codec), (vals, idx) in sorted(hier_cases.items()):
+        if rank < p:
+            collectives.reset_wire()
+            gv, gi = collectives.hier_gtopk_allreduce(
+                row(vals), row(idx), k=k, n=n, ici_size=ici,
+                group=groups[p], codec=codec)
+            out[("hier", p, ici, codec)] = {"vals": gv, "idx": gi,
+                                            **collectives.wire}
+    for (p, codec), (vals, idx) in sorted(balanced_cases.items()):
+        if rank < p:
+            collectives.reset_wire()
+            gv, gi = collectives.balanced_gtopk_allreduce(
+                row(vals), row(idx), k=k, n=n, group=groups[p],
+                codec=codec)
+            out[("balanced", p, codec)] = {"vals": gv, "idx": gi,
+                                           **collectives.wire}
+    return out
+
+
 def _residual_copy(residual):
     if isinstance(residual, dict):
         return {key: t.clone() for key, t in residual.items()}
@@ -101,18 +145,64 @@ def optimizer_cases(device, p0, grads, cases):
             for name, kw in cases.items()}
 
 
+def _cpu(x):
+    """Tensors, sets and lists of sets, cloned (the optimizer reuses
+    nothing, but the caller keeps them past the next step)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {key: _cpu(v) for key, v in x.items()}
+    return type(x)(_cpu(v) for v in x)
+
+
+def leaf_optimizer_steps(device, leaves0, grads, opt_kwargs):
+    """``GTopKSGD`` over the whole world on one parameter a leaf (from
+    `leaves0`, in layout order), one step per entry of `grads` (a list of
+    f32[P, n_l] a leaf, row = rank); after each step the flat parameters,
+    the residual, and the local and global sets (a list of one a bucket
+    under a bucketed gtopk_layerwise)."""
+    rank = dist.get_rank()
+    params = [torch.nn.Parameter(torch.from_numpy(x.copy()).to(device))
+              for x in leaves0]
+    opt = GTopKSGD(params, process_group=dist.group.WORLD, **opt_kwargs)
+    out = []
+    for step_grads in grads:
+        for prm, g in zip(params, step_grads):
+            prm.grad = torch.from_numpy(g[rank].copy()).to(device)
+        opt.step()
+        out.append({"params": torch.cat([prm.detach().reshape(-1)
+                                         for prm in params]),
+                    "residual": _cpu(opt.state["residual"]),
+                    "local": _cpu(opt.last_local),
+                    "global": _cpu(opt.last_global),
+                    "plan": None if opt.plan is None else opt.plan.name})
+    return out
+
+
+def leaf_optimizer_cases(device, leaves0, grads, cases):
+    """``leaf_optimizer_steps`` for each {name: opt_kwargs} of `cases`, in
+    one world; the results by name."""
+    return {name: leaf_optimizer_steps(device, leaves0, grads, kw)
+            for name, kw in cases.items()}
+
+
 def trainer_steps_from_states(device, cfg_kwargs, states):
     """One trainer step from each of `states` (``load_jax_state``'s
     arguments); after each step the loss, this rank's residual, the global
-    index set and the BatchNorm buffers."""
+    index set (a list of one a bucket under a bucketed gtopk_layerwise)
+    and the BatchNorm buffers."""
     trainer = Trainer(TrainConfig(device=str(device), **cfg_kwargs))
     opt = trainer.optimizer
     out = []
     for state in states:
         load_jax_state(trainer, **state)
         loss = trainer.train(1)["loss"]
+        sets = opt.last_global
         out.append({"loss": loss, "residual": opt.state["residual"].clone(),
-                    "gidx": opt.last_global[1],
+                    "gidx": (sets[1] if isinstance(sets, tuple)
+                             else [gidx for _, gidx in sets]),
                     "buffers": {name: b.clone() for name, b
                                 in trainer.model.named_buffers()}})
     return out
