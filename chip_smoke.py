@@ -160,7 +160,36 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        each committed fit (gloo, NCCL) at P = 2..8 for ResNet-20's and
        ResNet-50's N.
    The runs of one P share one spawn.
-10. A ``kernels`` JSON line, then the last line
+10. The ``overlap`` and ``auto`` pipelines of the bucketed layer-wise
+   wire, the selection cost measured on the card and the benchmark
+   harness, batch 32 a rank, density 0.001, TF32 off (see
+   ``select_phase``, ``pipeline_phase``, ``auto_phase``,
+   ``harness_phase``):
+   (a) The selection stage (``select_probe``) of each method at
+       ResNet-50's ``--buckets 4`` sizes, once with host syncs made
+       errors, each time beside the committed fit's prediction for this
+       card (``parallel/select_fit.json``; a card it does not name
+       fails).
+   (b) ResNet-50 ``gtopk_layerwise --buckets 4`` at P = 4 (one card over
+       gloo, NCCL where there are 4 cards), ``twostage`` and ``pallas``,
+       5 steps each, in one spawn: two optimizers over one model,
+       ``serial`` and ``overlap`` on the serial DP's cuts, stepped from
+       the same parameters and gradients each step; updates, parameters,
+       velocities, residuals and per-bucket global sets bitwise equal
+       between the orders on every rank; bytes a rank a step 408,928
+       (the model) in each order; launches 2 x 5 x 4 a rank; the median
+       optimizer step of each order (the harness in (d) times each
+       order's whole step, on per-rank batches); a profiled step of each
+       order with its overlap share (``profile_step.overlap_share``),
+       which must be above 0 under ``overlap`` on rank 0.
+   (c) ``--buckets auto --pipeline auto`` for ResNet-20 and ResNet-50 at
+       P = 2..8 under each committed comm fit and the card's
+       ``twostage`` selection fit: the order, B and both spans.
+   (d) ``benchmark.measure_throughput`` and ``measure_breakdown`` of
+       ResNet-50 gTop-k ``twostage`` and dense at P = 1, and (inside
+       (b)'s spawn) of the ``--buckets 4`` arm under each order at P =
+       4, with ``attr_from_breakdown``.
+11. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -371,17 +400,9 @@ def kernel_phase(n: int):
 
 def leaf_sizes() -> list:
     """Every distinct leaf size of the `LEAF_MODELS`, ascending."""
-    import torch
+    from gtopkssgd_tpu_torch.select_probe import leaf_sizes as sizes
 
-    from gtopkssgd_tpu_torch.convert import flat_layout
-    from gtopkssgd_tpu_torch.models import get_model
-
-    sizes = set()
-    for dnn in LEAF_MODELS:
-        with torch.device("meta"):
-            model, _ = get_model(dnn)
-        sizes.update(flat_layout(model).sizes)
-    return sorted(sizes)
+    return sizes(LEAF_MODELS)
 
 
 def leaf_phase() -> None:
@@ -1201,6 +1222,262 @@ def planner_phase() -> None:
                           f"{mode} P=4 N={n}: 'auto' chose {d.plan.name}")
 
 
+# Phase 10 (the pipelines, the selection cost, the harness).
+PIPELINE_DIST = ("resnet50", ("twostage", "pallas"), 4, 5)  # dnn, methods,
+# P, steps of the lockstep run (``--buckets 4``, one card over gloo)
+PIPELINE_MODEL_BYTES = 408_928  # a rank a step at P = 4 (phase 9b)
+HARNESS_P1 = (("gtopk", "twostage"), (None, "exact"))  # ResNet-50, P = 1
+
+
+def select_phase() -> None:
+    """Phase 10a: the selection stage at ResNet-50's ``--buckets 4``
+    sizes, each method once with host syncs made errors, each time beside
+    the committed fit's prediction for this card."""
+    import torch
+
+    from gtopkssgd_tpu_torch import select_probe
+    from gtopkssgd_tpu_torch.parallel.bucketing import load_select_gamma
+
+    name = torch.cuda.get_device_name(0)
+    sizes = select_probe.bucket_sizes()
+    for method in select_probe.METHODS:
+        gamma = load_select_gamma(name, method)
+        select_probe.check_no_host_sync(method, max(sizes))
+        for n in sizes:
+            ms = select_probe.stage_ms(method, n)
+            print(f"select {method} n={n:,d}: {ms:.4f} ms, the committed "
+                  f"fit predicts {gamma * n / 1e6:.4f} ms (gamma "
+                  f"{gamma:.5f}); no host sync")
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+
+def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
+    """One rank of phase 10b and the P > 1 arm of 10d: per method, two
+    optimizers over one model, 'serial' and 'overlap', stepped from the
+    same state each step (parameters and gradients restored between
+    them); their updates, parameters, velocities, residuals and
+    per-bucket global sets compared bitwise, bytes a step per order, the
+    launch counts, both orders' optimizer-step times, and the overlap
+    share of a profiled step of each. Then the harness under both orders
+    (rank 0's records; its ``sec_per_step`` is each order's measured
+    whole step)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gtopkssgd_tpu_torch import benchmark, profile_step
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.parallel import collectives
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "methods": {}}
+    for method in methods:
+        cfg = TrainConfig(dnn=dnn, batch_size=32, density=0.001,
+                          compression="gtopk_layerwise", buckets="4",
+                          pipeline="serial", topk_method=method,
+                          nworkers=p, device=str(device))
+        trainer = Trainer(cfg)
+        trainer.cfg = dataclasses.replace(trainer.cfg, pipeline="overlap")
+        opts = {"serial": trainer.optimizer,
+                "overlap": trainer.make_optimizer()}
+        # The orders are compared on one partition: the serial DP's (the
+        # DP priced under 'overlap' may cut elsewhere).
+        splan, oplan = (opts[o].bucket_plan for o in ("serial", "overlap"))
+        check(oplan.pipeline == "overlap", f"{method}: {oplan}")
+        opts["overlap"].bucket_plan = dataclasses.replace(
+            splan, pipeline="overlap")
+        out.setdefault("cuts", {})[method] = (splan.boundaries,
+                                              oplan.boundaries)
+        params = trainer.layout.params
+        res = {"equal": True, "bytes": {"serial": [], "overlap": []},
+               "opt_ms": {"serial": [], "overlap": []}}
+
+        def step(order: str, before, grads):
+            for q, b, g in zip(params, before, grads):
+                q.data.copy_(b)
+                q.grad = g.clone()
+            collectives.reset_wire()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opts[order].step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            res["opt_ms"][order].append(ms)
+            res["bytes"][order].append(collectives.wire["bytes"])
+            o = opts[order]
+            return {"update": _flat(q.grad for q in params),
+                    "params": _flat(params),
+                    "velocity": _flat(o.state[q]["momentum_buffer"]
+                                      for q in params),
+                    "residual": o.state["residual"].clone(),
+                    "sets": [torch.cat([v.view(torch.int32), i])
+                             for v, i in o.last_global]}
+
+        cuda_topk.reset_launches()
+        for _ in range(steps):
+            trainer.optimizer.zero_grad(set_to_none=True)
+            batch = trainer._device_batch(next(trainer._batches))
+            loss, _, _ = trainer._forward(batch)
+            loss.backward()
+            before = [q.detach().clone() for q in params]
+            grads = [q.grad.detach().clone() for q in params]
+            a = step("serial", before, grads)
+            b = step("overlap", before, grads)
+            same = all(torch.equal(a[key], b[key]) for key in
+                       ("update", "params", "velocity", "residual"))
+            same = same and len(a["sets"]) == len(b["sets"]) and all(
+                torch.equal(x, y) for x, y in zip(a["sets"], b["sets"]))
+            res["equal"] = res["equal"] and same
+        res["launches"] = dict(cuda_topk.launches)
+        res["buckets"] = opts["serial"].bucket_plan.n_buckets
+        res["share"] = {}
+        for order in ("serial", "overlap"):
+            trainer.optimizer = opts[order]
+            with profile_step._profiler() as prof:
+                stats = trainer.train(1)
+            res["share"][order] = profile_step.summarize(
+                prof, stats, 1)["overlap_share"]
+        for o in opts.values():
+            o.close()
+        out["methods"][method] = res
+        del trainer, opts
+        torch.cuda.empty_cache()
+    records = {}
+    for order in ("serial", "overlap"):
+        bcfg = benchmark.BenchConfig(
+            dnn=dnn, batch_size=32, steps=5, min_seconds=1.0,
+            topk_method="twostage", nworkers=p, buckets="4",
+            pipeline=order)
+        records[order] = {
+            "throughput": benchmark._throughput(device, bcfg,
+                                                "gtopk_layerwise", 0.001),
+            "breakdown": benchmark._breakdown(device, bcfg,
+                                              "gtopk_layerwise", 0.001)}
+        torch.cuda.empty_cache()
+    out["harness"] = records if rank == 0 else None
+    return out
+
+
+def pipeline_phase() -> dict:
+    """Phase 10b (and 10d's P = 4 arm): ``pipeline_rank`` on P ranks in
+    one spawn; checks and prints; returns the launches."""
+    import torch
+
+    from gtopkssgd_tpu_torch.benchmark import attr_from_breakdown
+    from gtopkssgd_tpu_torch.parallel.dist import spawn
+
+    dnn, methods, p, steps = PIPELINE_DIST
+    backend = "nccl" if torch.cuda.device_count() >= p else "gloo"
+    t0 = time.perf_counter()
+    ranks = spawn(pipeline_rank, p, dnn, methods, p, steps, backend=backend,
+                  device="cuda", timeout=900)
+    print(f"pipeline {dnn} P={p}: one spawn, backend {backend}, spawn to "
+          f"join {time.perf_counter() - t0:.1f} s")
+    total = {name: 0 for name in REPLACES}
+    want = {"twostage": "fused_stage1_candidates",
+            "pallas": "multisection_tau_lo[abs]"}
+    for method in methods:
+        run = f"{dnn} P={p} gtopk_layerwise/{method} --buckets 4"
+        rs = [r["methods"][method] for r in ranks]
+        for r, res in zip(ranks, rs):
+            check(res["equal"], f"{run} rank {r['rank']}: 'overlap' differs "
+                                "from 'serial' (updates, parameters, "
+                                "velocities, residuals or global sets)")
+            check_launches(res["launches"],
+                           {want[method]: 2 * steps * res["buckets"]},
+                           f"{run} rank {r['rank']}, both orders")
+            for order in ("serial", "overlap"):
+                check(res["bytes"][order] == [PIPELINE_MODEL_BYTES] * steps,
+                      f"{run} rank {r['rank']} {order}: bytes a step "
+                      f"{res['bytes'][order]}, model "
+                      f"{PIPELINE_MODEL_BYTES}")
+            for name in REPLACES:
+                total[name] += res["launches"][name]
+        shares = [res["share"] for res in rs]
+        check(shares[0]["overlap"] is not None and shares[0]["overlap"] > 0,
+              f"{run}: overlap share {shares[0]['overlap']} on rank 0, "
+              "expected above 0")
+        med = {order: statistics.median(
+            t for res in rs for t in res["opt_ms"][order][1:])
+            for order in ("serial", "overlap")}
+        cuts = ranks[0]["cuts"][method]
+        print(f"pipeline {run}: cuts {cuts[0]} (the DP priced under "
+              f"'overlap' cuts at {cuts[1]})")
+        print(f"pipeline {run}: {steps} steps of each order from the same "
+              "state, updates, parameters, velocities, residuals and "
+              "per-bucket global sets bitwise equal between the orders on "
+              f"every rank; bytes a rank a step {PIPELINE_MODEL_BYTES} "
+              f"(= model) in both; launches per rank {rs[0]['launches']}; "
+              + "; ".join(
+                  f"{order}: median optimizer step {med[order]:.3f} ms "
+                  f"(steps 2-{steps}, all ranks), overlap share by rank "
+                  + ", ".join(f"{s[order]:.4f}" if s[order] is not None
+                              else "none" for s in shares)
+                  for order in ("serial", "overlap")))
+    for order, rec in ranks[0]["harness"].items():
+        print(f"harness {dnn} P={p} gtopk_layerwise --buckets 4 "
+              f"--pipeline {order}: " + json.dumps({
+                  **rec, "attr": attr_from_breakdown(rec["breakdown"])}))
+    return total
+
+
+def auto_phase() -> None:
+    """Phase 10c: ``--buckets auto --pipeline auto`` for ResNet-20 and
+    ResNet-50 at P = 2..8 under each committed comm fit and this card's
+    selection fit (``twostage``): the order, B, and both spans."""
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel import bucketing, comm_model
+    from gtopkssgd_tpu_torch.select_probe import layout_sizes
+
+    gamma = bucketing.load_select_gamma(torch.cuda.get_device_name(0),
+                                        "twostage")
+    for dnn in ("resnet20", "resnet50"):
+        sizes = layout_sizes(dnn)
+        for backend, fit in comm_model.COMMITTED_FITS.items():
+            for p in (2, 3, 4, 5, 6, 8):
+                plan = bucketing.plan_buckets(
+                    sizes, 0.001, buckets="auto", p=p, fit_path=fit,
+                    pipeline="auto", select_gamma=gamma)
+                inputs = comm_model.load_fit(fit)
+                spans = {o: bucketing.pipeline_span_ms(
+                    plan, p=p, alpha_ms=inputs["alpha_ms"],
+                    beta_gbps=inputs["beta_gbps"], select_gamma=gamma,
+                    pipeline=o) for o in ("serial", "overlap")}
+                print(f"auto {dnn} P={p} {backend} fit: --pipeline "
+                      f"{plan.pipeline}, B={plan.n_buckets}, span serial "
+                      f"{spans['serial']:.4f} ms, overlap "
+                      f"{spans['overlap']:.4f} ms (twostage gamma "
+                      f"{gamma:.5f})")
+
+
+def harness_phase() -> None:
+    """Phase 10d, P = 1: ``measure_throughput`` and ``measure_breakdown``
+    of ResNet-50 gTop-k ``twostage`` and dense, batch 32."""
+    from gtopkssgd_tpu_torch import benchmark
+
+    for mode, method in HARNESS_P1:
+        cfg = benchmark.BenchConfig(dnn="resnet50", batch_size=32, steps=5,
+                                    min_seconds=1.0, topk_method=method)
+        density = 0.001 if mode else 1.0
+        tput = benchmark.measure_throughput(cfg, mode, density)
+        bd = benchmark.measure_breakdown(cfg, mode, density)
+        for key in ("sec_per_step", "flops_per_step", "mfu"):
+            check(tput[key] is not None and tput[key] > 0,
+                  f"harness {mode}: {key} {tput[key]}")
+        print(f"harness resnet50 P=1 {mode or 'dense'}/{method}: "
+              + json.dumps({"throughput": tput, "breakdown": bd,
+                            "attr": benchmark.attr_from_breakdown(bd)}))
+
+
+
 def main() -> int:
     import torch
 
@@ -1261,6 +1538,11 @@ def main() -> int:
         for name, count in dist_phase(runs, dnn, steps).items():
             total[name] += count
     planner_phase()
+    select_phase()
+    for name, count in pipeline_phase().items():
+        total[name] += count
+    auto_phase()
+    harness_phase()
 
     n0 = SIZES[0]
     line = []

@@ -64,7 +64,9 @@ class TopKCompressor:
         else:
             vals, idx = select_topk(acc, self.k(n), self.method)
         residual_out = torch.cat([acc, acc.new_zeros(1)])
-        residual_out[idx.clamp(max=n).long()] = 0.0  # padding -> slot n
+        # padding -> slot n; index_fill_ takes the 0 as an argument, where
+        # an indexed assignment would copy it to the card and wait
+        residual_out.index_fill_(0, idx.clamp(max=n).long(), 0.0)
         return vals, idx, residual_out[:n]
 
     def compress_by_threshold(

@@ -8,7 +8,8 @@
         [--dist-backend gloo] [--wire-codec int8] [--momentum-correction] \\
         [--nesterov] [--clip-grad-norm C] [--warmup-epochs E] \\
         [--dense-warmup-epochs E] [--compression gtopk_hier --hier-ici S] \\
-        [--compression gtopk_layerwise --buckets concat|leaf|auto|B] \\
+        [--compression gtopk_layerwise --buckets concat|leaf|auto|B \\
+         --pipeline serial|overlap|auto] \\
         [--comm-plan auto|tree|balanced] [--comm-model-fit PATH]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
@@ -23,7 +24,8 @@ model's (``lstm``: PTB, ``lstman4``: AN4; synthetic unless ``--data-dir``
 holds the real files), and so do lr, weight decay and the clip (PTB 1.0,
 0, 0.25; AN4 3e-4, 0, 400). Rank 0 prints one JSON line with the
 per-step losses, step times, the gradient bytes a rank shipped per step,
-the wire plan and the buckets (their (n_b, k_b) pairs) and the validation
+the wire plan, the buckets (their (n_b, k_b) pairs) and their execution
+order, and the validation
 metrics (``val_loss`` and ``val_top1``/``val_top5``,
 ``val_ppl``, or ``val_cer``/``val_wer``).
 """
@@ -97,8 +99,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "an exact alpha-beta DP ('auto' picks B), one "
                         "selection and one merge per bucket")
     p.add_argument("--pipeline", default="serial",
-                   help="bucketed gtopk_layerwise: bucket execution order; "
-                        "'serial' (the port has no 'overlap' yet)")
+                   help="bucketed gtopk_layerwise: bucket execution order. "
+                        "'serial' (default): bucket b+1 selects after "
+                        "bucket b's merge; 'overlap': bucket b+1 selects "
+                        "(on a side CUDA stream) while bucket b merges (on "
+                        "the optimizer's merge thread), bitwise the same "
+                        "result; 'auto': the order with the smaller "
+                        "modeled span (the bucket DP priced under both)")
     p.add_argument("--comm-model-fit", default=None, metavar="PATH",
                    help="alpha/beta fit file (alpha_beta_fit grammar, as "
                         "comm_probe writes it) pricing the planner and the "
@@ -156,10 +163,13 @@ def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
     or ``fit()`` when `num_iters` is None; summarize."""
     trainer = Trainer(cfg)
     collectives.reset_wire()
-    if num_iters is not None:
-        stats = {**trainer.train(num_iters), **trainer.test()}
-    else:
-        stats = trainer.fit()
+    try:
+        if num_iters is not None:
+            stats = {**trainer.train(num_iters), **trainer.test()}
+        else:
+            stats = trainer.fit()
+    finally:
+        trainer.optimizer.close()
     return {
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
@@ -169,6 +179,8 @@ def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
                       else trainer.plan_decision.plan.name),
         "buckets": (None if trainer.bucket_plan is None
                     else list(trainer.bucket_plan.pairs())),
+        "pipeline": (None if trainer.bucket_plan is None
+                     else trainer.bucket_plan.pipeline),
         "device": str(trainer.device),
         "nworkers": trainer.cfg.nworkers,
         "num_params": trainer.num_params,

@@ -21,6 +21,15 @@ SPARSE_MODES = GTOPK_MODES + ALLGATHER_MODES + HIER_MODES + LAYERWISE_MODES
 # (arXiv:2201.07598); every other mode has one.
 SCHEDULES = ("psum", "tree", "balanced", "allgather")
 
+# Execution orders of a bucketed layer-wise step (parallel.bucketing): a
+# schedule fixes the wire of ONE merge, the pipeline how the B merges
+# interleave with the B selections. 'serial': bucket b+1 selects after
+# bucket b's merge; 'overlap': bucket b+1 selects while bucket b's merge
+# is in flight. Both apply the same values in the same order, so their
+# results are bitwise equal; the spec grammar adds 'auto', which resolves
+# to one of these two.
+PIPELINES = ("serial", "overlap")
+
 
 def default_schedule(mode: str) -> str:
     """The schedule `mode` used before the planner existed, which the

@@ -58,7 +58,10 @@ def bucketize_counts(mag: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     nthr = thr.shape[0]
     ts, order = torch.sort(thr)
     bucket = torch.searchsorted(ts, mag, right=True)  # #{ts <= mag_j}
-    hist = torch.bincount(bucket, minlength=nthr + 1)
+    # An integer scatter of ones: bincount would read the largest id back
+    # to the host to size its output, a sync in the selection.
+    hist = torch.zeros(nthr + 1, dtype=torch.int64, device=mag.device)
+    hist.index_add_(0, bucket, torch.ones_like(bucket))
     ge = hist.flip(0).cumsum(0).flip(0)  # ge[i] = #{bucket >= i}
     counts = torch.empty(nthr, dtype=torch.int32, device=mag.device)
     counts[order] = ge[1:].to(torch.int32)

@@ -4,7 +4,7 @@ gradient exchange over P ranks, then SGD with momentum and weight decay.
 Counterpart of ``gtopkssgd_tpu.optimizer.gtopk_sgd`` in every mode
 (``dense``, ``gtopk``, ``allgather | topk | topkA | topk_allgather``,
 ``gtopk_hier``, ``gtopk_layerwise``), with every option of the JAX
-optimizer but the ``overlap`` pipeline and the telemetry. One step:
+optimizer but the telemetry. One step:
 
 1. ravel every parameter's gradient into one flat f32[N] buffer, in the
    order and layout of the JAX package's ``ravel_pytree`` (``FlatLayout``;
@@ -52,17 +52,33 @@ leaves (a leaf's padding index n_l drops out, it does not spill into the
 next leaf). Under any other ``buckets`` spec (``parallel.bucketing``:
 ``leaf``, an int B, ``auto``) each bucket -- a contiguous run of leaves,
 one slice of the flat buffer -- runs step 4 on its own with k_b =
-ceil(density * n_b) and merges over its own index space [0, n_b), one
-bucket after the other (``pipeline="serial"``). At B = 1 that is the
-flat ``gtopk`` step. The residual stays one flat f32[N] buffer in
-layout order in every mode; ``convert.layerwise_residual`` carries the
-JAX package's per-leaf tuple into it.
+ceil(density * n_b) and merges over its own index space [0, n_b). At
+B = 1 that is the flat ``gtopk`` step. At P > 1 a bucket is two stages,
+the JAX optimizer's: ``_select`` (accumulate, local top-k, zero-out,
+velocity mask, the codec's error fold) and ``_merge`` (the exchange, the
+repair, the averaged scatter), in the plan's order (``pipeline``):
+``serial`` runs bucket b's merge before bucket b+1's selection;
+``overlap`` selects bucket b+1 while bucket b's merge is in flight, one
+merge at a time, on a merge thread the optimizer owns and, on a CUDA
+device, with the selections on its side stream (``_overlap``). Both
+orders run the same ops on the same values: bitwise the same results.
+``auto`` keeps the order whose modeled span is smaller
+(``bucketing.plan_buckets``), with the selection cost ``select_gamma``
+(ms per 1e6 elements: the argument, or the card's fit for the run's
+device and method, ``bucketing.find_select_gamma``; pricing the
+selection without one raises). The residual stays one flat f32[N]
+buffer in layout order in every mode; ``convert.layerwise_residual``
+carries the JAX package's per-leaf tuple into it.
 
 The wire plan (``parallel.planner``): at P > 1, ``comm_plan`` ('auto', or
 a pin: tree | balanced for gtopk and gtopk_layerwise, hier, allgather,
 dense) is decided once at construction (``plan_decision``), priced with
 the comm-model fit (``comm_model_fit``, a path, or the fit committed with
 the port for the process group's backend: gloo or NCCL).
+
+Each unit's selection runs in a ``torch.profiler`` range "select" and
+each gradient exchange in a range "exchange" (``profile_step`` reads
+them).
 
 The residual and the step count live in the optimizer's ``state`` (keys
 "residual" and "count"; under momentum correction the residual is
@@ -71,6 +87,8 @@ The residual and the step count live in the optimizer's ``state`` (keys
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import warnings
 from typing import (Callable, Iterable, List, Optional, Sequence, Tuple,
                     Union)
@@ -78,6 +96,7 @@ from typing import (Callable, Iterable, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from gtopkssgd_tpu_torch.compression import get_compressor
 from gtopkssgd_tpu_torch.modes import (
@@ -92,8 +111,12 @@ from gtopkssgd_tpu_torch.ops import (
     scatter_add_dense,
     select_topk,
 )
+from gtopkssgd_tpu_torch.ops.topk import _resolve_auto
 from gtopkssgd_tpu_torch.parallel.bucketing import (
     buckets_key,
+    device_kind,
+    find_select_gamma,
+    load_select_gamma,
     parse_buckets,
     parse_pipeline,
     plan_buckets,
@@ -143,7 +166,7 @@ def _zero_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x with the entries at idx set to 0; padding indices (n) drop out."""
     n = x.shape[0]
     out = torch.cat([x, x.new_zeros(1)])
-    out[idx.clamp(max=n).long()] = 0.0
+    out.index_fill_(0, idx.clamp(max=n).long(), 0.0)  # no host copy
     return out[:n]
 
 
@@ -220,9 +243,13 @@ class GTopKSGD(torch.optim.SGD):
     ``parallel.codec`` spec (``fp32 | int8[:B] | fp8[:B]``).
     ``hier_ici_size`` is the slice width of ``gtopk_hier``; ``buckets``
     and ``pipeline`` the ``parallel.bucketing`` specs of
-    ``gtopk_layerwise``; ``comm_plan`` a ``parallel.planner`` pin or
-    'auto', priced with the fit at ``comm_model_fit`` (default: the fit
-    committed with the port for ``process_group``'s backend).
+    ``gtopk_layerwise`` (``pipeline='overlap'`` needs buckets);
+    ``comm_plan`` a ``parallel.planner`` pin or 'auto', priced with the
+    fit at ``comm_model_fit`` (default: the fit committed with the port
+    for ``process_group``'s backend) and, for the pipelines' spans, the
+    selection cost ``select_gamma`` (default: the card's fit for the
+    device and method). ``close()`` ends the merge thread of the
+    ``overlap`` order.
     ``_restore_rejected_u`` is an ablation of momentum correction only:
     it gives globally rejected picks their velocity back, which the JAX
     package measured to diverge.
@@ -254,6 +281,7 @@ class GTopKSGD(torch.optim.SGD):
         buckets: Union[str, int] = "concat",
         pipeline: str = "serial",
         comm_model_fit: Optional[str] = None,
+        select_gamma: Optional[float] = None,
         warmup_dense_steps: int = 0,
         momentum_correction: bool = False,
         _restore_rejected_u: bool = False,
@@ -308,7 +336,13 @@ class GTopKSGD(torch.optim.SGD):
                 f"--buckets {buckets!r} only applies to the layerwise mode "
                 f"{LAYERWISE_MODES}; {mode!r} has a single wire set per step "
                 "already (use --buckets concat)")
-        parse_pipeline(pipeline)  # 'serial' is the one order there is
+        pipeline_spec = parse_pipeline(pipeline)
+        if pipeline_spec == "overlap" and bucket_spec == "concat":
+            raise ValueError(
+                f"--pipeline overlap requires a bucketed layerwise wire "
+                f"(--buckets leaf|auto|<int B>); --buckets concat has a "
+                "single select/merge pair per step, so there are no stages "
+                "to overlap (use --pipeline serial or auto)")
         params = list(params)
         self.schedule = lr if callable(lr) else None
         # Under momentum correction the velocity lives before the exchange
@@ -316,6 +350,9 @@ class GTopKSGD(torch.optim.SGD):
         super().__init__(params, lr=float(lr(0)) if callable(lr) else lr,
                          momentum=0.0 if momentum_correction else momentum,
                          weight_decay=weight_decay, nesterov=nesterov)
+        #: The 'overlap' order's merge thread and side stream, made at
+        #: their first use.
+        self._pool = self._side = None
         self.layout = layout or FlatLayout.identity(params)
         if {id(p) for p in self.layout.params} != {id(p) for p in params}:
             raise ValueError("layout does not cover exactly these params")
@@ -334,6 +371,7 @@ class GTopKSGD(torch.optim.SGD):
                 comm_model_fit = committed_fit(
                     dist.get_backend(process_group))
         p, n = self.p, self.layout.n
+        device = params[0].device
         self.ici = hier_ici_size if self.hier and p > 1 else 1
         if p % self.ici:
             raise ValueError(f"axis size {p} not divisible by "
@@ -341,12 +379,25 @@ class GTopKSGD(torch.optim.SGD):
         #: Per-leaf k (gtopk_layerwise) and the bucket partition (a
         #: bucketed gtopk_layerwise), else None.
         self.leaf_ks = self.bucket_plan = None
+        #: ms per 1e6 elements of this run's selection stage: the
+        #: argument, else the card's fit for the device and method (None
+        #: where there is none, and nothing needs it).
+        self.select_gamma = select_gamma
+        if select_gamma is None and not self.dense_mode:
+            method = _resolve_auto(n) if topk_method == "auto" else topk_method
+            self.select_gamma = find_select_gamma(device_kind(device), method)
+            prices_selection = bucket_spec != "concat" and (
+                pipeline_spec == "auto"
+                or (pipeline_spec == "overlap" and bucket_spec != "leaf"))
+            if self.select_gamma is None and prices_selection:
+                load_select_gamma(device_kind(device), method)  # raises
         if self.layerwise:
             self.leaf_ks = [k_for_density(s, density)
                             for s in self.layout.sizes]
             self.bucket_plan = plan_buckets(
                 tuple(self.layout.sizes), density, buckets=bucket_spec, p=p,
-                codec=self.codec.name, mode=mode, fit_path=comm_model_fit)
+                codec=self.codec.name, mode=mode, fit_path=comm_model_fit,
+                pipeline=pipeline_spec, select_gamma=self.select_gamma)
         #: The wire plan at P > 1 (parallel.planner.CommPlan) and the
         #: decision that chose it, else None.
         self.plan_decision = self.plan = None
@@ -359,9 +410,10 @@ class GTopKSGD(torch.optim.SGD):
                 mode, p=p, n=n, k=k, codec=self.codec.name,
                 ici_size=self.ici, pin=comm_plan, fit_path=comm_model_fit,
                 bucketing=buckets_key(bucket_spec),
-                buckets=bplan.pairs() if bplan else None)
+                buckets=bplan.pairs() if bplan else None,
+                pipeline=bplan.pipeline if bplan else "serial",
+                select_gamma=self.select_gamma)
             self.plan = self.plan_decision.plan
-        device = params[0].device
         residual = self.compressor.init_residual(n, device)
         if momentum_correction:
             residual = {"v": residual,
@@ -412,11 +464,14 @@ class GTopKSGD(torch.optim.SGD):
         if self.clip_grad_norm is not None:
             flat = self._clip(flat)
         if self.ici > 1:
-            flat = ici_dense_psum(flat, ici_size=self.ici, group=self.group)
+            with record_function("exchange"):
+                flat = ici_dense_psum(flat, ici_size=self.ici,
+                                      group=self.group)
         if self.dense_mode:
             if p == 1:
                 return flat
-            return _mean(dense_allreduce(flat, group=self.group), p)
+            with record_function("exchange"):
+                return _mean(dense_allreduce(flat, group=self.group), p)
         state = self.state["residual"]
         u = None
         if self.correction:
@@ -427,8 +482,9 @@ class GTopKSGD(torch.optim.SGD):
         if self.state["count"] < self.warmup_dense_steps:
             # Dense warm-up: nothing is selected, so nothing is masked. A
             # slice sum already counts each gradient ici times.
-            reduced = src if p == 1 else dense_allreduce(src,
-                                                         group=self.group)
+            with record_function("exchange"):
+                reduced = src if p == 1 else dense_allreduce(
+                    src, group=self.group)
             update, residual, u_out = _mean(reduced, p * self.ici), res_in, u
         elif self.layerwise and self.bucket_plan is None and p > 1:
             update, residual, u_out = self._concat(src, res_in, u)
@@ -441,11 +497,16 @@ class GTopKSGD(torch.optim.SGD):
     def _by_unit(self, src: torch.Tensor, res_in: torch.Tensor,
                  u: Optional[torch.Tensor]):
         """(update, residual, u) of a sparse step that selects and
-        exchanges each unit (``_units``) on its own."""
+        exchanges each unit (``_units``) on its own, in the bucket plan's
+        execution order."""
         units = self._units()
-        outs = [self._sparse(src[o:o + s], res_in[o:o + s],
-                             None if u is None else u[o:o + s])
-                for o, s in units]
+        if (self.p > 1 and len(units) > 1
+                and self.bucket_plan.pipeline == "overlap"):
+            outs = self._overlap(units, src, res_in, u)
+        else:
+            outs = [self._sparse(src[o:o + s], res_in[o:o + s],
+                                 None if u is None else u[o:o + s])
+                    for o, s in units]
         if len(outs) == 1 and self.bucket_plan is None:
             update, residual, u_out, info = outs[0]
             self.last_keep = info.get("keep")
@@ -469,33 +530,59 @@ class GTopKSGD(torch.optim.SGD):
         """(update, residual, u, info) of a sparse step over the vector
         `src` (a unit), k = ceil(density * its length); `info` holds the
         keep mask, or the local and global sets or the union."""
-        comp, p, n = self.compressor, self.p, src.shape[0]
-        acc = comp.accumulate(src, res_in)
-        if p == 1:
+        if self.p > 1:
+            return self._merge(self._select(src, res_in, u))
+        comp = self.compressor
+        with record_function("select"):
+            acc = comp.accumulate(src, res_in)
             keep, residual, _ = comp.compress_by_threshold(
                 acc, grad=src, residual=res_in)
             if u is not None:  # every local pick is delivered at P = 1
                 u = torch.where(keep, torch.zeros_like(u), u)
-            return acc - residual, residual, u, {"keep": keep}
-        vals, idx, residual = comp.compress(acc, grad=src, residual=res_in)
-        if self.codec.lossy and self.mode != "topk":
-            # Ship the roundtripped values and keep their error: repair then
-            # restores the original value of a rejected pick. Mode 'topk'
-            # ships the exact picks (every one lands), as in the JAX package.
-            vq = roundtrip_aligned(self.codec, vals, idx, n=n)
-            residual = comp.fold_wire_error(residual, idx, vals - vq)
-            vals = vq
-        # Momentum factor masking at the local picks, delivered or not.
-        u_out = None if u is None else _zero_at(u, idx)
-        result, gidx, needs_repair = sparse_allreduce(
-            self.mode, vals, idx, k=comp.k(n), n=n, group=self.group,
-            ici_size=self.ici, codec=self.codec, plan=self.plan)
+        return acc - residual, residual, u, {"keep": keep}
+
+    def _select(self, src: torch.Tensor, res_in: torch.Tensor,
+                u: Optional[torch.Tensor]) -> dict:
+        """Stage 1 of a unit at P > 1 (the JAX optimizer's ``_select``):
+        accumulate, select the local top-k, zero the picks out of the
+        residual and the velocity, and fold a lossy codec's round-trip
+        error into the residual. Returns the stage's tensors."""
+        comp, n = self.compressor, src.shape[0]
+        with record_function("select"):
+            acc = comp.accumulate(src, res_in)
+            vals, idx, residual = comp.compress(acc, grad=src,
+                                                residual=res_in)
+            if self.codec.lossy and self.mode != "topk":
+                # Ship the roundtripped values and keep their error: repair
+                # then restores the original value of a rejected pick. Mode
+                # 'topk' ships the exact picks (every one lands), as in the
+                # JAX package.
+                vq = roundtrip_aligned(self.codec, vals, idx, n=n)
+                residual = comp.fold_wire_error(residual, idx, vals - vq)
+                vals = vq
+            # Momentum factor masking at the local picks, delivered or not.
+            u_out = None if u is None else _zero_at(u, idx)
+        return {"vals": vals, "idx": idx, "res": residual, "u": u_out,
+                "u_in": u}
+
+    def _merge(self, st: dict):
+        """Stage 2 of a unit (the JAX optimizer's ``_merge``): the
+        exchange, the repair of rejected picks and the averaged dense
+        update. Returns (update, residual, u, info)."""
+        comp, p = self.compressor, self.p
+        vals, idx, residual, u_out = st["vals"], st["idx"], st["res"], st["u"]
+        n = residual.shape[0]
+        with record_function("exchange"):
+            result, gidx, needs_repair = sparse_allreduce(
+                self.mode, vals, idx, k=comp.k(n), n=n, group=self.group,
+                ici_size=self.ici, codec=self.codec, plan=self.plan)
         info = {"local": (vals, idx)}
         if not needs_repair:  # the allgather union: every pick lands
             info["union"] = result
             return _mean(result, p), residual, u_out, info
         info["global"] = (result, gidx)
         residual = comp.repair(residual, vals, idx, gidx)
+        u = st["u_in"]
         if u is not None and self.restore_rejected_u:
             pos = idx.clamp(max=n).long()
             rejected = ~membership_mask(idx, gidx)
@@ -505,6 +592,81 @@ class GTopKSGD(torch.optim.SGD):
         return (_mean(scatter_add_dense(n, gidx, result), p), residual,
                 u_out, info)
 
+    def _overlap(self, units, src: torch.Tensor, res_in: torch.Tensor,
+                 u: Optional[torch.Tensor]) -> list:
+        """The units' (update, residual, u, info) under the 'overlap'
+        order, the JAX optimizer's double-buffered loop: unit b+1 selects
+        while unit b's merge is in flight, one merge at a time. The merges
+        run one after the other on the optimizer's merge thread, which is
+        the only thread that drives the process group while they run; on
+        a CUDA device the selections run on the optimizer's side stream,
+        which first waits for the gradient (the current stream), and each
+        merge waits for its selection's event. The ops and their values are
+        those of the 'serial' order, so the results are bitwise equal."""
+        pool = self._merge_pool()
+        main = side = None
+        if src.is_cuda:
+            main = torch.cuda.current_stream(src.device)
+            side = self._side_stream(src.device)
+            side.wait_stream(main)
+            for t in (src, res_in, u):
+                if t is not None:  # read on the side stream
+                    t.record_stream(side)
+
+        def select(b: int) -> dict:
+            o, s = units[b]
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                st = self._select(src[o:o + s], res_in[o:o + s],
+                                  None if u is None else u[o:o + s])
+            if side is not None:
+                st["ready"] = torch.cuda.Event()
+                st["ready"].record(side)
+                for t in (st["vals"], st["idx"], st["res"], st["u"]):
+                    if t is not None:  # made on the side stream, read on main
+                        t.record_stream(main)
+            return st
+
+        def merge(st: dict):
+            if main is None:
+                with torch.no_grad():
+                    return self._merge(st)
+            with torch.no_grad(), torch.cuda.device(main.device), \
+                    torch.cuda.stream(main):
+                main.wait_event(st["ready"])
+                return self._merge(st)
+
+        outs = []
+        nxt = select(0)
+        for b in range(len(units)):
+            future = pool.submit(merge, nxt)
+            try:
+                nxt = select(b + 1) if b + 1 < len(units) else None
+            finally:
+                outs.append(future.result())
+        return outs
+
+    def _merge_pool(self) -> concurrent.futures.ThreadPoolExecutor:
+        """The one thread the 'overlap' order merges on, made at its first
+        use; ``close()`` ends it."""
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="gtopk-merge")
+        return self._pool
+
+    def _side_stream(self, device: torch.device) -> torch.cuda.Stream:
+        """The CUDA stream the 'overlap' order selects on, made at its
+        first use (creating it raises where the device cannot)."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(device)
+        return self._side
+
+    def close(self) -> None:
+        """End the merge thread, if the 'overlap' order started one."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
     def _concat(self, src: torch.Tensor, res_in: torch.Tensor,
                 u: Optional[torch.Tensor]):
         """(update, residual, u) of gtopk_layerwise under 'concat' at P >
@@ -512,27 +674,30 @@ class GTopKSGD(torch.optim.SGD):
         global index space."""
         comp, p, n = self.compressor, self.p, src.shape[0]
         lay = self.layout
-        acc = src + res_in
-        sel = [select_topk(src[o:o + s], kl, comp.method,
-                           residual=res_in[o:o + s])
-               for o, s, kl in zip(lay.offsets, lay.sizes, self.leaf_ks)]
-        vals = torch.cat([v for v, _ in sel])
-        idx = torch.cat([(i + o).to(torch.int32)
-                         for (_, i), o in zip(sel, lay.offsets)])
-        # Where each pick sits in the flat buffer; a leaf's padding index
-        # (its size) maps to n and drops out.
-        pos = torch.cat([torch.where(i < s, i.long() + o, n)
-                         for (_, i), o, s in zip(sel, lay.offsets,
-                                                 lay.sizes)])
-        residual = _zero_at(acc, pos)
-        u_out = None if u is None else _zero_at(u, pos)
-        if self.codec.lossy:
-            vq = roundtrip_aligned(self.codec, vals, idx, n=n)
-            residual = _add_at(residual, pos, vals - vq)
-            vals = vq
-        gvals, gidx, _ = sparse_allreduce(
-            self.mode, vals, idx, k=sum(self.leaf_ks), n=n,
-            group=self.group, codec=self.codec, plan=self.plan)
+        with record_function("select"):
+            acc = src + res_in
+            sel = [select_topk(src[o:o + s], kl, comp.method,
+                               residual=res_in[o:o + s])
+                   for o, s, kl in zip(lay.offsets, lay.sizes,
+                                       self.leaf_ks)]
+            vals = torch.cat([v for v, _ in sel])
+            idx = torch.cat([(i + o).to(torch.int32)
+                             for (_, i), o in zip(sel, lay.offsets)])
+            # Where each pick sits in the flat buffer; a leaf's padding
+            # index (its size) maps to n and drops out.
+            pos = torch.cat([torch.where(i < s, i.long() + o, n)
+                             for (_, i), o, s in zip(sel, lay.offsets,
+                                                     lay.sizes)])
+            residual = _zero_at(acc, pos)
+            u_out = None if u is None else _zero_at(u, pos)
+            if self.codec.lossy:
+                vq = roundtrip_aligned(self.codec, vals, idx, n=n)
+                residual = _add_at(residual, pos, vals - vq)
+                vals = vq
+        with record_function("exchange"):
+            gvals, gidx, _ = sparse_allreduce(
+                self.mode, vals, idx, k=sum(self.leaf_ks), n=n,
+                group=self.group, codec=self.codec, plan=self.plan)
         self.last_local, self.last_global = (vals, idx), (gvals, gidx)
         rejected = ~membership_mask(idx, gidx)
         residual = _add_at(residual, pos, torch.where(rejected, vals, 0.0))

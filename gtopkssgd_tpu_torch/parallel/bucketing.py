@@ -1,5 +1,5 @@
-"""Byte-balanced buckets of the layer-wise wire (``--buckets``), under the
-``serial`` execution order (``--pipeline``).
+"""Byte-balanced buckets of the layer-wise wire (``--buckets``) and their
+execution order (``--pipeline``).
 
 Counterpart of ``gtopkssgd_tpu/parallel/bucketing.py``. The leaves (the
 parameters in flat order) are cut into B contiguous buckets; each bucket
@@ -18,18 +18,39 @@ smallest, then to the earliest cut; under ``auto`` a larger B wins ties.
 Spec grammar (``--buckets``): ``concat`` (per-leaf selection, one merge
 of the concatenated sets over the global index space; no ``BucketPlan``),
 ``leaf`` (B = L), ``<int B>`` (B pinned, cuts placed by the DP) and
-``auto`` (the DP picks B too). ``--pipeline`` takes ``serial``: bucket
-b+1 selects after bucket b's merge. ``overlap`` and ``auto`` are not in
-the port yet, so a plan carries no execution order of its own: it runs
-``PIPELINE``.
+``auto`` (the DP picks B too).
+
+Execution order (``--pipeline``, ``modes.PIPELINES``): under ``serial`` a
+step pays sum_b (T_select_b + T_merge_b); under ``overlap`` bucket b+1
+selects while bucket b's merge is in flight, and the exposed span is
+
+    T_select_1 + sum_{j=2..B} max(T_select_j, T_merge_{j-1}) + T_merge_B
+
+(``pipeline_span_ms``). That span is not additive over buckets, so the DP
+priced under ``overlap`` minimizes the per-stage surrogate sum_b
+max(T_select_b, T_merge_b) (``stage_cost_ms``); ``auto`` solves the DP
+under both orders and keeps the one whose true span is smaller, ``serial``
+on ties. Selection is priced linearly, T_select = gamma * n / 1e6 ms
+(``select_cost_ms``), so under ``serial`` it is the same for every
+partition and the serial objective is the merge cost alone.
+
+gamma is a measurement of the card: ``select_probe`` times the port's own
+selection stage for each method and writes the fit beside this module
+(``select_fit.json``, by device and method); ``load_select_gamma`` reads
+it and raises for a device or method it does not hold. The pricing functions
+take gamma as an argument, never a default.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 from gtopkssgd_tpu_torch.ops.topk import k_for_density
 from gtopkssgd_tpu_torch.parallel.collectives import (
@@ -39,24 +60,75 @@ from gtopkssgd_tpu_torch.parallel.collectives import (
 
 BUCKETS_DEFAULT = "concat"
 _WORD_SPECS = ("concat", "leaf", "auto")
-#: The one execution order the port runs.
-PIPELINE = "serial"
-_LATER_PIPELINES = ("overlap", "auto")
-_LATER_ITEM = "ROADMAP.md section 1, item 5"
+PIPELINE_DEFAULT = "serial"
+_PIPELINE_SPECS = ("serial", "overlap", "auto")
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+#: The selection-cost fit ``select_probe`` measured on the card.
+SELECT_FIT = os.path.join(_HERE, "select_fit.json")
+SELECT_PROBE = "python -m gtopkssgd_tpu_torch.select_probe"
+
+
+def device_kind(device) -> str:
+    """The name a selection fit is keyed by: the CUDA card's name, or the
+    device type ('cpu')."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+def find_select_gamma(device: str, method: str,
+                      fit_path: Optional[str] = None) -> Optional[float]:
+    """gamma (ms per 1e6 elements) of `method`'s selection stage on
+    `device` (a ``device_kind``), from `fit_path` or the committed fit;
+    None when the file holds no entry for them."""
+    path = fit_path or SELECT_FIT
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        entries = json.load(fh).get("fits", [])
+    for e in entries:
+        if e.get("device") == device and e.get("method") == method:
+            return float(e["gamma_ms_per_melem"])
+    return None
+
+
+def load_select_gamma(device: str, method: str,
+                      fit_path: Optional[str] = None) -> float:
+    """``find_select_gamma``, raising ValueError (naming the probe) where
+    there is no entry."""
+    gamma = find_select_gamma(device, method, fit_path)
+    if gamma is None:
+        raise ValueError(
+            f"no selection-cost fit for method {method!r} on {device!r} in "
+            f"{fit_path or SELECT_FIT}: measure one on that device with "
+            f"{SELECT_PROBE}, or pass select_gamma to the optimizer")
+    return gamma
 
 
 def parse_pipeline(spec) -> str:
-    """'serial'; 'overlap' and 'auto' are refused by their ROADMAP item,
-    anything else as an invalid spec."""
+    """'serial' | 'overlap' | 'auto'; ValueError on anything else."""
     if isinstance(spec, str):
         word = spec.strip().lower()
-        if word == "serial":
+        if word in _PIPELINE_SPECS:
             return word
-        if word in _LATER_PIPELINES:
-            raise ValueError(f"--pipeline {word!r} is not in the port yet, "
-                             f"{_LATER_ITEM}; it has 'serial'")
     raise ValueError(
         f"invalid --pipeline spec {spec!r}; grammar: serial | overlap | auto")
+
+
+def _gamma(select_gamma: Optional[float]) -> float:
+    if select_gamma is None:
+        raise ValueError(
+            "pricing the selection needs its cost: pass select_gamma (ms "
+            f"per 1e6 elements), measured with {SELECT_PROBE}")
+    return float(select_gamma)
+
+
+def select_cost_ms(n_elems: int, select_gamma: float) -> float:
+    """Modeled ms of one bucket's selection over n_elems: gamma * n / 1e6,
+    linear in n by design."""
+    return _gamma(select_gamma) * float(n_elems) / 1e6
 
 
 def parse_buckets(spec) -> object:
@@ -94,12 +166,13 @@ def buckets_key(spec) -> str:
 class BucketPlan:
     """Bucket b covers leaves ``boundaries[b]:boundaries[b+1]`` (B + 1
     cuts, 0 first, L last) of ``leaf_sizes``; ``ks`` are the buckets' wire
-    k."""
+    k; ``pipeline`` the resolved execution order (never 'auto')."""
 
     boundaries: Tuple[int, ...]
     leaf_sizes: Tuple[int, ...]
     ks: Tuple[int, ...]
     spec: str = "auto"
+    pipeline: str = PIPELINE_DEFAULT
 
     def __post_init__(self):
         L = len(self.leaf_sizes)
@@ -110,6 +183,10 @@ class BucketPlan:
                 f"boundaries {b} is not a partition of {L} leaves")
         if len(self.ks) != len(b) - 1:
             raise ValueError(f"{len(self.ks)} ks for {len(b) - 1} buckets")
+        if self.pipeline not in ("serial", "overlap"):
+            raise ValueError(
+                f"BucketPlan.pipeline must be a resolved execution order "
+                f"(serial|overlap), got {self.pipeline!r}")
 
     @property
     def n_buckets(self) -> int:
@@ -138,7 +215,7 @@ class BucketPlan:
             "bucket_boundaries": list(self.boundaries),
             "bucket_sizes": list(self.sizes),
             "bucket_ks": list(self.ks),
-            "pipeline": PIPELINE,
+            "pipeline": self.pipeline,
         }
 
     @staticmethod
@@ -155,6 +232,7 @@ class BucketPlan:
             leaf_sizes=tuple(int(s) for s in sizes),
             ks=tuple(int(k) for k in ks),
             spec=str(manifest.get("buckets", "auto")),
+            pipeline=str(manifest.get("pipeline", PIPELINE_DEFAULT)),
         )
 
 
@@ -181,21 +259,63 @@ def bucket_cost_ms(n_b: int, k_b: int, *, p: int, codec="fp32",
             + wire / beta_bytes_per_ms)
 
 
+def stage_cost_ms(n_b: int, k_b: int, *, pipeline: str = PIPELINE_DEFAULT,
+                  p: int, codec="fp32", schedule: Optional[str] = None,
+                  alpha_ms: float, beta_gbps: float,
+                  mode: str = "gtopk_layerwise",
+                  select_gamma: Optional[float] = None) -> float:
+    """The DP's term for one bucket: its merge cost under 'serial' (the
+    selection costs the same for every partition there), max(T_select,
+    T_merge) under 'overlap'."""
+    merge = bucket_cost_ms(n_b, k_b, p=p, codec=codec, schedule=schedule,
+                           alpha_ms=alpha_ms, beta_gbps=beta_gbps, mode=mode)
+    if pipeline == "overlap":
+        return max(select_cost_ms(n_b, select_gamma), merge)
+    return merge
+
+
 def partition_cost_ms(plan: BucketPlan, *, p: int, codec="fp32",
                       schedule: Optional[str] = None, alpha_ms: float,
-                      beta_gbps: float,
-                      mode: str = "gtopk_layerwise") -> float:
-    """The DP's objective for `plan`: its buckets' merge costs, summed."""
-    return sum(bucket_cost_ms(n_b, k_b, p=p, codec=codec, schedule=schedule,
-                              alpha_ms=alpha_ms, beta_gbps=beta_gbps,
-                              mode=mode)
+                      beta_gbps: float, mode: str = "gtopk_layerwise",
+                      pipeline: str = PIPELINE_DEFAULT,
+                      select_gamma: Optional[float] = None) -> float:
+    """The DP's objective for `plan` under `pipeline`: its buckets' stage
+    costs, summed."""
+    return sum(stage_cost_ms(n_b, k_b, pipeline=pipeline, p=p, codec=codec,
+                             schedule=schedule, alpha_ms=alpha_ms,
+                             beta_gbps=beta_gbps, mode=mode,
+                             select_gamma=select_gamma)
                for n_b, k_b in plan.pairs())
+
+
+def pipeline_span_ms(plan: BucketPlan, *, p: int, codec="fp32",
+                     schedule: Optional[str] = None, alpha_ms: float,
+                     beta_gbps: float, select_gamma: float,
+                     mode: str = "gtopk_layerwise",
+                     pipeline: Optional[str] = None) -> float:
+    """The modeled span of a step's select and merge chain under
+    `pipeline` (default: the plan's own): sum_b (T_select_b + T_merge_b)
+    under 'serial'; under 'overlap' the first selection, then each
+    selection against the previous merge, then the last merge."""
+    pipe = plan.pipeline if pipeline is None else pipeline
+    sel = [select_cost_ms(n_b, select_gamma) for n_b in plan.sizes]
+    merge = [bucket_cost_ms(n_b, k_b, p=p, codec=codec, schedule=schedule,
+                            alpha_ms=alpha_ms, beta_gbps=beta_gbps,
+                            mode=mode)
+             for n_b, k_b in plan.pairs()]
+    if pipe != "overlap":
+        return sum(sel) + sum(merge)
+    span = sel[0]
+    for j in range(1, len(sel)):
+        span += max(sel[j], merge[j - 1])
+    return span + merge[-1]
 
 
 @functools.lru_cache(maxsize=64)
 def _dp_tables(leaf_sizes: Tuple[int, ...], density: float, p: int,
                codec_name: str, schedule: Optional[str], alpha_ms: float,
-               beta_gbps: float, mode: str):
+               beta_gbps: float, mode: str, pipeline: str,
+               select_gamma: Optional[float]):
     """dp[b][i] = the least (cost ms, largest bucket) of cutting the first
     i leaves into exactly b buckets, arg[b][i] the cut realizing it, and
     seg(j, i) a bucket of leaves j..i-1's (cost, size)."""
@@ -208,9 +328,10 @@ def _dp_tables(leaf_sizes: Tuple[int, ...], density: float, p: int,
     def seg(j: int, i: int) -> Tuple[float, int]:
         n_b = prefix[i] - prefix[j]
         k_b = k_for_density(n_b, density)
-        return (bucket_cost_ms(n_b, k_b, p=p, codec=codec_name,
-                               schedule=schedule, alpha_ms=alpha_ms,
-                               beta_gbps=beta_gbps, mode=mode), n_b)
+        return (stage_cost_ms(n_b, k_b, pipeline=pipeline, p=p,
+                              codec=codec_name, schedule=schedule,
+                              alpha_ms=alpha_ms, beta_gbps=beta_gbps,
+                              mode=mode, select_gamma=select_gamma), n_b)
 
     INF = (math.inf, 0)
     dp: List[List[Tuple[float, int]]] = [[INF] * (L + 1)
@@ -245,18 +366,23 @@ def _backtrack(arg, b: int, L: int) -> Tuple[int, ...]:
 def optimal_boundaries(leaf_sizes: Sequence[int], density: float, *,
                        n_buckets: Optional[int], p: int, codec="fp32",
                        schedule: Optional[str] = None, alpha_ms: float,
-                       beta_gbps: float,
-                       mode: str = "gtopk_layerwise") -> Tuple[int, ...]:
-    """The cost-least contiguous partition into `n_buckets` buckets (at
-    most L), or into any number when it is None (a larger B wins ties)."""
+                       beta_gbps: float, mode: str = "gtopk_layerwise",
+                       pipeline: str = PIPELINE_DEFAULT,
+                       select_gamma: Optional[float] = None
+                       ) -> Tuple[int, ...]:
+    """The least-cost contiguous partition under `pipeline`'s pricing into
+    `n_buckets` buckets (at most L), or into any number when it is None
+    (a larger B wins ties)."""
     sizes = tuple(int(s) for s in leaf_sizes)
     L = len(sizes)
     if L == 0:
         raise ValueError("cannot bucket zero leaves")
+    # Only the overlap pricing reads gamma.
+    select_gamma = _gamma(select_gamma) if pipeline == "overlap" else None
     codec_name = getattr(codec, "name", codec)
     dp, arg, _ = _dp_tables(sizes, float(density), int(p), str(codec_name),
                             schedule, float(alpha_ms), float(beta_gbps),
-                            mode)
+                            mode, str(pipeline), select_gamma)
     if n_buckets is not None:
         return _backtrack(arg, max(1, min(int(n_buckets), L)), L)
     best_b, best = L, dp[L][L]
@@ -272,37 +398,97 @@ def plan_buckets(leaf_sizes: Sequence[int], density: float, *,
                  alpha_ms: Optional[float] = None,
                  beta_gbps: Optional[float] = None,
                  fit_path: Optional[str] = None,
-                 mode: str = "gtopk_layerwise") -> Optional[BucketPlan]:
+                 mode: str = "gtopk_layerwise",
+                 pipeline: str = PIPELINE_DEFAULT,
+                 select_gamma: Optional[float] = None
+                 ) -> Optional[BucketPlan]:
     """The ``BucketPlan`` of a ``--buckets`` spec over `leaf_sizes`, or
     None for 'concat'. 'leaf' is pure structure; an int B or 'auto' is
     priced with `alpha_ms` and `beta_gbps`, or else with the planner's
     fit (``planner.planner_inputs(fit_path)``); at P = 1 no merge costs
-    anything and no fit is read."""
+    anything and no fit is read. `pipeline` 'serial' or 'overlap' is
+    pinned (the DP prices under it); 'auto' solves under both and keeps
+    the plan with the smaller ``pipeline_span_ms``, 'serial' on ties.
+    Pricing a selection (an 'overlap' DP, or 'auto') needs
+    `select_gamma`."""
     spec = parse_buckets(buckets)
     if spec == "concat":
         return None
+    pipe = parse_pipeline(pipeline)
     sizes = tuple(int(s) for s in leaf_sizes)
     L = len(sizes)
     if L == 0:
         raise ValueError("cannot bucket zero leaves")
+    if pipe == "auto" or (pipe == "overlap" and spec != "leaf"):
+        select_gamma = _gamma(select_gamma)
 
     def per_bucket_ks(bounds: Tuple[int, ...]) -> Tuple[int, ...]:
         return tuple(k_for_density(sum(sizes[lo:hi]), density)
                      for lo, hi in zip(bounds, bounds[1:]))
 
+    if spec != "leaf" or pipe == "auto":
+        if p <= 1:
+            alpha_ms, beta_gbps = 0.0, 1.0  # every merge costs 0 at P = 1
+        elif alpha_ms is None or beta_gbps is None:
+            from gtopkssgd_tpu_torch.parallel.planner import planner_inputs
+            inputs = planner_inputs(fit_path)
+            alpha_ms = inputs["alpha_ms"] if alpha_ms is None else alpha_ms
+            beta_gbps = inputs["beta_gbps"] if beta_gbps is None else beta_gbps
+
+    def span(plan: BucketPlan) -> float:
+        return pipeline_span_ms(plan, p=p, codec=codec, schedule=schedule,
+                                alpha_ms=alpha_ms, beta_gbps=beta_gbps,
+                                select_gamma=select_gamma, mode=mode)
+
     if spec == "leaf":
         bounds = tuple(range(L + 1))
-        return BucketPlan(bounds, sizes, per_bucket_ks(bounds), spec="leaf")
-    if p <= 1:
-        alpha_ms, beta_gbps = 0.0, 1.0  # every merge costs 0 at P = 1
-    elif alpha_ms is None or beta_gbps is None:
-        from gtopkssgd_tpu_torch.parallel.planner import planner_inputs
-        inputs = planner_inputs(fit_path)
-        alpha_ms = inputs["alpha_ms"] if alpha_ms is None else alpha_ms
-        beta_gbps = inputs["beta_gbps"] if beta_gbps is None else beta_gbps
-    bounds = optimal_boundaries(
-        sizes, density, n_buckets=None if spec == "auto" else int(spec),
-        p=p, codec=codec, schedule=schedule, alpha_ms=alpha_ms,
-        beta_gbps=beta_gbps, mode=mode)
-    return BucketPlan(bounds, sizes, per_bucket_ks(bounds),
-                      spec=buckets_key(spec))
+        plans = [BucketPlan(bounds, sizes, per_bucket_ks(bounds),
+                            spec="leaf", pipeline=pp)
+                 for pp in (("serial", "overlap") if pipe == "auto"
+                            else (pipe,))]
+        return min(plans, key=span) if len(plans) > 1 else plans[0]
+
+    def solve(pp: str) -> BucketPlan:
+        bounds = optimal_boundaries(
+            sizes, density, n_buckets=None if spec == "auto" else int(spec),
+            p=p, codec=codec, schedule=schedule, alpha_ms=alpha_ms,
+            beta_gbps=beta_gbps, mode=mode, pipeline=pp,
+            select_gamma=select_gamma)
+        return BucketPlan(bounds, sizes, per_bucket_ks(bounds),
+                          spec=buckets_key(spec), pipeline=pp)
+
+    if pipe != "auto":
+        return solve(pipe)
+    # min() keeps the first on ties: 'serial'.
+    return min((solve("serial"), solve("overlap")), key=span)
+
+
+def describe(plan: BucketPlan, *, p: int, codec="fp32",
+             schedule: Optional[str] = None, alpha_ms: float,
+             beta_gbps: float, select_gamma: float,
+             mode: str = "gtopk_layerwise") -> List[dict]:
+    """One row a bucket: leaf range, elements, wire k, modeled bytes, and
+    the modeled ms of its merge, its selection and the stage term the DP
+    priced under the plan's order."""
+    rows = []
+    for b, (n_b, k_b) in enumerate(plan.pairs()):
+        lo, hi = plan.leaf_range(b)
+        merge_ms = bucket_cost_ms(
+            n_b, k_b, p=p, codec=codec, schedule=schedule,
+            alpha_ms=alpha_ms, beta_gbps=beta_gbps, mode=mode)
+        select_ms = select_cost_ms(n_b, select_gamma)
+        rows.append({
+            "bucket": b,
+            "leaves": f"{lo}:{hi}",
+            "n_leaves": hi - lo,
+            "elems": n_b,
+            "k": k_b,
+            "wire_bytes": comm_bytes_per_step(
+                mode, n_b, k_b, p, codec=getattr(codec, "name", codec),
+                schedule=schedule),
+            "modeled_ms": merge_ms,
+            "select_ms": select_ms,
+            "stage_ms": (max(select_ms, merge_ms)
+                         if plan.pipeline == "overlap" else merge_ms),
+        })
+    return rows

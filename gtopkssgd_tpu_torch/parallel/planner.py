@@ -2,9 +2,9 @@
 
 Counterpart of ``gtopkssgd_tpu/parallel/planner.py``. A mode fixes what
 set is applied and the repair contract; a ``CommPlan`` fixes the wire --
-the schedule, the in-slice phase, the codec, the slice width and the
-bucketing (the execution order is ``bucketing.PIPELINE``, the one the
-port runs). ``build_decision`` scores every plan
+the schedule, the in-slice phase, the codec, the slice width, the
+bucketing and the buckets' execution order. ``build_decision`` scores
+every plan
 that realizes the mode with the alpha-beta model of
 ``parallel.comm_model`` and keeps the cheapest; the historical schedule
 (``modes.default_schedule``) comes first and wins ties. A pin
@@ -14,7 +14,11 @@ planner never swaps a mode for another.
 
 The constants come from ``comm_model.load_fit``: the fit the port
 measured on the card, or a file given as ``fit_path``; explicit
-arguments override them.
+arguments override them. Each candidate's record also holds the span of
+the step's select and merge chain under either execution order
+(``bucketing.pipeline_span_ms``), priced with the selection cost the
+caller passes (``bucketing.select_gamma`` reads the card's fit); without
+one the spans are None, not measured.
 """
 
 from __future__ import annotations
@@ -40,9 +44,10 @@ class CommPlan:
     """One wire realization of a mode: ``schedule`` (modes.SCHEDULES)
     across ranks or slices, ``intra`` the in-slice phase ('psum' for the
     hierarchical mode, 'none' otherwise), the sparse ``codec``, the slice
-    width ``ici_size`` and the layer-wise ``bucketing``
-    (``bucketing.buckets_key``). ``name`` is what ``--comm-plan``
-    pins."""
+    width ``ici_size``, the layer-wise ``bucketing``
+    (``bucketing.buckets_key``) and the resolved execution order of its
+    buckets, ``pipeline`` (``modes.PIPELINES``; ``plan_buckets`` resolves
+    'auto'). ``name`` is what ``--comm-plan`` pins."""
 
     name: str
     mode: str
@@ -51,6 +56,7 @@ class CommPlan:
     codec: str = "fp32"
     ici_size: int = 1
     bucketing: str = "concat"
+    pipeline: str = "serial"
 
     @property
     def wire_mode(self) -> str:
@@ -63,9 +69,10 @@ def _norm_mode(mode: Optional[str]) -> str:
 
 
 def candidate_plans(mode: Optional[str], *, codec: str = "fp32",
-                    ici_size: int = 1,
-                    bucketing: str = "concat") -> Tuple[CommPlan, ...]:
-    """Every plan that realizes `mode`, the historical one first."""
+                    ici_size: int = 1, bucketing: str = "concat",
+                    pipeline: str = "serial") -> Tuple[CommPlan, ...]:
+    """Every plan that realizes `mode`, the historical one first; the
+    gtopk family's carry `bucketing` and `pipeline`."""
     m = _norm_mode(mode)
     if m in DENSE_MODES:
         return (CommPlan("dense", m, "psum", "none", codec, 1),)
@@ -75,9 +82,10 @@ def candidate_plans(mode: Optional[str], *, codec: str = "fp32",
         return (CommPlan("hier", m, "tree", "psum", codec,
                          max(1, ici_size)),)
     if m in GTOPK_MODES or m in LAYERWISE_MODES:
-        return (CommPlan("tree", m, "tree", "none", codec, 1, bucketing),
+        return (CommPlan("tree", m, "tree", "none", codec, 1, bucketing,
+                         pipeline),
                 CommPlan("balanced", m, "balanced", "none", codec, 1,
-                         bucketing))
+                         bucketing, pipeline))
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -135,7 +143,7 @@ class PlanDecision:
             "mode": self.plan.mode,
             "intra": self.plan.intra,
             "bucketing": self.plan.bucketing,
-            "pipeline": _bucketing.PIPELINE,
+            "pipeline": self.plan.pipeline,
             "pin": self.pin,
             "plan_is_default": float(self.plan.schedule == historical),
             "candidates": list(self.candidates),
@@ -152,15 +160,19 @@ def build_decision(mode: Optional[str], *, p: int, n: int, k: int,
                    ici_gbps: Optional[float] = None,
                    bucketing: str = "concat",
                    buckets: Optional[Tuple[Tuple[int, int], ...]] = None,
-                   fit_source: Optional[str] = None) -> PlanDecision:
+                   fit_source: Optional[str] = None,
+                   pipeline: str = "serial",
+                   select_gamma: Optional[float] = None) -> PlanDecision:
     """Score every plan for (mode, P, n, k, codec) and pick the pinned one,
     or else the cheapest (the first on ties). Explicit alpha, beta and
     in-slice bandwidth override the fit (all three given: no fit is
     read); ``fit_source`` labels such an override. ``buckets`` (the
-    ``BucketPlan``'s (n_b, k_b) pairs) prices the bucketed wire. Each
-    candidate records its comm ms and its wire bytes a rank a step (the
-    JAX record's selection-and-merge spans are left out: their selection
-    cost is a model of the TPU)."""
+    ``BucketPlan``'s (n_b, k_b) pairs) prices the bucketed wire;
+    ``pipeline`` is the resolved execution order the plan carries. Each
+    candidate records its comm ms, its wire bytes a rank a step and
+    ``span_serial_ms`` / ``span_overlap_ms``, the span of the select and
+    merge chain under each order with selection cost `select_gamma` (an
+    unbucketed wire is one bucket of (n, k)); None without a gamma."""
     pin = validate_pin(pin, mode, ici_size=ici_size)
     explicit = (alpha_ms, beta_gbps, ici_gbps)
     if all(x is not None for x in explicit):
@@ -177,8 +189,12 @@ def build_decision(mode: Optional[str], *, p: int, n: int, k: int,
     if ici_gbps is not None:
         inputs["ici_gbps"] = float(ici_gbps)
     cands = candidate_plans(mode, codec=codec, ici_size=ici_size,
-                            bucketing=bucketing)
+                            bucketing=bucketing, pipeline=pipeline)
     pairs = buckets if buckets else ((n, k),)
+    span_plan = _bucketing.BucketPlan(
+        boundaries=tuple(range(len(pairs) + 1)),
+        leaf_sizes=tuple(nb for nb, _ in pairs),
+        ks=tuple(kb for _, kb in pairs))
     scored: List[Dict[str, Any]] = []
     for cand in cands:
         ms = score_plan(cand, p, n=n, k=k, alpha_ms=inputs["alpha_ms"],
@@ -189,10 +205,18 @@ def build_decision(mode: Optional[str], *, p: int, n: int, k: int,
                                 ici_size=cand.ici_size, codec=cand.codec,
                                 schedule=cand.schedule)
             for n_b, k_b in pairs)
+        spans = {pipe: None if select_gamma is None else round(
+            _bucketing.pipeline_span_ms(
+                span_plan, p=p, codec=cand.codec, schedule=cand.schedule,
+                alpha_ms=inputs["alpha_ms"], beta_gbps=inputs["beta_gbps"],
+                select_gamma=select_gamma, mode=cand.mode, pipeline=pipe), 6)
+            for pipe in ("serial", "overlap")}
         scored.append({
             "name": cand.name, "schedule": cand.schedule,
             "wire_mode": cand.wire_mode, "comm_ms": round(ms, 6),
             "wire_bytes": wire_bytes,
+            "span_serial_ms": spans["serial"],
+            "span_overlap_ms": spans["overlap"],
         })
     if pin != "auto":
         chosen = next(c for c in cands if c.name == pin)

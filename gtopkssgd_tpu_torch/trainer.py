@@ -34,7 +34,9 @@ step the ranks average the BatchNorm running statistics (if the model has
 any) and the reported loss (and top-1), as the JAX trainer's ``pmean``
 does. The optimizer decides the wire plan once (``plan_decision``; the
 layer-wise ``bucket_plan`` with it), and rank 0 prints the decision's
-record as one ``plan {...}`` line.
+record as one ``plan {...}`` line: the buckets' resolved execution order
+(``pipeline``) and the chosen plan's modeled spans under either order
+(``span_serial_ms``, ``span_overlap_ms``) beside every candidate's.
 
 A step is three profiler ranges (``torch.profiler.record_function``):
 "data" (host batch + copy to the device), "forward_backward" and
@@ -106,7 +108,8 @@ class TrainConfig:
                                    # allgather | dense
     buckets: str = "concat"        # gtopk_layerwise: concat | leaf | auto
                                    # | <int B> (parallel.bucketing)
-    pipeline: str = "serial"       # bucketed gtopk_layerwise: serial
+    pipeline: str = "serial"       # bucketed gtopk_layerwise: serial |
+                                   # overlap | auto
     comm_model_fit: Optional[str] = None  # alpha-beta fit file pricing
                                    # the planner (default: the port's own
                                    # for the backend)
@@ -205,6 +208,10 @@ class Trainer:
         self.bucket_plan = self.optimizer.bucket_plan
         if self.rank == 0 and self.plan_decision is not None:
             record = self.plan_decision.record()
+            chosen = next(c for c in record["candidates"]
+                          if c["name"] == record["plan"])
+            record["span_serial_ms"] = chosen["span_serial_ms"]
+            record["span_overlap_ms"] = chosen["span_overlap_ms"]
             if self.bucket_plan is not None:
                 record.update(self.bucket_plan.to_manifest())
             print("plan " + json.dumps(record), flush=True)

@@ -160,10 +160,11 @@ def test_tree_rounds_and_comm_bytes_match_jax(p):
 def test_later_modes_schedules_and_codecs_are_refused():
     """The hierarchical and layer-wise modes and the balanced schedule are
     in the port now (held to JAX in tests/test_torch_hier_balanced.py and
-    tests/test_torch_planner.py); what stays refused is a schedule that
-    does not realize the mode, an unknown mode or codec, and the
-    ``overlap`` and ``auto`` pipelines, by their ROADMAP item. The
-    allgather modes and the int8/fp8 codecs are accepted."""
+    tests/test_torch_planner.py), and the ``overlap`` and ``auto``
+    pipelines too (tests/test_torch_pipeline.py); what stays refused is a
+    schedule that does not realize the mode, an unknown mode, codec or
+    pipeline spec. The allgather modes and the int8/fp8 codecs are
+    accepted."""
     v, i = torch.zeros(K), torch.full((K,), N, dtype=torch.int32)
     for mode in ("gtopk_hier", "gtopk_layerwise"):
         for p in (2, 4, 8):
@@ -173,8 +174,9 @@ def test_later_modes_schedules_and_codecs_are_refused():
                                             schedule="balanced")
             == 7 * 8 * collectives.balanced_cap(K, 4, N))
     for pipeline in ("overlap", "auto"):
-        with pytest.raises(ValueError, match="ROADMAP.md section 1, item 5"):
-            bucketing.parse_pipeline(pipeline)
+        assert bucketing.parse_pipeline(pipeline) == pipeline
+    with pytest.raises(ValueError, match="invalid --pipeline"):
+        bucketing.parse_pipeline("eager")
     with pytest.raises(ValueError, match="schedule"):
         collectives.sparse_allreduce("gtopk", v, i, k=K, n=N,
                                      plan="allgather")

@@ -193,10 +193,10 @@ def test_cli_flags_parse_and_refuse_as_jax():
         "concat", "serial", "auto", None, 1)
     base = ["--device", "cpu", "--num-iters", "1", "--batch-size", "2"]
     for extra, match in (
+            (["--compression", "gtopk_layerwise", "--pipeline", "overlap"],
+             "requires a bucketed layerwise wire"),
             (["--compression", "gtopk_layerwise", "--buckets", "2",
-              "--pipeline", "overlap"], "ROADMAP.md section 1, item 5"),
-            (["--compression", "gtopk_layerwise", "--buckets", "2",
-              "--pipeline", "auto"], "ROADMAP.md section 1, item 5"),
+              "--pipeline", "auto"], "select_probe"),
             (["--compression", "gtopk", "--buckets", "leaf"],
              "only applies to the layerwise mode"),
             (["--compression", "gtopk", "--hier-ici", "2"],

@@ -183,6 +183,8 @@ def test_flat_layout_permutes_and_round_trips():
     out = [torch.empty_like(a), torch.empty_like(b)]
     lay.unravel_into(flat, out)
     assert torch.equal(out[0], a) and torch.equal(out[1], b)
-    with pytest.raises(ValueError, match="not in the port"):
+    # Pricing the overlap order needs the selection's cost: the CPU has
+    # no measured fit, so the optimizer names the probe.
+    with pytest.raises(ValueError, match="select_probe"):
         GTopKSGD([torch.nn.Parameter(a)], 0.1, compression="gtopk_layerwise",
                  buckets=2, pipeline="overlap")

@@ -236,14 +236,21 @@ def test_option_errors_match_jax(bad):
 
 @pytest.mark.parametrize("mode", ["gtopk_hier", "gtopk_layerwise"])
 def test_later_modes_are_refused_by_the_optimizer(mode):
-    """Both modes are in the port (tests/test_torch_layerwise.py); the
-    bucketed wire's ``overlap`` and ``auto`` pipelines are not, and are
-    refused naming their ROADMAP item."""
+    """Both modes are in the port (tests/test_torch_layerwise.py), and so
+    are the bucketed wire's ``overlap`` and ``auto`` pipelines
+    (tests/test_torch_pipeline.py). What is refused, with the JAX
+    optimizer's message: ``overlap`` without buckets (a concat wire, or a
+    mode with one set a step). ``auto`` there is 'serial'."""
     params = [torch.nn.Parameter(torch.zeros(8))]
     assert GTopKSGD(params, 0.1, compression=mode).mode == mode
-    for pipeline in ("overlap", "auto"):
-        with pytest.raises(ValueError, match="ROADMAP.md section 1, item 5"):
-            GTopKSGD(params, 0.1, compression=mode, pipeline=pipeline)
+    assert GTopKSGD(params, 0.1, compression=mode,
+                    pipeline="auto").bucket_plan is None
+    with pytest.raises(ValueError) as want:
+        gtopk_sgd(0.1, compression=mode, pipeline="overlap")
+    with pytest.raises(ValueError) as got:
+        GTopKSGD(params, 0.1, compression=mode, pipeline="overlap")
+    assert str(got.value) == str(want.value)
+    assert "requires a bucketed layerwise wire" in str(got.value)
 
 
 def test_lr_ramp_is_bitwise_the_jax_schedule():

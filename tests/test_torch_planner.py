@@ -6,9 +6,9 @@ bandwidth): ``comm_bytes_per_step`` (integers); ``comm_model.predict_comm_ms``
 against ``gtopkssgd_tpu.obs.ledger.predict_comm_ms`` (which calls
 ``benchmarks/scaling_model.predict``) to the last bit, the same float
 expressions in the same order; ``build_decision``'s record (candidates,
-scores, choice, inputs) but for the ``span_serial_ms`` and
-``span_overlap_ms`` columns the port leaves out (their selection cost is
-a model of the TPU); the pin errors' messages; ``plan_buckets``'s
+scores, choice, inputs, and the ``span_serial_ms`` / ``span_overlap_ms``
+columns at the JAX package's selection cost, gamma 1.0 ms per 1e6
+elements, passed explicitly); the pin errors' messages; ``plan_buckets``'s
 boundaries, ks and pairs on ResNet-20's and ResNet-50's real leaf sizes;
 each bucket's modeled merge cost. Also: the port's own fit files and
 which one a run's backend reads, what the model refuses, and the
@@ -115,12 +115,7 @@ def test_wire_modes_and_the_allgather_names():
 
 
 def _jax_record(decision):
-    rec = decision.record()
-    rec["candidates"] = [{key: v for key, v in c.items()
-                          if key not in ("span_serial_ms",
-                                         "span_overlap_ms")}
-                         for c in rec["candidates"]]
-    return rec
+    return decision.record()
 
 
 DECISION_MODES = (("gtopk", 1), ("gtopk_layerwise", 1), ("gtopk_hier", 1),
@@ -140,7 +135,8 @@ def test_build_decision_matches_jax(mode, ici):
                     kw = dict(p=p, n=N, k=K, codec=codec, ici_size=ici,
                               pin=pin, alpha_ms=alpha, beta_gbps=beta,
                               ici_gbps=ici_gbps)
-                    got = planner.build_decision(mode, **kw)
+                    got = planner.build_decision(mode, select_gamma=1.0,
+                                                 **kw)
                     want = jplanner.build_decision(mode, **kw)
                     assert got.record() == _jax_record(want), (mode, p, pin)
                     if pin != "auto":
@@ -155,7 +151,8 @@ def test_build_decision_prices_buckets_as_jax():
             kw = dict(p=p, n=N, k=sum(k for _, k in pairs), codec="int8",
                       alpha_ms=alpha, beta_gbps=beta, ici_gbps=ici_gbps,
                       bucketing="b3", buckets=pairs)
-            got = planner.build_decision("gtopk_layerwise", **kw)
+            got = planner.build_decision("gtopk_layerwise",
+                                         select_gamma=1.0, **kw)
             want = jplanner.build_decision("gtopk_layerwise", **kw)
             assert got.record() == _jax_record(want)
 
@@ -243,12 +240,17 @@ def test_bucket_spec_grammar_and_plan_round_trip():
 
 
 def test_pipeline_overlap_and_auto_are_refused_by_the_roadmap_item():
-    assert bucketing.parse_pipeline(" Serial ") == "serial"
-    for word in ("overlap", "auto"):
-        with pytest.raises(ValueError, match="ROADMAP.md section 1, item 5"):
-            bucketing.parse_pipeline(word)
-    with pytest.raises(ValueError, match="invalid --pipeline"):
-        bucketing.parse_pipeline("fast")
+    """The pipelines are in the port now: the grammar is the JAX
+    package's, and what it refuses, it refuses with JAX's message."""
+    for word in (" Serial ", "overlap", "AUTO"):
+        assert (bucketing.parse_pipeline(word)
+                == jbucketing.parse_pipeline(word))
+    for bad in ("fast", "", None, 1):
+        with pytest.raises(ValueError) as got:
+            bucketing.parse_pipeline(bad)
+        with pytest.raises(ValueError) as want:
+            jbucketing.parse_pipeline(bad)
+        assert str(got.value) == str(want.value)
 
 
 def test_the_committed_fit_and_explicit_fit_files(tmp_path):

@@ -161,12 +161,15 @@ def leaf_optimizer_steps(device, leaves0, grads, opt_kwargs):
     """``GTopKSGD`` over the whole world on one parameter a leaf (from
     `leaves0`, in layout order), one step per entry of `grads` (a list of
     f32[P, n_l] a leaf, row = rank); after each step the flat parameters,
-    the residual, and the local and global sets (a list of one a bucket
-    under a bucketed gtopk_layerwise)."""
+    the residual, the local and global sets (a list of one a bucket
+    under a bucketed gtopk_layerwise), the gradient bytes this rank has
+    shipped since the first step, and whether the optimizer ran a merge
+    thread (the ``overlap`` order's)."""
     rank = dist.get_rank()
     params = [torch.nn.Parameter(torch.from_numpy(x.copy()).to(device))
               for x in leaves0]
     opt = GTopKSGD(params, process_group=dist.group.WORLD, **opt_kwargs)
+    collectives.reset_wire()
     out = []
     for step_grads in grads:
         for prm, g in zip(params, step_grads):
@@ -177,7 +180,10 @@ def leaf_optimizer_steps(device, leaves0, grads, opt_kwargs):
                     "residual": _cpu(opt.state["residual"]),
                     "local": _cpu(opt.last_local),
                     "global": _cpu(opt.last_global),
-                    "plan": None if opt.plan is None else opt.plan.name})
+                    "plan": None if opt.plan is None else opt.plan.name,
+                    "wire": collectives.wire["bytes"],
+                    "merge_thread": opt._pool is not None})
+    opt.close()
     return out
 
 
@@ -256,3 +262,18 @@ def small_ptb_steps_and_test(device, cfg_kwargs, steps):
     flat = trainer.layout.ravel([p.detach() for p in trainer.layout.params])
     return {"gidx": gidx, "carry": trainer.carry, "params": flat,
             "losses": losses, "metrics": metrics, "p1_metrics": one.test()}
+
+
+def bench_gradients(device, cfg, mode, density):
+    """The benchmark harness's fixed batch on this rank and the gradient
+    one forward and backward gives it, flat."""
+    from gtopkssgd_tpu_torch import benchmark
+
+    bench = benchmark._Bench(cfg, mode, density, device, dist.group.WORLD)
+    try:
+        bench.forward_backward()
+        grad = bench.layout.ravel([q.grad for q in bench.layout.params])
+        return {"x": bench.x.clone(), "y": bench.y.clone(),
+                "grad": grad.detach().clone()}
+    finally:
+        bench.close()
