@@ -189,7 +189,30 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        ResNet-50 gTop-k ``twostage`` and dense at P = 1, and (inside
        (b)'s spawn) of the ``--buckets 4`` arm under each order at P =
        4, with ``attr_from_breakdown``.
-11. A ``kernels`` JSON line, then the last line
+11. The trainer's lifecycle and host path, batch 32, density 0.001, TF32
+   off (see ``native_phase``, ``resume_phase``, ``bf16_phase``,
+   ``dispatch_phase``):
+   (a) The native data prep built from ``gtopkssgd_tpu_torch/native/src``
+       with g++; a drawn CIFAR batch's augmentation bitwise the numpy
+       path's; an AN4 greedy decode's counts with the library's edit
+       distance equal to the Python one's.
+   (b) ResNet-20 gTop-k ``twostage``: 3 steps, ``save()``, a new trainer
+       with ``resume=True``, 3 more, against 6 straight: the whole state
+       (parameters, BatchNorm statistics, momentum, residual, count)
+       bitwise, at P = 1 and on both ranks at P = 2 over gloo on one
+       card, under deterministic algorithms; each rank's metrics file
+       led by a manifest, one config hash on both ranks.
+   (c) ResNet-50 and the PTB LSTM ``twostage`` in bfloat16 and float32,
+       10 steps each: step ms and losses; every stage-1 launch takes
+       float32 inputs; the bfloat16 LSTM's cuDNN kernels named; the
+       harness's throughput, MFU (bfloat16 against the card's dense
+       bfloat16 peak) and breakdown for ResNet-50 at P = 1 in both
+       dtypes.
+   (d) ``--steps-per-dispatch 8`` against 1 at P = 1 (``dispatch_phase``):
+       ResNet-20 ``twostage`` and ``pallas``, VGG-16 (dropout) and
+       ResNet-50 ``twostage``; the graph's steps bitwise the eager ones,
+       the kernels' launches counted through the replays.
+12. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1323,7 +1346,7 @@ def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
         cuda_topk.reset_launches()
         for _ in range(steps):
             trainer.optimizer.zero_grad(set_to_none=True)
-            batch = trainer._device_batch(next(trainer._batches))
+            batch = trainer._device_batch(trainer._next_host())
             loss, _, _ = trainer._forward(batch)
             loss.backward()
             before = [q.detach().clone() for q in params]
@@ -1354,7 +1377,7 @@ def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
         bcfg = benchmark.BenchConfig(
             dnn=dnn, batch_size=32, steps=5, min_seconds=1.0,
             topk_method="twostage", nworkers=p, buckets="4",
-            pipeline=order)
+            pipeline=order, dtype="float32")
         records[order] = {
             "throughput": benchmark._throughput(device, bcfg,
                                                 "gtopk_layerwise", 0.001),
@@ -1465,7 +1488,8 @@ def harness_phase() -> None:
 
     for mode, method in HARNESS_P1:
         cfg = benchmark.BenchConfig(dnn="resnet50", batch_size=32, steps=5,
-                                    min_seconds=1.0, topk_method=method)
+                                    min_seconds=1.0, topk_method=method,
+                                    dtype="float32")
         density = 0.001 if mode else 1.0
         tput = benchmark.measure_throughput(cfg, mode, density)
         bd = benchmark.measure_breakdown(cfg, mode, density)
@@ -1476,6 +1500,305 @@ def harness_phase() -> None:
               + json.dumps({"throughput": tput, "breakdown": bd,
                             "attr": benchmark.attr_from_breakdown(bd)}))
 
+
+
+# Phase 11: the trainer's lifecycle and host path.
+LIFECYCLE = dict(dnn="resnet20", batch_size=32, compression="gtopk",
+                 density=0.001, topk_method="twostage", eval_batches=1)
+RESUME_STEPS, RESUME_SPLIT = 6, 3
+BF16_RUNS = (("resnet50", 10), ("lstm", 10))
+DISPATCH_K, DISPATCH_STEPS = 8, 16
+# (dnn, method): timed on the default algorithms; held bitwise to the
+# eager path under deterministic ones (VGG-16 for its dropout masks).
+DISPATCH_TIMED = (("resnet20", "twostage"), ("resnet20", "pallas"),
+                  ("resnet50", "twostage"))
+DISPATCH_BITWISE = DISPATCH_TIMED + (("vgg16", "twostage"),)
+
+
+def deterministic(on: bool) -> None:
+    """``torch.use_deterministic_algorithms`` (warning, not raising, where
+    an op has no deterministic form: ``index_add_`` at unique indices,
+    the merge's and the repair's, adds one value a slot) and cuDNN's
+    deterministic convolutions, for the bitwise checks of phase 11."""
+    import torch
+
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+
+
+def native_phase() -> None:
+    """Phase 11a: the native data prep builds from the checkout's source;
+    a drawn CIFAR batch's augmentation is the numpy path's, bitwise, and
+    an AN4 greedy decode's counts with the library's edit distance are
+    the Python one's."""
+    import numpy as np
+
+    from gtopkssgd_tpu_torch import ctc, native
+    from gtopkssgd_tpu_torch.data import get_dataset
+
+    t0 = time.perf_counter()
+    so = native.build()
+    check(native.available(), "native data prep: the library did not load")
+    rng = np.random.default_rng(0)
+    images = get_dataset("cifar10", split="train", batch_size=32,
+                         seed=42).images[:32]
+    ys = rng.integers(0, 9, 32).astype(np.int32)
+    xs = rng.integers(0, 9, 32).astype(np.int32)
+    flips = rng.random(32) < 0.5
+    same = np.array_equal(native.cifar_augment_batch(images, ys, xs, flips),
+                          native.augment_numpy(images, ys, xs, flips))
+    check(same, "native augmentation != numpy")
+    batch = next(get_dataset("an4", split="test", batch_size=32,
+                             seed=42).epoch(0))
+    t_out = 200
+    logits = rng.standard_normal((32, t_out, 29)).astype(np.float32)
+    lengths = np.minimum(batch["input_lengths"] // 4 + 1, t_out)
+    want = []
+    real = ctc.edit_distance
+    for fn in (real, native.edit_distance_py):
+        ctc.edit_distance = fn
+        try:
+            want.append(ctc.greedy_error_counts(
+                logits, lengths, batch["labels"], batch["label_lengths"]))
+        finally:
+            ctc.edit_distance = real
+    check(np.array_equal(*want), f"native edit distance {want}")
+    print(f"native: {so.name} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s; augmentation bitwise numpy "
+          f"(batch 32); AN4 decode counts {want[0].tolist()} equal the "
+          "Python edit distance's")
+
+
+def resume_rank(device, cfg: dict, out_dir: str) -> dict:
+    """Phase 11b on one rank: RESUME_STEPS steps straight, then the same
+    run split at RESUME_SPLIT (save, a new trainer with ``resume=True``);
+    both final states on the CPU and the first metrics record."""
+    import torch
+
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    deterministic(True)
+    try:
+        cfg = dict(cfg, device=str(device))
+        with Trainer(TrainConfig(**cfg)) as full:
+            full.train(RESUME_STEPS)
+            want = {k: v.cpu() for k, v in full.checkpoint_state().items()}
+        with Trainer(TrainConfig(out_dir=out_dir, **cfg)) as first:
+            first.train(RESUME_SPLIT)
+            first.save()
+        with Trainer(TrainConfig(out_dir=out_dir, resume=True,
+                                 **cfg)) as again:
+            check(again.step == RESUME_SPLIT, f"restored {again.step}")
+            again.train(RESUME_STEPS - RESUME_SPLIT)
+            got = {k: v.cpu() for k, v in again.checkpoint_state().items()}
+            rank = again.rank
+    finally:
+        deterministic(False)
+    diff = {k: float((got[k].double() - v.double()).abs().max())
+            for k, v in want.items() if v.is_floating_point()}
+    keep = [x["residual"] == 0 for x in (want, got)]
+    jac = float((keep[0] & keep[1]).sum()) / max(1, float(
+        (keep[0] | keep[1]).sum()))
+    name = ("metrics.jsonl" if cfg.get("nworkers", 1) == 1
+            else f"metrics.rank{rank}.jsonl")
+    with open(f"{out_dir}/{name}") as fh:
+        manifest = json.loads(fh.readline())
+    return dict(rank=rank, bitwise=all(torch.equal(v, got[k])
+                                       for k, v in want.items()),
+                max_diff=max(diff.values()), jaccard=jac,
+                manifest=manifest)
+
+
+def resume_phase() -> None:
+    """Phase 11b: resume against an uninterrupted run, ResNet-20 gTop-k
+    ``twostage``, at P = 1 and at P = 2 on one card over gloo."""
+    import tempfile
+
+    from gtopkssgd_tpu_torch.parallel.dist import spawn
+
+    for p in (1, 2):
+        cfg = dict(LIFECYCLE, nworkers=p)
+        with tempfile.TemporaryDirectory(dir=".") as tmp:
+            t0 = time.perf_counter()
+            ranks = ([resume_rank("cuda", cfg, tmp)] if p == 1 else
+                     spawn(resume_rank, p, cfg, tmp, backend="gloo",
+                           device="cuda", timeout=600))
+        hashes = {r["manifest"]["config_hash"] for r in ranks}
+        for r in ranks:
+            check(r["bitwise"], f"resume P={p} rank {r['rank']}: state != "
+                  f"uninterrupted (max diff {r['max_diff']}, jaccard "
+                  f"{r['jaccard']})")
+            check(r["manifest"]["kind"] == "manifest"
+                  and r["manifest"]["world_size"] == p,
+                  f"resume P={p}: first record {r['manifest']}")
+        check(len(hashes) == 1, f"resume P={p}: config hashes {hashes}")
+        m = ranks[0]["manifest"]
+        print(f"resume P={p}: {RESUME_SPLIT} + save + resume + "
+              f"{RESUME_STEPS - RESUME_SPLIT} steps == {RESUME_STEPS} "
+              f"straight, bitwise on every rank (deterministic algorithms); "
+              f"manifest config_hash {hashes.pop()} on {len(ranks)} rank(s), "
+              f"backend {m['backend']}, card {m['device_name']} "
+              f"{m['power_limit']}, native_dataprep {m['native_dataprep']}; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def bf16_phase() -> dict:
+    """Phase 11c: ResNet-50 and the PTB LSTM gTop-k ``twostage`` in
+    bfloat16 and float32, 10 steps each: step ms and loss; the stage-1
+    kernel's input is float32; cuDNN's bfloat16 LSTM kernels; then the
+    harness's bfloat16 MFU for ResNet-50 at P = 1. Returns the launches."""
+    import torch
+
+    from gtopkssgd_tpu_torch import benchmark
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    total = {name: 0 for name in REPLACES}
+    seen = []
+    real = cuda_topk.fused_stage1_candidates
+
+    def spy(grad, *args, **kw):
+        seen.append((grad.dtype, None if kw.get("residual") is None
+                     else kw["residual"].dtype))
+        return real(grad, *args, **kw)
+
+    cuda_topk.fused_stage1_candidates = spy
+    try:
+        for dnn, steps in BF16_RUNS:
+            med = {}
+            for dtype in ("float32", "bfloat16"):
+                with Trainer(TrainConfig(
+                        dnn=dnn, batch_size=32, compression="gtopk",
+                        density=0.001, topk_method="twostage",
+                        eval_batches=1, dtype=dtype, device="cuda")) as t:
+                    seen.clear()
+                    cuda_topk.reset_launches()
+                    stats = t.train(steps)
+                    launches = dict(cuda_topk.launches)
+                    check_launches(launches,
+                                   {"fused_stage1_candidates": steps},
+                                   f"{dnn} {dtype}")
+                    for name in REPLACES:
+                        total[name] += launches[name]
+                    check(seen == [(torch.float32, torch.float32)] * steps,
+                          f"{dnn} {dtype}: stage-1 inputs {set(seen)}")
+                    check(all(math.isfinite(v) for v in stats["losses"]),
+                          f"{dnn} {dtype}: losses {stats['losses']}")
+                    med[dtype] = statistics.median(stats["step_times"][1:])
+                    print(f"bf16 {dnn} {dtype}: {steps} steps, loss "
+                          f"{stats['losses'][0]:.4f} -> "
+                          f"{stats['losses'][-1]:.4f}, median step "
+                          f"{med[dtype] * 1e3:.3f} ms, stage-1 inputs "
+                          "float32")
+                    if dnn == "lstm" and dtype == "bfloat16":
+                        with torch.profiler.profile(activities=[
+                                torch.profiler.ProfilerActivity.CUDA]) as pr:
+                            t.train(1)
+                        rnn = sorted({e.name for e in pr.events()
+                                      if "rnn" in e.name.lower()
+                                      or "lstm" in e.name.lower()})
+                        print(f"bf16 lstm: the step's RNN kernels "
+                              f"{rnn[:6]} ({len(rnn)} distinct)")
+            print(f"bf16 {dnn}: step {med['bfloat16'] * 1e3:.3f} ms against "
+                  f"float32 {med['float32'] * 1e3:.3f} ms "
+                  f"({med['float32'] / med['bfloat16']:.2f}x)")
+    finally:
+        cuda_topk.fused_stage1_candidates = real
+    for dtype in ("bfloat16", "float32"):
+        cfg = benchmark.BenchConfig(dnn="resnet50", batch_size=32, steps=5,
+                                    min_seconds=1.0, topk_method="twostage",
+                                    dtype=dtype)
+        tput = benchmark.measure_throughput(cfg, "gtopk", 0.001)
+        bd = benchmark.measure_breakdown(cfg, "gtopk", 0.001)
+        check(tput["mfu"] is not None and tput["mfu"] > 0,
+              f"harness {dtype}: mfu {tput['mfu']}")
+        print(f"harness resnet50 P=1 gtopk/twostage {dtype}: " + json.dumps(
+            {**{key: tput[key] for key in (
+                "sec_per_step", "flops_per_step", "achieved_tflops_per_chip",
+                "mfu")}, **{key: bd[key] for key in (
+                    "forward_backward", "compress", "apply")}}))
+    return total
+
+
+def dispatch_phase() -> dict:
+    """Phase 11d: ``steps_per_dispatch`` DISPATCH_K against 1 at P = 1:
+    host-clock ms a step for each K (DISPATCH_TIMED, 4 dispatches, the
+    first left out); then, under deterministic algorithms, DISPATCH_STEPS
+    steps of each of DISPATCH_BITWISE from the same seed: the graph
+    replays, and the per-step losses and the whole state are bitwise the
+    eager path's; each selection kernel's launches are the captured ones
+    times the replays plus the eager ones. Returns the launches (a
+    capture counted once for each replay, not for itself)."""
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    want_kernel = {"twostage": "fused_stage1_candidates",
+                   "pallas": "multisection_tau_lo[residual]"}
+    total = {name: 0 for name in REPLACES}
+    for dnn, method in DISPATCH_TIMED:
+        ms = {}
+        for k in (1, DISPATCH_K):
+            cfg = dict(LIFECYCLE, dnn=dnn, topk_method=method,
+                       steps_per_dispatch=k, device="cuda")
+            with Trainer(TrainConfig(**cfg)) as t:
+                times = t.train(4 * DISPATCH_K)["step_times"]
+                ms[k] = statistics.median(times[k:]) * 1e3
+        print(f"dispatch {dnn} {method}: host-clock {ms[1]:.3f} ms a step "
+              f"at K=1, {ms[DISPATCH_K]:.3f} ms at K={DISPATCH_K} "
+              f"({ms[1] / ms[DISPATCH_K]:.2f}x), {4 * DISPATCH_K} steps, "
+              "default algorithms")
+    deterministic(True)
+    try:
+        for dnn, method in DISPATCH_BITWISE:
+            out = {}
+            for k in (1, DISPATCH_K):
+                cfg = dict(LIFECYCLE, dnn=dnn, topk_method=method,
+                           steps_per_dispatch=k, device="cuda")
+                with Trainer(TrainConfig(**cfg)) as t:
+                    cuda_topk.reset_launches()
+                    stats = t.train(DISPATCH_STEPS)
+                    counted = dict(cuda_topk.launches)
+                    g = t.graph_stats
+                    launches = {name: counted[name]
+                                - g["captured"].get(name, 0)
+                                + g["replayed"].get(name, 0)
+                                for name in counted}
+                    times = stats["step_times"]
+                    out[k] = dict(
+                        losses=stats["losses"], dispatch=stats["dispatch"],
+                        state={n: v.cpu() for n, v in
+                               t.checkpoint_state().items()},
+                        launches=launches, graph=dict(g),
+                        ms=statistics.median(times[k:]) * 1e3)
+            eager, graph = out[1], out[DISPATCH_K]
+            run = f"dispatch {dnn} {method} K={DISPATCH_K}"
+            check(graph["dispatch"] == "graph", f"{run}: {graph['dispatch']}")
+            same = graph["losses"] == eager["losses"] and all(
+                torch.equal(v, graph["state"][n])
+                for n, v in eager["state"].items())
+            diff = max(float((graph["state"][n].double()
+                              - v.double()).abs().max())
+                       for n, v in eager["state"].items()
+                       if v.is_floating_point())
+            kernel = want_kernel[method]
+            g = graph["graph"]
+            print(f"{run}: {g['captures']} capture(s), {g['replays']} "
+                  f"replays, captured launches {g['captured']}; "
+                  f"{DISPATCH_STEPS} steps {'bitwise' if same else 'DIFFERENT'}"
+                  f" vs eager (max state diff {diff:.3g}); deterministic "
+                  f"algorithms: {eager['ms']:.3f} ms a step at K=1, "
+                  f"{graph['ms']:.3f} ms at K={DISPATCH_K}")
+            check(same, f"{run}: graph != eager (max diff {diff})")
+            for res in (eager, graph):
+                check_launches(res["launches"], {kernel: DISPATCH_STEPS},
+                               f"{run}")
+                for name in REPLACES:
+                    total[name] += res["launches"][name]
+    finally:
+        deterministic(False)
+    return total
 
 
 def main() -> int:
@@ -1543,6 +1866,11 @@ def main() -> int:
         total[name] += count
     auto_phase()
     harness_phase()
+    native_phase()
+    resume_phase()
+    for phase in (bf16_phase, dispatch_phase):
+        for name, count in phase().items():
+            total[name] += count
 
     n0 = SIZES[0]
     line = []

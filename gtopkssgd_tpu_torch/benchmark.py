@@ -4,7 +4,7 @@ of a step into forward+backward, compression, exchange and apply.
     python -m gtopkssgd_tpu_torch.benchmark [--dnn resnet50] \\
         [--modes gtopk,dense] [--density 0.001] [--topk-method twostage] \\
         [--batch-size 32] [--nworkers P] [--buckets B --pipeline ORDER] \\
-        [--min-seconds S] [--steps N] [--device cpu]
+        [--min-seconds S] [--steps N] [--dtype float32] [--device cpu]
 
 Counterpart of ``gtopkssgd_tpu/benchmark.py``, with its records:
 
@@ -16,7 +16,8 @@ Counterpart of ``gtopkssgd_tpu/benchmark.py``, with its records:
   ``torch.utils.flop_counter.FlopCounterMode`` over one step (matrix
   products and convolutions, forward and backward), the MFU from a peak
   looked up by the card's name, the dtype and the TF32 setting (None for
-  a card not in ``PEAK_FLOPS``).
+  a card not in ``PEAK_FLOPS``). The model computes in ``dtype``
+  (bfloat16 by default, as the JAX harness; ``models.layers``).
 * ``measure_breakdown`` -- each phase timed alone, ``steps`` calls then a
   sync: ``forward_backward``; ``compress`` (the flat selection), or
   under ``gtopk_layerwise`` ``compress_per_leaf`` (the per-leaf
@@ -68,12 +69,14 @@ from gtopkssgd_tpu_torch.parallel.dist import spawn
 
 # Peak FLOP/s of one card by (name, dtype, TF32 on) for the MFU: NVIDIA's
 # data sheet for the H100 SXM (float32 outside the tensor cores; TF32
-# dense). A card not listed reports mfu None.
+# dense; bfloat16 dense on the tensor cores, 989.4 TFLOP/s, half the
+# sheet's figure with sparsity). A card not listed reports mfu None.
 PEAK_FLOPS = {
     ("NVIDIA H100 80GB HBM3", "float32", False): 67e12,
     ("NVIDIA H100 80GB HBM3", "float32", True): 495e12,
+    ("NVIDIA H100 80GB HBM3", "bfloat16", False): 989.4e12,
+    ("NVIDIA H100 80GB HBM3", "bfloat16", True): 989.4e12,
 }
-_ROADMAP_BF16 = "ROADMAP.md section 1, item 9"
 
 
 @dataclasses.dataclass
@@ -83,7 +86,7 @@ class BenchConfig:
     steps: int = 40              # breakdown: calls per phase
     min_seconds: float = 2.0     # throughput: the window's least length
     density: float = 0.001
-    dtype: str = "float32"       # float32 only (bfloat16: ROADMAP item 9)
+    dtype: str = "bfloat16"      # compute dtype: bfloat16 | float32
     topk_method: str = "auto"
     nworkers: int = 1            # 0 = one rank a visible card
     hier_ici: int = 1            # gtopk_hier: ranks per slice
@@ -129,15 +132,12 @@ class _Bench:
 
     def __init__(self, cfg: BenchConfig, mode: Optional[str],
                  density: float, device: torch.device, group):
-        if cfg.dtype != "float32":
-            raise ValueError(
-                f"dtype {cfg.dtype!r}: the port runs float32 only; bfloat16 "
-                f"is {_ROADMAP_BF16}")
         self.cfg, self.mode, self.device, self.group = cfg, mode, device, group
         self.p = 1 if group is None else dist.get_world_size(group)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.model, self.spec = get_model(cfg.dnn, space_to_depth=cfg.s2d)
+        self.model, self.spec = get_model(cfg.dnn, space_to_depth=cfg.s2d,
+                                          dtype=cfg.dtype)
         if self.spec.recurrent:
             raise ValueError(f"the harness times the vision zoo, not "
                              f"{cfg.dnn!r}")
@@ -405,6 +405,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline", default="serial")
     ap.add_argument("--min-seconds", type=float, default=2.0)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda":
@@ -420,7 +422,7 @@ def main(argv=None) -> int:
             dnn=args.dnn, batch_size=args.batch_size, steps=args.steps,
             min_seconds=args.min_seconds, topk_method=args.topk_method,
             nworkers=args.nworkers, buckets=args.buckets,
-            pipeline=args.pipeline, device=args.device)
+            pipeline=args.pipeline, dtype=args.dtype, device=args.device)
         density = 1.0 if mode is None else args.density
         breakdown = measure_breakdown(cfg, mode, density)
         print(json.dumps({"mode": mode or "dense",

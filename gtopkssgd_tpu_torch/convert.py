@@ -11,7 +11,9 @@ fix the flat gradient order, for every model of the zoo.
   per-rank ``[P, N]`` residual (or of its {"v", "u"} pair under momentum
   correction; a ``gtopk_layerwise`` residual of per-leaf buffers goes
   through ``layerwise_residual``), the step count, and for the PTB model
-  this rank's row of the BPTT carry.
+  this rank's row of the BPTT carry; the trainer's step becomes the
+  JAX trainer's and its data stream moves there (``Trainer._set_iters``,
+  mid-epoch too), so its next batch is the JAX trainer's next.
 * ``layerwise_residual(residual, rank)`` carries the JAX package's
   ``gtopk_layerwise`` residual -- a tuple of per-leaf buffers in
   ``jax.tree`` order, or {"v": tuple, "u": tuple} under momentum
@@ -133,7 +135,8 @@ def from_jax_params(params: Mapping[str, Any],
 def load_jax_state(trainer, params: Mapping[str, Any],
                    batch_stats: Optional[Mapping[str, Any]],
                    momentum: Optional[Mapping[str, Any]], residual,
-                   count: int, carry: Sequence = ()) -> None:
+                   count: int, carry: Sequence = (),
+                   step: Optional[int] = None) -> None:
     """Load a JAX trainer's state, as numpy trees, into `trainer` (one
     rank): ``momentum`` is optax's SGD trace, a tree like ``params``, or
     None where there is none (under momentum correction the SGD step has
@@ -170,6 +173,12 @@ def load_jax_state(trainer, params: Mapping[str, Any],
             tuple(torch.from_numpy(np.array(x, dtype=np.float32)[
                 trainer.rank]).to(device) for x in pair)
             for pair in carry)
+    step = int(count) if step is None else int(step)
+    if step != trainer.step:
+        trainer.step = step
+        spe = trainer.steps_per_epoch
+        trainer._set_iters(step // spe, skip_steps=step % spe)
+    trainer._graph = None  # the state it captured is replaced
 
 
 def _per_leaf(residual) -> bool:

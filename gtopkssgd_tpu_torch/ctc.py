@@ -17,9 +17,10 @@ synthetic AN4 sets hold none that is infeasible.
 ``greedy_error_counts`` decodes by argmax, drops repeats and blanks within
 each row's valid frames, and returns the corpus counts [char errors,
 chars, word errors, words] (Levenshtein distances against the labels;
-words split at the space id); the error rates are sums over sums.
-``edit_distance`` is a copy of the pure-Python path of
-``gtopkssgd_tpu/native``.
+words split at the space id); the error rates are sums over sums. The
+distances run in the port's native library
+(``gtopkssgd_tpu_torch.native.edit_distance``; Python where it cannot be
+built).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from gtopkssgd_tpu_torch.data.an4 import SPACE_ID
+from gtopkssgd_tpu_torch.native import edit_distance
 
 BLANK = 0
 
@@ -45,22 +47,6 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
                          label_lengths.long(), blank=BLANK,
                          reduction="none", zero_infinity=True)
     return per_utt.mean()
-
-
-def edit_distance(a: Sequence[int], b: Sequence[int]) -> int:
-    """Levenshtein distance between two int sequences."""
-    if not len(a):
-        return len(b)
-    if not len(b):
-        return len(a)
-    prev = list(range(len(b) + 1))
-    for i, ca in enumerate(a, 1):
-        cur = [i]
-        for j, cb in enumerate(b, 1):
-            cur.append(min(prev[j] + 1, cur[-1] + 1,
-                           prev[j - 1] + (ca != cb)))
-        prev = cur
-    return prev[-1]
 
 
 def _words(seq: Sequence[int]) -> List[Tuple[int, ...]]:

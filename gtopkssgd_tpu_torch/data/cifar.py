@@ -1,12 +1,15 @@
 """CIFAR-10 pipeline (reference: torchvision CIFAR-10 with random-crop +
 flip augmentation).
 
-A copy of ``gtopkssgd_tpu/data/cifar.py`` (and of the numpy augmentation
-of ``gtopkssgd_tpu/native``), so the port draws the same batches from the
-same seed without importing the JAX package. Reads the python-pickle
-batches (``cifar-10-batches-py``) under ``data_dir`` when present, else a
-deterministic synthetic stand-in with the same shapes and a learnable class
-signal. Batches are raw uint8 NHWC; the trainer normalizes on the device.
+A copy of ``gtopkssgd_tpu/data/cifar.py``, so the port draws the same
+batches from the same seed without importing the JAX package. Reads the
+python-pickle batches (``cifar-10-batches-py``) under ``data_dir`` when
+present, else a deterministic synthetic stand-in with the same shapes and
+a learnable class signal (``synth_hard``: the JAX package's harder
+variant). The augmentation's pixel work runs in the port's native library
+(``gtopkssgd_tpu_torch.native``; numpy where it cannot be built, bitwise
+the same). Batches are raw uint8 NHWC; the trainer normalizes on the
+device.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from gtopkssgd_tpu_torch import native
 from gtopkssgd_tpu_torch.data.partition import (
     DataPartitioner,
     signal_rng,
@@ -52,33 +56,34 @@ def _load_real(data_dir: str, split: str):
 
 
 @functools.lru_cache(maxsize=8)
-def _synthetic(split: str, seed: int):
-    """Class-conditional Gaussian images with per-class channel offsets
-    drawn from the split-independent signal stream."""
+def _synthetic(split: str, seed: int, hard: bool = False):
+    """Class-conditional Gaussian images, the class signal drawn from the
+    split-independent signal stream: per-class channel offsets at 0.25,
+    or under `hard` a 32x32x3 per-class pattern at 0.07 with 10% of the
+    TRAIN labels resampled uniformly (the test split stays clean)."""
     n = SYNTH_TRAIN if split == "train" else SYNTH_TEST
     rng = np.random.default_rng(
         np.random.SeedSequence([seed, split_id(split)]))
     labels = rng.integers(0, 10, n).astype(np.int32)
-    offsets = (signal_rng(seed).standard_normal((10, 3))
-               .astype(np.float32) * 0.25)
-    signal = offsets[labels][:, None, None, :]
+    if hard:
+        patterns = signal_rng(seed).standard_normal(
+            (10, 32, 32, 3)).astype(np.float32) * 0.07
+        signal = patterns[labels]
+    else:
+        offsets = (signal_rng(seed).standard_normal((10, 3))
+                   .astype(np.float32) * 0.25)
+        signal = offsets[labels][:, None, None, :]
     images = 0.5 + 0.15 * rng.standard_normal(
         (n, 32, 32, 3)).astype(np.float32)
     images += signal
     images = np.clip(images, 0.0, 1.0)
+    out_labels = labels
+    if hard and split == "train":
+        noisy = rng.random(n) < 0.10
+        out_labels = np.where(
+            noisy, rng.integers(0, 10, n).astype(np.int32), labels)
     # quantize once to the uint8 wire format (what real pickles hold)
-    return (images * 255.0).round().astype(np.uint8), labels
-
-
-def cifar_augment_batch(images: np.ndarray, ys: np.ndarray, xs: np.ndarray,
-                        flips: np.ndarray) -> np.ndarray:
-    """Reflect-pad(4) + 32x32 crop at (ys, xs) + horizontal flip, uint8."""
-    padded = np.pad(images, ((0, 0), (4, 4), (4, 4), (0, 0)), mode="reflect")
-    out = np.empty_like(images)
-    for i in range(images.shape[0]):
-        crop = padded[i, ys[i]:ys[i] + 32, xs[i]:xs[i] + 32]
-        out[i] = crop[:, ::-1] if flips[i] else crop
-    return out
+    return (images * 255.0).round().astype(np.uint8), out_labels
 
 
 class CIFAR10Dataset:
@@ -86,7 +91,7 @@ class CIFAR10Dataset:
     example_shape = (32, 32, 3)
 
     def __init__(self, *, split="train", batch_size=32, rank=0, nworkers=1,
-                 data_dir=None, seed=0, augment=None):
+                 data_dir=None, seed=0, augment=None, synth_hard=False):
         self.split = split
         self.batch_size = batch_size
         self.augment = (split == "train") if augment is None else augment
@@ -95,7 +100,8 @@ class CIFAR10Dataset:
             os.path.join(root, "cifar-10-batches-py")
         )
         if self.synthetic:
-            self.images, self.labels = _synthetic(split, seed)
+            self.images, self.labels = _synthetic(split, seed,
+                                                  hard=synth_hard)
         else:
             self.images, self.labels = _load_real(root, split)
         self.partitioner = DataPartitioner(
@@ -118,7 +124,7 @@ class CIFAR10Dataset:
         ys = rng.integers(0, 9, b).astype(np.int32)
         xs = rng.integers(0, 9, b).astype(np.int32)
         flips = rng.random(b) < 0.5
-        return cifar_augment_batch(x, ys, xs, flips)
+        return native.cifar_augment_batch(x, ys, xs, flips)
 
     def epoch(self, epoch: int = 0, batches: Optional[range] = None
               ) -> Iterator[Dict[str, np.ndarray]]:

@@ -10,7 +10,10 @@
         [--dense-warmup-epochs E] [--compression gtopk_hier --hier-ici S] \\
         [--compression gtopk_layerwise --buckets concat|leaf|auto|B \\
          --pipeline serial|overlap|auto] \\
-        [--comm-plan auto|tree|balanced] [--comm-model-fit PATH]
+        [--comm-plan auto|tree|balanced] [--comm-model-fit PATH] \\
+        [--out-dir DIR [--resume] [--allow-ckpt-mismatch]] \\
+        [--log-interval N] [--dtype bfloat16] [--synth-hard] \\
+        [--prefetch N] [--steps-per-dispatch K]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group: NCCL with one rank
@@ -25,9 +28,14 @@ holds the real files), and so do lr, weight decay and the clip (PTB 1.0,
 0, 0.25; AN4 3e-4, 0, 400). Rank 0 prints one JSON line with the
 per-step losses, step times, the gradient bytes a rank shipped per step,
 the wire plan, the buckets (their (n_b, k_b) pairs) and their execution
-order, and the validation
-metrics (``val_loss`` and ``val_top1``/``val_top5``,
+order, the dispatch (``graph`` or ``staged``), and the
+validation metrics (``val_loss`` and ``val_top1``/``val_top5``,
 ``val_ppl``, or ``val_cer``/``val_wer``).
+
+``--out-dir`` writes the metrics file (``metrics.jsonl``, or one
+``metrics.rank{r}.jsonl`` a rank at P > 1) and the checkpoints
+(``ckpt/``: each epoch of ``fit()``, and after ``--num-iters`` steps);
+``--resume`` restores the newest checkpoint there before training.
 """
 
 from __future__ import annotations
@@ -135,6 +143,33 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="train a fixed number of steps instead of epochs")
     p.add_argument("--eval-batches", type=int, default=None,
                    help="cap on the validation batches (default: all)")
+    p.add_argument("--out-dir", default=None,
+                   help="metrics files and checkpoints (out-dir/ckpt)")
+    p.add_argument("--log-interval", type=int, default=50,
+                   help="a 'train' metrics record every N steps")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint from out-dir")
+    p.add_argument("--allow-ckpt-mismatch", action="store_true",
+                   help="restore a checkpoint whose recorded config hash or "
+                        "state digest differs from this run's (normally "
+                        "refused: resuming under other flags changes the "
+                        "experiment)")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype (parameters, gradients and the "
+                        "optimizer stay float32)")
+    p.add_argument("--synth-hard", action="store_true",
+                   help="synthetic CIFAR only: the harder variant (weak "
+                        "spatial class patterns, 10%% of the train labels "
+                        "resampled)")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="host batches assembled ahead by a background "
+                        "thread (0 = synchronous assembly)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="optimizer steps a dispatch: K host batches staged "
+                        "in one transfer and one sync; on the card at P = "
+                        "1 a CUDA graph of the step replayed K times "
+                        "(Trainer.dispatch_rule)")
     p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     return p
 
@@ -155,21 +190,24 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         momentum_correction=args.momentum_correction,
         space_to_depth=args.s2d, eval_batches=args.eval_batches,
         nworkers=args.nworkers, data_dir=args.data_dir, seed=args.seed,
+        out_dir=args.out_dir, log_interval=args.log_interval,
+        resume=args.resume, allow_ckpt_mismatch=args.allow_ckpt_mismatch,
+        dtype=args.dtype, synth_hard=args.synth_hard,
+        prefetch=args.prefetch, steps_per_dispatch=args.steps_per_dispatch,
         device=args.device)
 
 
 def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
     """On this process (one rank): train `num_iters` steps and evaluate,
     or ``fit()`` when `num_iters` is None; summarize."""
-    trainer = Trainer(cfg)
-    collectives.reset_wire()
-    try:
+    with Trainer(cfg) as trainer:
+        collectives.reset_wire()
+        start = trainer.step
         if num_iters is not None:
             stats = {**trainer.train(num_iters), **trainer.test()}
+            trainer.save()
         else:
             stats = trainer.fit()
-    finally:
-        trainer.optimizer.close()
     return {
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
@@ -182,13 +220,16 @@ def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
         "pipeline": (None if trainer.bucket_plan is None
                      else trainer.bucket_plan.pipeline),
         "device": str(trainer.device),
+        "dtype": trainer.cfg.dtype,
+        "dispatch": trainer.dispatch,
+        "step": trainer.step,
         "nworkers": trainer.cfg.nworkers,
         "num_params": trainer.num_params,
         "losses": stats["losses"],
         "median_step_s": statistics.median(stats["step_times"]),
         "throughput": stats["throughput"],
-        "wire_bytes_per_step": collectives.wire["bytes"] / max(1,
-                                                               trainer.step),
+        "wire_bytes_per_step": collectives.wire["bytes"] / max(
+            1, trainer.step - start),
         **{key: stats[key] for key in stats if key.startswith("val_")},
     }
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
+import torch
 from torch import nn
 
 from gtopkssgd_tpu_torch.models.alexnet import AlexNet
@@ -62,22 +63,30 @@ def model_spec(dnn: str) -> ModelSpec:
             f"unknown dnn {dnn!r}; the port has {sorted(_ZOO)}") from None
 
 
-def get_model(dnn: str, space_to_depth: bool = False
-              ) -> Tuple[nn.Module, ModelSpec]:
-    """Build a zoo model by its ``--dnn`` flag string. Only resnet50
-    takes ``space_to_depth``; any other model rejects a true value with
-    the JAX package's error."""
+# The compute dtypes by their ``--dtype`` names.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def get_model(dnn: str, space_to_depth: bool = False,
+              dtype: str = "float32") -> Tuple[nn.Module, ModelSpec]:
+    """Build a zoo model by its ``--dnn`` flag string, computing in
+    `dtype` (``--dtype``: float32 or bfloat16; the parameters are float32
+    either way). Only resnet50 takes ``space_to_depth``; any other model
+    rejects a true value with the JAX package's error."""
     spec = model_spec(dnn)
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype!r}: one of {sorted(DTYPES)}")
+    dtype = DTYPES[dtype]
     if not space_to_depth:
-        return spec.build(), spec
+        return spec.build(dtype=dtype), spec
     if dnn != "resnet50":
         raise ValueError(
             f"--s2d is a resnet50 stem transform; --dnn {dnn} "
             "does not take it")
-    return spec.build(space_to_depth=True), spec
+    return spec.build(space_to_depth=True, dtype=dtype), spec
 
 
-__all__ = ["AlexNet", "BasicBlock", "BatchNorm", "BottleneckBlock",
+__all__ = ["AlexNet", "BasicBlock", "BatchNorm", "BottleneckBlock", "DTYPES",
            "DeepSpeechAN4", "Dropout", "ModelSpec", "PTBLSTM",
            "ResNetCIFAR", "ResNetImageNet", "VGG16", "get_model",
            "model_spec", "seed_dropout"]

@@ -1,6 +1,21 @@
 """The layers the zoo shares where flax and PyTorch differ: flax's
-BatchNorm, flax's Dropout with an explicit generator, and flax's
-initializers.
+BatchNorm, flax's Dropout with an explicit generator, flax's
+initializers, and convolutions and dense layers that compute in flax's
+``dtype=`` manner.
+
+The compute dtype (``--dtype bfloat16``) follows flax's semantics with
+explicit casts, not ``torch.autocast`` (whose op lists are not flax's):
+the parameters stay float32; ``Conv2d`` and ``Linear`` cast their weight
+and bias to their input's dtype, and each model casts a layer's input to
+the compute dtype where the flax layer's ``dtype=`` would; BatchNorm
+computes its statistics and the normalization in float32 and emits its
+output in its input's dtype (flax's ``dtype=self.dtype`` BatchNorm; a
+bfloat16 input goes through ``torch.native_batch_norm`` with the float32
+parameters, which computes in float32 and rounds its output once), or
+in float32 where the JAX model pins it (``float32_output``: the AN4
+model's). The casts' backward returns float32 gradients, so the flat
+gradient, the selection and the optimizer are unchanged. At float32 every
+cast is the identity.
 
 ``BatchNorm`` reproduces flax's ``nn.BatchNorm`` rather than
 ``torch.nn.BatchNorm2d``: running average with momentum 0.99 (flax's
@@ -23,30 +38,80 @@ from torch import nn
 from gtopkssgd_tpu_torch.models.recurrent import LSTM
 
 
+LOW_PRECISION = (torch.bfloat16,)
+
+
+def to_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`x` in the compute dtype `dtype`; at float32 `x` as it is, so a
+    float32 model computes in its parameters' and input's dtype (the
+    float64 tests run it so)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def float_logits(x: torch.Tensor) -> torch.Tensor:
+    """The logits in float32 (flax's ``.astype(jnp.float32)``) when they
+    were computed in a lower precision."""
+    return x.float() if x.dtype in LOW_PRECISION else x
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (weight and bias cast
+    to it; the parameters stay float32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (weight and bias cast
+    to it; the parameters stay float32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class BatchNorm(nn.Module):
     """``zero_scale``: the scale starts at 0 under ``flax_init`` (flax's
     ``scale_init=zeros``, the last BatchNorm of a bottleneck block).
     ``channel_dim``: the input's channel dim (1 for NCHW, -1 for
-    [B, T, F])."""
+    [B, T, F]). ``float32_output``: emit float32 whatever the input's
+    dtype (a flax BatchNorm built with ``dtype=jnp.float32``)."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5, zero_scale: bool = False,
-                 channel_dim: int = 1):
+                 channel_dim: int = 1, float32_output: bool = False):
         super().__init__()
         self.momentum, self.eps, self.zero_scale = momentum, eps, zero_scale
         self.channel_dim = channel_dim
+        self.float32_output = float32_output
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.float32_output and x.dtype in LOW_PRECISION:
+            x = x.float()
         if self.channel_dim != 1:
             x = x.movedim(self.channel_dim, 1)
         if not self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, training=False,
                              eps=self.eps)
+        elif x.dtype in LOW_PRECISION:
+            # Mixed precision: the statistics and the normalization in
+            # float32 (the float32 parameters set the accumulation type),
+            # the output rounded once to x's dtype; the biased variance
+            # comes back from the saved 1/sqrt(var + eps).
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            with torch.no_grad():
+                var = invstd.pow(-2) - self.eps
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         else:
             # F.batch_norm normalizes with the biased batch variance but
             # would store the unbiased one, so the running stats are
@@ -88,17 +153,18 @@ class Dropout(nn.Module):
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def seed_dropout(model: nn.Module, seed: int) -> None:
+def seed_dropout(model: nn.Module, seed: int):
     """Give every ``Dropout`` of `model` one shared generator on the
-    model's device, seeded with `seed`; a model without dropout is left
-    as it is."""
+    model's device, seeded with `seed`, and return it; a model without
+    dropout is left as it is (None)."""
     drops = [m for m in model.modules() if isinstance(m, Dropout)]
     if not drops:
-        return
+        return None
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(int(seed))
     for m in drops:
         m.generator = gen
+    return gen
 
 
 def flax_init(model: nn.Module, generator: torch.Generator) -> None:

@@ -5,9 +5,11 @@ one included, so this is not ``nn.LSTM(num_layers=2, dropout=p)``, which
 skips it), and a dense softmax layer over the vocabulary.
 
 ``forward(tokens, carry)`` returns (logits f32[B, T, vocab], new carry);
-the carry is one (c, h) pair of [B, hidden] per layer, flax's order. The
-trainer threads it through consecutive windows and detaches it between
-steps.
+the carry is one (c, h) pair of [B, hidden] per layer, flax's order, in
+the compute dtype ``dtype`` (the JAX model makes it so). The trainer
+threads it through consecutive windows and detaches it between steps.
+Under ``dtype`` the embedding table, the cells and the dense layer
+compute in it (``models.layers``); the logits come back in float32.
 """
 
 from __future__ import annotations
@@ -18,19 +20,29 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from gtopkssgd_tpu_torch.models.layers import Dropout, flax_init
+import torch.nn.functional as F
+
+from gtopkssgd_tpu_torch.models.layers import (
+    Dropout,
+    Linear,
+    flax_init,
+    float_logits,
+    to_compute,
+)
 from gtopkssgd_tpu_torch.models.recurrent import LSTM, Carry
 
 
 class PTBLSTM(nn.Module):
     def __init__(self, vocab_size: int = 10000, hidden_size: int = 650,
-                 num_layers: int = 2, dropout_rate: float = 0.5):
+                 num_layers: int = 2, dropout_rate: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
+        self.compute_dtype = dtype
         self.embed = nn.Embedding(vocab_size, hidden_size)
-        self.cells = nn.ModuleList(LSTM(hidden_size, hidden_size)
+        self.cells = nn.ModuleList(LSTM(hidden_size, hidden_size, dtype)
                                    for _ in range(num_layers))
-        self.fc = nn.Linear(hidden_size, vocab_size)
+        self.fc = Linear(hidden_size, vocab_size)
         self.dropout = Dropout(dropout_rate)
 
     def initial_carry(self, batch_size: int) -> Tuple[Carry, ...]:
@@ -43,13 +55,14 @@ class PTBLSTM(nn.Module):
         """tokens i64[B, T] -> (logits f32[B, T, vocab], new carry)."""
         if carry is None:
             carry = self.initial_carry(tokens.shape[0])
-        x = self.dropout(self.embed(tokens))
+        x = self.dropout(F.embedding(
+            tokens, to_compute(self.embed.weight, self.compute_dtype)))
         new_carry = []
         for cell, state in zip(self.cells, carry):
             x, state = cell(x, state)
             new_carry.append(state)
             x = self.dropout(x)
-        return self.fc(x), tuple(new_carry)
+        return float_logits(self.fc(x)), tuple(new_carry)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initializers: the embedding normal with variance

@@ -19,6 +19,10 @@ the 29 characters, trained with CTC.
   statistics include the padded frames, as flax's do; packed sequences
   would give other statistics.
 * A last BatchNorm, then the dense layer.
+* ``dtype`` is the compute dtype of the convs, the cells and the dense
+  layer (``models.layers``); the BatchNorms compute and emit float32
+  whatever it is, as the JAX model pins them, and the logits come back
+  in float32.
 
 Cell 2l is layer l's forward direction and cell 2l + 1 its backward one,
 as flax numbers them (``tests/test_torch_recurrent.py`` holds the logits
@@ -34,7 +38,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from gtopkssgd_tpu_torch.data.an4 import N_BINS
-from gtopkssgd_tpu_torch.models.layers import BatchNorm, flax_init
+from gtopkssgd_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    Linear,
+    flax_init,
+    float_logits,
+    to_compute,
+)
 from gtopkssgd_tpu_torch.models.recurrent import (
     LSTM,
     gather_time,
@@ -57,21 +68,24 @@ def conv_features() -> int:
 
 class DeepSpeechAN4(nn.Module):
     def __init__(self, num_chars: int = AN4_NUM_CHARS,
-                 rnn_hidden: int = 512, rnn_layers: int = 4):
+                 rnn_hidden: int = 512, rnn_layers: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.convs = nn.ModuleList(
-            nn.Conv2d(1 if i == 0 else 32, 32, k, stride=s, padding=p,
-                      bias=False)
+            Conv2d(1 if i == 0 else 32, 32, k, stride=s, padding=p,
+                   bias=False)
             for i, (k, s, p) in enumerate(_CONVS))
         width = conv_features()
         self.bns = nn.ModuleList(
-            [BatchNorm(32), BatchNorm(32)]
-            + [BatchNorm(rnn_hidden, channel_dim=-1)
+            [BatchNorm(32, float32_output=True),
+             BatchNorm(32, float32_output=True)]
+            + [BatchNorm(rnn_hidden, channel_dim=-1, float32_output=True)
                for _ in range(rnn_layers)])
         self.cells = nn.ModuleList(
-            LSTM(width if i < 2 else rnn_hidden, rnn_hidden)
+            LSTM(width if i < 2 else rnn_hidden, rnn_hidden, dtype)
             for i in range(2 * rnn_layers))
-        self.fc = nn.Linear(rnn_hidden, num_chars)
+        self.fc = Linear(rnn_hidden, num_chars)
 
     @staticmethod
     def output_length(input_length):
@@ -86,7 +100,7 @@ class DeepSpeechAN4(nn.Module):
         (None: every frame valid) -> logits f32[B, T', num_chars]."""
         y = x[:, None]  # [B, 1, T, F]
         for conv, bn in zip(self.convs, self.bns):
-            y = F.hardtanh(bn(conv(y)))
+            y = F.hardtanh(bn(conv(to_compute(y, self.compute_dtype))))
         b, _, t, _ = y.shape
         y = y.permute(0, 2, 3, 1).reshape(b, t, -1)
         lengths = (torch.full((b,), t, device=y.device)
@@ -100,7 +114,8 @@ class DeepSpeechAN4(nn.Module):
             out_f, _ = fwd(y)
             out_b, _ = bwd(gather_time(y, rev))
             y = out_f + gather_time(out_b, rev)
-        return self.fc(self.bns[-1](y))
+        return float_logits(self.fc(to_compute(self.bns[-1](y),
+                                             self.compute_dtype)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         flax_init(self, generator)

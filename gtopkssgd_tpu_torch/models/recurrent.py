@@ -20,6 +20,13 @@ parameters through the concatenation.
 flax carries (c, h); torch carries (h, c). The layer takes and returns
 flax's order.
 
+``dtype`` is the cell's compute dtype (flax's ``OptimizedLSTMCell(dtype=)``):
+the input, the carry and the concatenated weights are cast to it, and
+cuDNN runs the whole recurrence in it (one dtype for all of its operands,
+where flax keeps a float32 carry float32). On the card a bfloat16 LSTM
+needs cuDNN's bfloat16 RNN (cuDNN 8.3 and compute capability 8.0 on);
+without it the layer raises rather than compute in another dtype.
+
 ``reverse_index(lengths, t)`` is flax's ``flip_sequences`` as an index:
 position t of a row of length L reads frame (L - 1 - t) mod T, so the
 valid frames run reversed and then the padding reversed; the same gather
@@ -41,9 +48,11 @@ Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), each [B, H]
 class LSTM(nn.Module):
     """One unidirectional LSTM layer over [B, T, in] (batch first)."""
 
-    def __init__(self, in_features: int, hidden: int):
+    def __init__(self, in_features: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_features, self.hidden = in_features, hidden
+        self.compute_dtype = dtype
         self.kernel = nn.ParameterDict()
         for g in GATES:
             self.kernel["i" + g] = nn.Parameter(
@@ -57,22 +66,37 @@ class LSTM(nn.Module):
             in_features, hidden, batch_first=True, device="meta"))
 
     def initial_carry(self, batch: int, like: torch.Tensor) -> Carry:
-        zeros = like.new_zeros(batch, self.hidden)
+        """Zeros in the compute dtype on `like`'s device."""
+        dtype = (like.dtype if self.compute_dtype == torch.float32
+                 else self.compute_dtype)
+        zeros = like.new_zeros(batch, self.hidden, dtype=dtype)
         return zeros, zeros.clone()
 
     def forward(self, x: torch.Tensor, carry: Optional[Carry] = None
                 ) -> Tuple[torch.Tensor, Carry]:
-        """x f32[B, T, in], carry (c, h) or None for zeros ->
-        (outputs f32[B, T, H], the carry after the last frame)."""
+        """x [B, T, in], carry (c, h) or None for zeros -> (outputs [B, T,
+        H], the carry after the last frame), in the compute dtype."""
+        dt = x.dtype if self.compute_dtype == torch.float32 else \
+            self.compute_dtype
+        x = x.to(dt)
+        if (x.is_cuda and dt == torch.bfloat16
+                and not bf16_cudnn_rnn(x.device)):
+            raise RuntimeError(
+                "a bfloat16 LSTM on the card needs cuDNN's bfloat16 RNN "
+                "(cuDNN >= 8.3 on compute capability >= 8.0); this card "
+                f"has cuDNN {torch.backends.cudnn.version()} and "
+                f"capability {torch.cuda.get_device_capability(x.device)}")
         if carry is None:
             carry = self.initial_carry(x.shape[0], x)
-        c, h = carry
+        c, h = (t.to(dt) for t in carry)
         kernel, bias = self.kernel, self.bias
         weights = {
-            "weight_ih_l0": torch.cat([kernel["i" + g] for g in GATES]),
-            "weight_hh_l0": torch.cat([kernel["h" + g] for g in GATES]),
+            "weight_ih_l0": torch.cat([kernel["i" + g] for g in GATES]
+                                      ).to(dt),
+            "weight_hh_l0": torch.cat([kernel["h" + g] for g in GATES]
+                                      ).to(dt),
             "bias_ih_l0": x.new_zeros(4 * self.hidden),
-            "bias_hh_l0": torch.cat([bias["h" + g] for g in GATES]),
+            "bias_hh_l0": torch.cat([bias["h" + g] for g in GATES]).to(dt),
         }
         self._template.training = self.training
         out, (h_n, c_n) = torch.func.functional_call(
@@ -92,6 +116,15 @@ class LSTM(nn.Module):
                 nn.init.orthogonal_(self.kernel["h" + g],
                                     generator=generator)
                 self.bias["h" + g].zero_()
+
+
+def bf16_cudnn_rnn(device: torch.device) -> bool:
+    """Whether cuDNN runs a bfloat16 RNN on `device` (PyTorch's own rule
+    for sending one to cuDNN: cuDNN 8.3 on, compute capability 8.0 on)."""
+    version = torch.backends.cudnn.version() or 0
+    return (torch.backends.cudnn.is_available()
+            and torch.backends.cudnn.enabled and version >= 8300
+            and torch.cuda.get_device_capability(device) >= (8, 0))
 
 
 def reverse_index(lengths: torch.Tensor, t: int) -> torch.Tensor:

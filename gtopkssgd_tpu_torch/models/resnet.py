@@ -10,8 +10,10 @@ ResNets (ResNet-20/56) and the ImageNet bottleneck ResNet (ResNet-50).
   BatchNorm of each block starting at scale 0.
 
 A 1x1 projection shortcut where the shape changes. The models take NHWC
-input, as the JAX models do, and permute to NCHW once inside. Computation
-is float32.
+input, as the JAX models do, and permute to NCHW once inside. ``dtype``
+is flax's compute dtype (``models.layers``): the input is cast to it
+once, every layer and BatchNorm output stays in it, and the logits come
+back in float32.
 """
 
 from __future__ import annotations
@@ -22,12 +24,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gtopkssgd_tpu_torch.models.layers import BatchNorm, flax_init
+from gtopkssgd_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    Linear,
+    flax_init,
+    float_logits,
+    to_compute,
+)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride,
-                     padding=kernel // 2, bias=False)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                  bias=False)
 
 
 def _shortcut(cin: int, filters: int, stride: int):
@@ -77,8 +86,10 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNetCIFAR(nn.Module):
-    def __init__(self, depth: int = 20, num_classes: int = 10):
+    def __init__(self, depth: int = 20, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         if (depth - 2) % 6 != 0:
             raise ValueError("CIFAR ResNet depth must be 6n+2")
         n = (depth - 2) // 6
@@ -91,15 +102,15 @@ class ResNetCIFAR(nn.Module):
                 blocks.append(BasicBlock(cin, width, stride))
                 cin = width
         self.blocks = nn.ModuleList(blocks)
-        self.fc = nn.Linear(64, num_classes)
+        self.fc = Linear(64, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NHWC float32 -> logits f32[B, num_classes]."""
-        x = x.permute(0, 3, 1, 2)
+        x = to_compute(x.permute(0, 3, 1, 2), self.compute_dtype)
         x = F.relu(self.bn(self.conv(x)))
         for block in self.blocks:
             x = block(x)
-        return self.fc(x.mean(dim=(2, 3)))
+        return float_logits(self.fc(x.mean(dim=(2, 3))))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         flax_init(self, generator)
@@ -107,15 +118,17 @@ class ResNetCIFAR(nn.Module):
 
 class ResNetImageNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 num_classes: int = 1000, space_to_depth: bool = False):
+                 num_classes: int = 1000, space_to_depth: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.space_to_depth = space_to_depth
+        self.compute_dtype = dtype
         if space_to_depth:
             # 2x2 pixel blocks as 12 channels, then a 4x4 VALID conv: the
             # same linear map as an 8x8/2 conv, a superset of the 7x7/2.
-            self.conv = nn.Conv2d(12, 64, 4, bias=False)
+            self.conv = Conv2d(12, 64, 4, bias=False)
         else:
-            self.conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+            self.conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn = BatchNorm(64)
         blocks, cin = [], 64
         for stage, size in enumerate(stage_sizes):
@@ -125,7 +138,7 @@ class ResNetImageNet(nn.Module):
                 blocks.append(BottleneckBlock(cin, width, stride))
                 cin = width
         self.bottlenecks = nn.ModuleList(blocks)
-        self.fc = nn.Linear(cin, num_classes)
+        self.fc = Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NHWC float32 -> logits f32[B, num_classes]."""
@@ -140,12 +153,12 @@ class ResNetImageNet(nn.Module):
             x = x.reshape(b, (h + 6) // 2, 2, (w + 6) // 2, 2, c)
             x = x.permute(0, 1, 3, 2, 4, 5).reshape(
                 b, (h + 6) // 2, (w + 6) // 2, 4 * c)
-        x = x.permute(0, 3, 1, 2)
+        x = to_compute(x.permute(0, 3, 1, 2), self.compute_dtype)
         x = F.relu(self.bn(self.conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for block in self.bottlenecks:
             x = block(x)
-        return self.fc(x.mean(dim=(2, 3)))
+        return float_logits(self.fc(x.mean(dim=(2, 3))))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         flax_init(self, generator)

@@ -52,7 +52,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -63,6 +62,7 @@ from torch.autograd import DeviceType
 
 from gtopkssgd_tpu_torch.ops import k_for_density, select_tau
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+from gtopkssgd_tpu_torch.utils.manifest import card_identity
 
 ARMS = (("gtopk", "twostage"), ("gtopk", "pallas"), ("dense", "exact"))
 RANGES = ("data", "forward_backward", "optimizer", "select", "exchange")
@@ -107,15 +107,6 @@ def overlap_share(select_kernels: Sequence[Sequence[Interval]],
             total += kern[1] - kern[0]
             inside += _overlap_us(kern, others)
     return inside / total if total else None
-
-
-def card_identity() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _profiler():

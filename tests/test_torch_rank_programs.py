@@ -277,3 +277,53 @@ def bench_gradients(device, cfg, mode, density):
                 "grad": grad.detach().clone()}
     finally:
         bench.close()
+
+
+def _state_cpu(trainer):
+    return {name: t.detach().cpu().clone()
+            for name, t in trainer.checkpoint_state().items()}
+
+
+def resume_run(device, cfg_kwargs, out_dir, total, split, other_p_dir=None):
+    """Rank program (and the P = 1 body of the lifecycle tests): `total`
+    steps of one trainer, then the same run split at step `split`:
+    `split` steps, ``save()`` into `out_dir`, a new trainer with
+    ``resume=True``, the remaining steps. Returns both runs' final
+    ``checkpoint_state`` (on the CPU), the resumed trainer's step and
+    losses, and, given `other_p_dir` (a checkpoint saved at another P),
+    the error a resume from it raises."""
+    cfg = dict(cfg_kwargs, device=str(device))
+    with Trainer(TrainConfig(**cfg)) as full:
+        full_losses = full.train(total)["losses"]
+        full_state = _state_cpu(full)
+    with Trainer(TrainConfig(out_dir=out_dir, **cfg)) as first:
+        first_losses = first.train(split)["losses"]
+        first.save()
+    with Trainer(TrainConfig(out_dir=out_dir, resume=True, **cfg)) as again:
+        restored_step = again.step
+        rest = again.train(total - split)["losses"]
+        out = {"full": full_state, "resumed": _state_cpu(again),
+               "restored_step": restored_step, "step": again.step,
+               "full_losses": full_losses,
+               "resumed_losses": first_losses + rest}
+    if other_p_dir is not None:
+        try:
+            Trainer(TrainConfig(out_dir=other_p_dir, resume=True, **cfg))
+            out["other_p_error"] = None
+        except ValueError as e:
+            out["other_p_error"] = str(e)
+    return out
+
+
+def dispatch_runs(device, cfg_kwargs, steps, ks):
+    """Rank program: `steps` steps of a fresh trainer at each
+    ``steps_per_dispatch`` of `ks`; each run's losses, dispatch and final
+    ``checkpoint_state`` (on the CPU), by K."""
+    out = {}
+    for k in ks:
+        with Trainer(TrainConfig(device=str(device), steps_per_dispatch=k,
+                                 **cfg_kwargs)) as t:
+            stats = t.train(steps)
+            out[k] = {"losses": stats["losses"], "dispatch": t.dispatch,
+                      "state": _state_cpu(t)}
+    return out

@@ -132,20 +132,25 @@ def test_dense_trainer_steps_and_schedule():
 
 def test_port_never_imports_jax_or_the_jax_package():
     """Import the port and every one of its modules in a clean process:
-    neither jax nor gtopkssgd_tpu may be loaded."""
+    neither jax, orbax nor gtopkssgd_tpu may be loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import gtopkssgd_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 38, names\n"
+        "assert len(names) >= 44, names\n"
         "assert {'gtopkssgd_tpu_torch.benchmark',\n"
-        "        'gtopkssgd_tpu_torch.select_probe'} <= set(names), names\n"
+        "        'gtopkssgd_tpu_torch.select_probe',\n"
+        "        'gtopkssgd_tpu_torch.native',\n"
+        "        'gtopkssgd_tpu_torch.utils.checkpoint',\n"
+        "        'gtopkssgd_tpu_torch.utils.manifest',\n"
+        "        'gtopkssgd_tpu_torch.utils.metrics',\n"
+        "        'gtopkssgd_tpu_torch.utils.prefetch'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'gtopkssgd_tpu.'))\n"
-        "             or m == 'gtopkssgd_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'orbax',\n"
+        "             'gtopkssgd_tpu') or m.startswith(('jax.', 'orbax.',\n"
+        "             'gtopkssgd_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
