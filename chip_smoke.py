@@ -212,7 +212,31 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        ResNet-20 ``twostage`` and ``pallas``, VGG-16 (dropout) and
        ResNet-50 ``twostage``; the graph's steps bitwise the eager ones,
        the kernels' launches counted through the replays.
-12. A ``kernels`` JSON line, then the last line
+12. The JPEG path, the remaining top-k methods and resilience, batch 32,
+   density 0.001 (see ``jpeg_phase``, ``topk_phase``,
+   ``resilience_phase``); each run of (a), (c) and (d) a process of its
+   own, started from the command line or a ``python -c``:
+   (a) A seeded ImageFolder written with PIL (4 classes x 48 train and
+       16 val JPEGs, 500x375 at quality 90); ResNet-50 ``twostage``, 4
+       steps with prefetch off, at ``--decode-workers`` 0 and 8: decode
+       images/s, host "data" ms and step ms, the batches bitwise equal.
+       Without PIL on the machine, one line says so and (a) is skipped.
+   (b) ``exact | blockwise | approx | simrecall | twostage | pallas`` at
+       ResNet-20's and the five zoo flat sizes: the whole selection stage's
+       median ms of 20 calls and recall against ``exact``; ``blockwise``
+       bitwise ``exact`` on distinct magnitudes; ``simrecall`` on the card
+       bitwise the CPU on inputs whose sums are exact in any order;
+       ``approx`` one stage-1 launch; ``auto``'s choice.
+   (c) Through ``dist_trainer``: ResNet-20 ``twostage`` ``--inject
+       preempt@3`` exits 45, ``--resume`` to step 6 bitwise 6 straight
+       steps (deterministic algorithms); P = 2 ``pallas`` ``--elastic
+       --inject resize@3:1`` exits 46 and writes ``elastic.json``, the P =
+       1 restore's residual within one float32 ulp of the saved column
+       sums, and the relaunch trains on; P = 1 ``resize@2:2`` exits 46 and
+       two ranks restoring it hold the saved residual and zeros.
+   (d) ``--multihost``: two processes told their ranks by the environment,
+       their final state's parameters bitwise the spawned P = 2 run's.
+13. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1801,6 +1825,424 @@ def dispatch_phase() -> dict:
     return total
 
 
+# Phase 12: the JPEG path, the remaining top-k methods, resilience.
+JPEG_CLASSES, JPEG_TRAIN, JPEG_VAL = 4, 48, 16
+JPEG_SIZE, JPEG_QUALITY, JPEG_STEPS = (500, 375), 90, 4
+TOPK_METHODS = ("exact", "blockwise", "approx", "simrecall", "twostage",
+                "pallas")
+SMOKE_BASE = ["--dnn", "resnet20", "--batch-size", "32", "--compression",
+              "gtopk", "--density", "0.001", "--eval-batches", "1",
+              "--seed", "42", "--prefetch", "0"]
+LAUNCHES_TAG = "SMOKE_LAUNCHES "
+
+
+def write_jpegs(root: str) -> None:
+    """A seeded ImageFolder: JPEG_CLASSES classes of JPEG_TRAIN train and
+    JPEG_VAL val images, 500x375 at quality 90 (smooth noise, upsampled,
+    so the files have a photograph's size)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    for split, count in (("train", JPEG_TRAIN), ("val", JPEG_VAL)):
+        for c in range(JPEG_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            for i in range(count):
+                small = rng.integers(0, 256, (47, 63, 3), dtype=np.uint8)
+                Image.fromarray(small).resize(JPEG_SIZE).save(
+                    os.path.join(d, f"img_{i}.JPEG"), quality=JPEG_QUALITY)
+
+
+def jpeg_worker(data_dir: str, workers: int) -> int:
+    """Phase 12a in a fresh process (the decode pool forks before the
+    process touches the card): ResNet-50 ``twostage`` on the JPEGs, batch
+    32, ``JPEG_STEPS`` steps at `workers` decode processes, prefetch off so
+    the decode is on the step's path. Prints one JSON line: decode
+    images/s, host "data" ms and step ms a step, a digest of the batches,
+    the launches."""
+    import hashlib
+
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(dnn="resnet50", batch_size=32, compression="gtopk",
+                      density=0.001, topk_method="twostage",
+                      data_dir=data_dir, decode_workers=workers, prefetch=0,
+                      eval_batches=1, device="cuda")
+    with Trainer(cfg) as t:
+        t0 = time.perf_counter()
+        batches = list(t.train_data.epoch(0, range(JPEG_STEPS)))
+        decode_s = time.perf_counter() - t0
+        h = hashlib.sha256()
+        for b in batches:
+            h.update(b["image"].tobytes())
+            h.update(b["label"].tobytes())
+        cuda_topk.reset_launches()
+        data_ms, step_ms, losses = [], [], []
+        for _ in range(JPEG_STEPS):
+            t0 = time.perf_counter()
+            staged = t._stage(1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = t._train_step(staged[0])[0]
+            t.step += 1
+            losses.append(float(loss))
+            t2 = time.perf_counter()
+            data_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t0) * 1e3)
+        launches = dict(cuda_topk.launches)
+        val = t.test()
+    print(json.dumps({
+        "workers": workers, "synthetic": t.train_data.synthetic,
+        "images_per_s": JPEG_STEPS * 32 / decode_s,
+        "data_ms": data_ms, "step_ms": step_ms, "losses": losses,
+        "val_loss": val["val_loss"], "digest": h.hexdigest(),
+        "launches": launches}))
+    return 0
+
+
+def _python(code: str, *args: str, env: dict = None):
+    """A `python -c code args` subprocess from the checkout's root, its
+    output going to temporary files (a pipe nobody reads could fill)."""
+    import os
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code, *args], cwd=root,
+                            env={**os.environ, **(env or {})},
+                            stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    return proc
+
+
+def _wait(proc, what: str, timeout: float = 600.0):
+    """(rc, stdout) of `proc`, stopped if it outlasts `timeout`; its error
+    output is printed when the code is not 0, 45 or 46."""
+    import subprocess
+
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    texts = []
+    for fh in proc.files:
+        fh.seek(0)
+        texts.append(fh.read())
+        fh.close()
+    if proc.returncode not in (0, 45, 46):
+        print(f"{what}: rc {proc.returncode}\n{texts[1][-4000:]}",
+              file=sys.stderr)
+    return proc.returncode, texts[0]
+
+
+def jpeg_phase() -> dict:
+    """Phase 12a: seeded JPEGs; ResNet-50 at 0 and 8 decode workers, in a
+    process each, one after the other; the batches bitwise equal. Skips, on a line of its
+    own, where PIL is not installed. Returns the launches."""
+    import tempfile
+
+    total = {name: 0 for name in REPLACES}
+    try:
+        import PIL
+    except ImportError:
+        print("jpeg: PIL is not installed on this machine; phase 12a "
+              "skipped")
+        return total
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_jpegs(root)
+        print(f"jpeg: wrote {JPEG_CLASSES} classes x {JPEG_TRAIN} train + "
+              f"{JPEG_VAL} val JPEGs, {JPEG_SIZE[0]}x{JPEG_SIZE[1]} at "
+              f"quality {JPEG_QUALITY} (PIL {PIL.__version__}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        code = ("import sys, chip_smoke as s; "
+                "sys.exit(s.jpeg_worker(sys.argv[1], int(sys.argv[2])))")
+        runs = {}
+        for w in (0, 8):  # one after the other: each is timed alone
+            rc, out = _wait(_python(code, root, str(w)), f"jpeg workers={w}")
+            check(rc == 0, f"jpeg workers={w}: rc {rc}")
+            runs[w] = json.loads(out.strip().splitlines()[-1])
+    for w, r in runs.items():
+        check(not r["synthetic"], f"jpeg workers={w}: read synthetic data")
+        check(all(math.isfinite(v) for v in r["losses"] + [r["val_loss"]]),
+              f"jpeg workers={w}: losses {r['losses']}")
+        check_launches(r["launches"],
+                       {"fused_stage1_candidates": JPEG_STEPS},
+                       f"jpeg workers={w}")
+        for name in REPLACES:
+            total[name] += r["launches"][name]
+        print(f"jpeg resnet50 twostage, decode_workers={w}: decode "
+              f"{r['images_per_s']:.1f} images/s; host data ms "
+              f"{[round(v, 3) for v in r['data_ms']]}; step ms "
+              f"{[round(v, 3) for v in r['step_ms']]}; loss "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; launches "
+              f"{r['launches']}")
+    check(runs[0]["digest"] == runs[8]["digest"],
+          "jpeg: batches at 0 and 8 decode workers differ")
+    print(f"jpeg: the batches at 0 and 8 decode workers are bitwise equal "
+          f"(sha256 {runs[0]['digest'][:16]})")
+    return total
+
+
+def exact_sum_input(n: int, gen):
+    """n float32s whose sum and sum of magnitudes are exact in any order:
+    4,096 distinct integers 1..4096 (or n) times 2^-10 at random
+    positions, random signs, zeros elsewhere (sum |x| < 2^24 units)."""
+    import torch
+
+    m = min(n, 4096)
+    x = torch.zeros(n)
+    pos = torch.randperm(n, generator=gen)[:m]
+    sign = torch.randint(0, 2, (m,), generator=gen) * 2 - 1
+    x[pos] = ((torch.randperm(m, generator=gen) + 1) * sign).float() \
+        * 2.0 ** -10
+    return x
+
+
+def topk_phase() -> None:
+    """Phase 12b: each method's whole selection stage at ResNet-20's and
+    the zoo's flat sizes, density 0.001: median ms of 20 calls, recall
+    against ``exact``; ``blockwise`` bitwise ``exact`` on distinct
+    magnitudes; ``simrecall`` on the card bitwise the CPU's on inputs
+    whose sums are exact; ``approx`` launches the stage-1 kernel; the
+    ``auto`` choice."""
+    import torch
+
+    from gtopkssgd_tpu_torch import select_probe
+    from gtopkssgd_tpu_torch.ops import cuda_topk, topk
+
+    for n in SIZES[:6]:
+        k = topk.k_for_density(n, 0.001)
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn(n, device="cuda", generator=gen)
+        want = topk.select_topk(x, k, "exact")[1]
+        row = []
+        for method in TOPK_METHODS:
+            ms = select_probe.stage_ms(method, n)
+            idx = topk.select_topk(x, k, method)[1]
+            recall = float(torch.isin(idx, want).sum()) / k
+            exact = method in ("exact", "blockwise")
+            check(recall == 1.0 if exact else recall >= 0.9,
+                  f"topk {method} n={n}: recall {recall}")
+            row.append(f"{method} {ms:.4f} ms recall {recall:.4f}")
+        mags = (torch.randperm(n, device="cuda", generator=gen)
+                + 0x3F800000).to(torch.int32).view(torch.float32)
+        d = mags * (torch.randint(0, 2, (n,), device="cuda",
+                                  generator=gen) * 2 - 1)
+        for a, b in zip(topk.select_topk(d, k, "blockwise"),
+                        topk.select_topk(d, k, "exact")):
+            check(torch.equal(a, b), f"topk blockwise n={n} != exact")
+        xs = exact_sum_input(n, torch.Generator().manual_seed(n))
+        card = topk.select_topk(xs.cuda(), k, "simrecall")
+        host = topk.select_topk(xs, k, "simrecall")
+        for a, b in zip(card, host):
+            check(torch.equal(a.cpu(), b),
+                  f"topk simrecall n={n}: card != CPU")
+        cuda_topk.reset_launches()
+        topk.select_topk(x, k, "approx")
+        torch.cuda.synchronize()
+        check(cuda_topk.launches["fused_stage1_candidates"] == 1,
+              f"topk approx n={n}: launches {cuda_topk.launches}")
+        print(f"topk n={n:,d} k={k}: " + "; ".join(row)
+              + f"; blockwise bitwise exact (distinct magnitudes); "
+              f"simrecall card bitwise CPU (exact sums); approx launched "
+              f"the stage-1 kernel; auto -> {topk._resolve_auto(n)}")
+
+
+def cli_main(argv) -> int:
+    """Phase 12c and 12d in a fresh process: ``dist_trainer.main(argv)``
+    (deterministic algorithms when SMOKE_DETERMINISTIC is set); prints
+    this process's launches on a tagged line; returns the CLI's code."""
+    import os
+
+    from gtopkssgd_tpu_torch import dist_trainer
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+
+    if os.environ.get("SMOKE_DETERMINISTIC"):
+        deterministic(True)
+    cuda_topk.reset_launches()
+    rc = dist_trainer.main(list(argv))
+    print(LAUNCHES_TAG + json.dumps(dict(cuda_topk.launches)))
+    return rc
+
+
+def _cli(args, *, det: bool = False, env: dict = None):
+    code = "import sys, chip_smoke as s; sys.exit(s.cli_main(sys.argv[1:]))"
+    env = dict(env or {})
+    if det:
+        env["SMOKE_DETERMINISTIC"] = "1"
+    return _python(code, *args, env=env)
+
+
+def _cli_wait(proc, what: str, want_rc: int, total: dict) -> str:
+    rc, out = _wait(proc, what)
+    check(rc == want_rc, f"{what}: rc {rc}, expected {want_rc}")
+    tagged = [line for line in out.splitlines()
+              if line.startswith(LAUNCHES_TAG)]
+    for name, n in json.loads(tagged[-1][len(LAUNCHES_TAG):]).items():
+        total[name] += n
+    return out
+
+
+def _ckpt(out_dir: str, step: int, rank: int = 0) -> dict:
+    import torch
+
+    return torch.load(f"{out_dir}/ckpt/{step}/rank{rank}.pt",
+                      weights_only=True)
+
+
+def multihost_ref_rank(device, cfg, num_iters: int) -> int:
+    """Phase 12d's reference: one rank of the spawned P = 2 run, the body
+    ``dist_trainer`` spawns, under deterministic algorithms."""
+    from gtopkssgd_tpu_torch import dist_trainer
+
+    deterministic(True)
+    return dist_trainer._rank_run(device, cfg, num_iters, False)["rc"]
+
+
+def grow_rank(device, out_dir: str) -> dict:
+    """Phase 12c's grow: a P = 2 trainer restoring a P = 1 checkpoint
+    under ``elastic``; this rank's residual."""
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    with Trainer(TrainConfig(dnn="resnet20", batch_size=32,
+                             compression="gtopk", density=0.001,
+                             topk_method="twostage", nworkers=2,
+                             eval_batches=1, out_dir=out_dir, resume=True,
+                             elastic=True, prefetch=0,
+                             device=str(device))) as t:
+        return {"rank": t.rank, "step": t.step,
+                "residual": t.optimizer.state["residual"].cpu()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def resilience_phase() -> dict:
+    """Phases 12c and 12d, each through the ``dist_trainer`` command line
+    in a subprocess: preemption at P = 1 (exit 45, then a resume bitwise
+    an uninterrupted run); an elastic shrink 2 -> 1 (exit 46, residual
+    column sums kept, trains on) and a grow 1 -> 2 (the new rank's
+    residual zero); ``--multihost`` with two env-launched ranks bitwise
+    the spawned P = 2 run. Returns the launches of the P = 1 processes
+    (a spawned rank's are not read back)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel.dist import spawn
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    total = {name: 0 for name in REPLACES}
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    two = ["--topk-method", "twostage"]
+    pal = ["--topk-method", "pallas"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        a, b, c, g, m, r = (os.path.join(tmp, x) for x in "abcgmr")
+        port = str(_free_port())
+        group1 = {
+            "preempt": (_cli(SMOKE_BASE + two + [
+                "--num-iters", "6", "--out-dir", a, "--inject",
+                "preempt@3"], det=True), 45),
+            "straight": (_cli(SMOKE_BASE + two + [
+                "--num-iters", "6", "--out-dir", b], det=True), 0),
+            "shrink": (_cli(SMOKE_BASE + pal + [
+                "--nworkers", "2", "--dist-backend", backend,
+                "--num-iters", "6", "--out-dir", c, "--elastic",
+                "--inject", "resize@3:1"]), 46),
+            "grow": (_cli(SMOKE_BASE + two + [
+                "--num-iters", "6", "--out-dir", g, "--elastic",
+                "--inject", "resize@2:2"]), 46),
+        }
+        for rank in range(2):
+            group1[f"multihost{rank}"] = (_cli(
+                SMOKE_BASE + two + ["--multihost", "--num-iters", "3",
+                                    "--out-dir", m, "--dist-backend",
+                                    backend], det=True,
+                env={"RANK": str(rank), "WORLD_SIZE": "2",
+                     "LOCAL_RANK": str(rank % cards),
+                     "MASTER_ADDR": "localhost", "MASTER_PORT": port}), 0)
+        ref_cfg = TrainConfig(dnn="resnet20", batch_size=32,
+                              compression="gtopk", density=0.001,
+                              topk_method="twostage", eval_batches=1,
+                              seed=42, prefetch=0, nworkers=2, out_dir=r)
+        ref = spawn(multihost_ref_rank, 2, ref_cfg, 3, backend=backend,
+                    device="cuda", timeout=600)
+        check(ref == [0, 0], f"multihost reference: rc {ref}")
+        for what, (proc, rc) in group1.items():
+            _cli_wait(proc, what, rc, total)
+        # 12c, preemption: resume to step 6, against 6 straight.
+        resume = _cli(SMOKE_BASE + two + ["--num-iters", "3", "--out-dir",
+                                          a, "--resume"], det=True)
+        # 12c, shrink: the relaunch's restored residual, in this process.
+        check(os.path.exists(os.path.join(c, "elastic.json")),
+              "shrink: no elastic.json")
+        with open(os.path.join(c, "elastic.json")) as fh:
+            lineage = json.load(fh)
+        saved = [_ckpt(c, 3, q)["residual"].double() for q in range(2)]
+        with Trainer(TrainConfig(dnn="resnet20", batch_size=32,
+                                 compression="gtopk", density=0.001,
+                                 topk_method="pallas", eval_batches=1,
+                                 out_dir=c, resume=True, elastic=True,
+                                 prefetch=0, device="cuda")) as t:
+            got = t.optimizer.state["residual"].cpu().double()
+            check(t.step == 3, f"shrink: restored step {t.step}")
+        want = saved[0] + saved[1]
+        err = float((got - want).abs().max())
+        ulp = float(want.abs().max()) * 2.0 ** -23
+        check(err <= ulp, f"shrink: column sums moved by {err} > {ulp}")
+        relaunch = _cli(SMOKE_BASE + pal + [
+            "--nworkers", "1", "--num-iters", "2", "--out-dir", c,
+            "--resume", "--elastic"])
+        # 12c, grow: 1 -> 2 ranks, the new rank's residual zero.
+        grown = spawn(grow_rank, 2, g, backend="gloo", device="cuda",
+                      timeout=600)
+        before = _ckpt(g, 2)["residual"].numpy()
+        check(np.array_equal(grown[0]["residual"], before)
+              and grown[0]["step"] == 2,
+              "grow: rank 0's residual is not the saved one")
+        check(not np.any(np.asarray(grown[1]["residual"])),
+              "grow: the new rank's residual is not zero")
+        _cli_wait(resume, "resume", 0, total)
+        _cli_wait(relaunch, "shrink relaunch", 0, total)
+        full, resumed = _ckpt(b, 6), _ckpt(a, 6)
+        same = all(torch.equal(v, resumed[key]) for key, v in full.items())
+        check(same, "preempt@3 + resume != 6 straight steps")
+        # 12d: the env-launched ranks against the spawned P = 2 run.
+        for rank in range(2):
+            mine, theirs = _ckpt(m, 3, rank), _ckpt(r, 3, rank)
+            check(all(torch.equal(v, theirs[key]) for key, v in mine.items()
+                      if key.startswith("model.")),
+                  f"multihost rank {rank}: parameters != spawned P = 2")
+    print(f"resilience: preempt@3 exit 45, resume to step 6 bitwise 6 "
+          f"straight steps (deterministic algorithms); shrink 2 -> 1 "
+          f"({backend}) exit 46, lineage {lineage['lineage_id']} epoch "
+          f"{lineage['resize_epoch']}, restored residual within {err:.3g} "
+          f"of the saved column sums (bound {ulp:.3g}), the relaunch trained "
+          f"on; grow 1 -> 2 exit 46, the new rank's residual zero; "
+          f"multihost: two env-launched ranks ({backend}) bitwise the "
+          f"spawned P = 2 run's parameters; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1871,6 +2313,11 @@ def main() -> int:
     for phase in (bf16_phase, dispatch_phase):
         for name, count in phase().items():
             total[name] += count
+    for name, count in jpeg_phase().items():
+        total[name] += count
+    topk_phase()
+    for name, count in resilience_phase().items():
+        total[name] += count
 
     n0 = SIZES[0]
     line = []

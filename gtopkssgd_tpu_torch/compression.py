@@ -31,8 +31,8 @@ from gtopkssgd_tpu_torch.ops import (
 @dataclasses.dataclass(frozen=True)
 class TopKCompressor:
     """Magnitude top-k with error feedback. `density` = k / N; `method`
-    picks the selection (ops.topk.select_topk): auto | exact | threshold |
-    pallas | twostage."""
+    picks the selection (ops.topk.select_topk): auto | exact | blockwise
+    | approx | threshold | pallas | twostage | simrecall."""
 
     density: float
     method: str = "auto"

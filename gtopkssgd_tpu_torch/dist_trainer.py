@@ -13,10 +13,13 @@
         [--comm-plan auto|tree|balanced] [--comm-model-fit PATH] \\
         [--out-dir DIR [--resume] [--allow-ckpt-mismatch]] \\
         [--log-interval N] [--dtype bfloat16] [--synth-hard] \\
-        [--prefetch N] [--steps-per-dispatch K]
+        [--prefetch N] [--steps-per-dispatch K] [--decode-workers W] \
+        [--inject SPEC] [--no-preempt-save] [--elastic [--min-fleet N]] \
+        [--multihost]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
-spawns P rank processes joined in one process group: NCCL with one rank
+spawns P rank processes joined in one process group (0, the default:
+every visible card, one rank on the CPU): NCCL with one rank
 per card by default on CUDA (P cards needed), gloo on the CPU;
 ``--dist-backend gloo`` with ``--device cuda`` lets the ranks share the
 visible cards. With ``--num-iters N`` the trainer takes N steps and then
@@ -36,23 +39,55 @@ validation metrics (``val_loss`` and ``val_top1``/``val_top5``,
 ``metrics.rank{r}.jsonl`` a rank at P > 1) and the checkpoints
 (``ckpt/``: each epoch of ``fit()``, and after ``--num-iters`` steps);
 ``--resume`` restores the newest checkpoint there before training.
+
+Exit codes (``exit_codes.py``): 0 done; 45 preempted (a SIGTERM or
+SIGINT under ``--preempt-save``, the default: the step is saved, then
+relaunch the same command with ``--resume``); 46 an elastic resize
+(``--elastic``: saved, ``elastic.json`` rewritten; relaunch with
+``--resume --elastic --nworkers NEWP``). At P > 1 every rank returns its
+code and the command returns it only when all agree. The summary line
+is printed only on 0. ``--multihost``: this process is one rank of a job
+launched from outside, its rank, world size and local rank in ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, the rendezvous in ``MASTER_ADDR`` and
+``MASTER_PORT``; nothing is spawned, and rank 0 prints the summary.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
+import logging
+import os
 import statistics
 import sys
 from typing import Optional, Sequence
 
+import torch
+import torch.distributed as dist
+
+from gtopkssgd_tpu_torch.data.imagenet import prefork_decode_pool
+from gtopkssgd_tpu_torch.exit_codes import (
+    EXIT_ERROR,
+    EXIT_OK,
+    EXIT_RESIZE_RESTART,
+    describe,
+)
+from gtopkssgd_tpu_torch.ops.topk import METHODS
 from gtopkssgd_tpu_torch.parallel import collectives
 from gtopkssgd_tpu_torch.parallel.dist import (
     BACKENDS,
     default_backend,
+    init_from_env,
     rank_device,
     spawn,
+)
+from gtopkssgd_tpu_torch.resilience import (
+    PREEMPT_EXIT_CODE,
+    Preempted,
+    PreemptionGuard,
+    ResizeRestart,
 )
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
@@ -81,8 +116,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="gtopk_hier: ranks per slice (dense sum within "
                         "each contiguous block of this many ranks, gTop-k "
                         "hypercube across the nworkers/hier_ici slices)")
-    p.add_argument("--topk-method", default="auto",
-                   help="auto | exact | threshold | pallas | twostage")
+    p.add_argument("--topk-method", default="auto", choices=list(METHODS),
+                   help="auto (exact up to 2^20 elements, twostage above: "
+                        "ops.topk.AUTO_SWITCH) | exact | blockwise (exact, "
+                        "rows of 65,536 then a reselect) | approx (the "
+                        "twostage path) | threshold | pallas | twostage | "
+                        "simrecall (exact with 5%% of the top k dropped "
+                        "deterministically)")
     p.add_argument("--wire-codec", default="fp32",
                    help="on-wire sparse-set codec: fp32 (identity), "
                         "int8[:BLOCK] or fp8[:BLOCK] (block-scaled values, "
@@ -131,7 +171,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="sparse modes: DGC momentum correction and factor "
                         "masking (the velocity accumulates before "
                         "selection)")
-    p.add_argument("--nworkers", type=int, default=1)
+    p.add_argument("--nworkers", type=int, default=0,
+                   help="ranks; 0 = every visible card (one on the CPU)")
     p.add_argument("--dist-backend", default=None, choices=BACKENDS,
                    help="default: nccl on cuda, gloo on cpu")
     p.add_argument("--data-dir", default=None)
@@ -170,6 +211,36 @@ def build_argparser() -> argparse.ArgumentParser:
                         "in one transfer and one sync; on the card at P = "
                         "1 a CUDA graph of the step replayed K times "
                         "(Trainer.dispatch_rule)")
+    p.add_argument("--decode-workers", type=int, default=0,
+                   help="ImageNet JPEG path: decode worker processes (a "
+                        "pool forked once a rank process)")
+    p.add_argument("--inject", default=None, metavar="SPEC",
+                   help="step-keyed fault injection (resilience/inject.py "
+                        "grammar KIND[:ARG...]@STEP|A-B|latest, comma-"
+                        "separated): nan_grad@K, slow_rank:R:DURs@A-B, "
+                        "loader_raise@K, preempt@K, corrupt_ckpt@latest, "
+                        "reshape@K, resize@K:NEWP, evict_rank:R@K")
+    p.add_argument("--elastic", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="elastic fleet: a preemption or an injected resize "
+                        "drains, saves, rewrites out-dir/elastic.json and "
+                        "exits 46; relaunch with --resume --elastic at the "
+                        "new --nworkers and the residual is re-partitioned "
+                        "(both sides of a resize need this flag)")
+    p.add_argument("--min-fleet", type=int, default=1,
+                   help="elastic: never resize below this many ranks (a "
+                        "preemption that would falls back to exit 45)")
+    p.add_argument("--preempt-save", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="intercept SIGTERM/SIGINT: save the step at the "
+                        "next dispatch boundary, then exit 45 (resume with "
+                        "--resume); --no-preempt-save keeps the default "
+                        "signal disposition")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of an externally launched job: "
+                        "init_process_group from RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR and MASTER_PORT; spawns "
+                        "nothing")
     p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     return p
 
@@ -194,21 +265,43 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         resume=args.resume, allow_ckpt_mismatch=args.allow_ckpt_mismatch,
         dtype=args.dtype, synth_hard=args.synth_hard,
         prefetch=args.prefetch, steps_per_dispatch=args.steps_per_dispatch,
-        device=args.device)
+        decode_workers=args.decode_workers, inject=args.inject,
+        elastic=args.elastic, min_fleet=args.min_fleet, device=args.device)
 
 
-def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
+def run(cfg: TrainConfig, num_iters: Optional[int],
+        preempt_save: bool = False) -> dict:
     """On this process (one rank): train `num_iters` steps and evaluate,
-    or ``fit()`` when `num_iters` is None; summarize."""
+    or ``fit()`` when `num_iters` is None; summarize. ``rc`` is the exit
+    code: 0, or 45 (preempted) or 46 (resized), and then the summary
+    holds only it, the step and the rank. `preempt_save` installs a
+    ``PreemptionGuard`` for the run."""
+    guard = None
     with Trainer(cfg) as trainer:
+        if preempt_save:
+            guard = PreemptionGuard(logger=trainer.logger).install()
+            trainer.preempt = guard
         collectives.reset_wire()
         start = trainer.step
-        if num_iters is not None:
-            stats = {**trainer.train(num_iters), **trainer.test()}
-            trainer.save()
-        else:
-            stats = trainer.fit()
+        try:
+            if num_iters is not None:
+                stats = {**trainer.train(num_iters), **trainer.test()}
+                trainer.save()
+            else:
+                stats = trainer.fit()
+            trainer.finalize_resilience("completed")
+        except (Preempted, ResizeRestart) as why:
+            status = "preempted" if isinstance(why, Preempted) else "resized"
+            trainer.logger.warning("%s: %s", status, why)
+            trainer.finalize_resilience(status)
+            return {"rc": PREEMPT_EXIT_CODE if status == "preempted"
+                    else EXIT_RESIZE_RESTART, "step": trainer.step,
+                    "rank": trainer.rank}
+        finally:
+            if guard is not None:
+                guard.close()
     return {
+        "rc": EXIT_OK,
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
         "topk_method": trainer.cfg.topk_method,
@@ -234,27 +327,95 @@ def run(cfg: TrainConfig, num_iters: Optional[int]) -> dict:
     }
 
 
-def _rank_run(device, cfg: TrainConfig, num_iters: Optional[int]) -> dict:
-    return run(dataclasses.replace(cfg, device=str(device)), num_iters)
+def _rank_run(device, cfg: TrainConfig, num_iters: Optional[int],
+              preempt_save: bool) -> dict:
+    return run(dataclasses.replace(cfg, device=str(device)), num_iters,
+               preempt_save)
+
+
+def decode_pool_size(cfg: TrainConfig) -> int:
+    """The decode pool a rank process of `cfg` forks: ``decode_workers``
+    on the ImageNet JPEG path, else 0."""
+    cfg = cfg.resolved()
+    jpeg = (cfg.dataset == "imagenet" and cfg.data_dir is not None
+            and os.path.isdir(os.path.join(cfg.data_dir, "train")))
+    return cfg.decode_workers if jpeg else 0
+
+
+def resolve_nworkers(args: argparse.Namespace) -> int:
+    """``--nworkers``, 0 read as every visible card (``--device cuda``) or
+    one rank (the CPU); under ``--multihost``, ``WORLD_SIZE``."""
+    if args.multihost:
+        world = int(os.environ.get("WORLD_SIZE", "0"))
+        if args.nworkers not in (0, world):
+            raise SystemExit(f"--multihost: --nworkers {args.nworkers} != "
+                             f"WORLD_SIZE {world}")
+        return world
+    if args.nworkers:
+        return args.nworkers
+    if torch.device(args.device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
+def _finish(outs: list) -> int:
+    """The ranks' common exit code; EXIT_ERROR when they disagree."""
+    codes = sorted({o["rc"] for o in outs})
+    if len(codes) > 1:
+        logging.getLogger(__name__).error(
+            "ranks disagree on the exit code: %s", [
+                (o.get("rank"), o["rc"]) for o in outs])
+        return EXIT_ERROR
+    if codes[0] != EXIT_OK:
+        logging.getLogger(__name__).warning("exit %d: %s", codes[0],
+                                            describe(codes[0]))
+    return codes[0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
+    args.nworkers = resolve_nworkers(args)
     cfg = config_from_args(args)
     cfg.resolved()  # refuse a bad config before spawning ranks
+    pool = decode_pool_size(cfg)
+    if args.multihost:
+        backend = args.dist_backend or default_backend(args.device)
+        release = prefork_decode_pool(pool)  # before the group's threads
+        try:
+            rank, world, device = init_from_env(backend, args.device)
+            try:
+                out = run(dataclasses.replace(cfg, device=str(device)),
+                          args.num_iters, args.preempt_save)
+                codes = [None] * world
+                dist.all_gather_object(codes, out["rc"])
+            finally:
+                dist.destroy_process_group()
+        finally:
+            release()
+        rc = _finish([{"rc": c, "rank": r} for r, c in enumerate(codes)])
+        if rc == EXIT_OK and rank == 0:
+            out["dist_backend"] = backend
+            print(json.dumps(out))
+        return rc
     if args.nworkers > 1:
         backend = args.dist_backend or default_backend(args.device)
         try:
             rank_device(0, args.nworkers, backend, args.device)
         except ValueError as e:
             raise SystemExit(f"--nworkers {args.nworkers}: {e}") from None
-        out = spawn(_rank_run, args.nworkers, cfg, args.num_iters,
-                    backend=backend, device=args.device)[0]
+        outs = spawn(_rank_run, args.nworkers, cfg, args.num_iters,
+                     args.preempt_save, backend=backend, device=args.device,
+                     setup=functools.partial(prefork_decode_pool, pool),
+                     forward_signals=args.preempt_save)
+        out = outs[0]
         out["dist_backend"] = backend
     else:
-        out = run(cfg, args.num_iters)
-    print(json.dumps(out))
-    return 0
+        outs = [run(cfg, args.num_iters, args.preempt_save)]
+        out = outs[0]
+    rc = _finish(outs)
+    if rc == EXIT_OK:
+        print(json.dumps(out))
+    return rc
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 selection methods and sparse-set helpers built on them (``topk``)."""
 
 from gtopkssgd_tpu_torch.ops.topk import (
+    blockwise_topk_abs,
     bucketize_counts,
     k_for_density,
     membership_mask,
@@ -9,12 +10,14 @@ from gtopkssgd_tpu_torch.ops.topk import (
     scatter_add_dense,
     select_tau,
     select_topk,
+    simrecall_topk_abs,
     threshold_topk_abs,
     topk_abs,
     twostage_topk_abs,
 )
 
 __all__ = [
+    "blockwise_topk_abs",
     "bucketize_counts",
     "k_for_density",
     "membership_mask",
@@ -22,6 +25,7 @@ __all__ = [
     "scatter_add_dense",
     "select_tau",
     "select_topk",
+    "simrecall_topk_abs",
     "threshold_topk_abs",
     "topk_abs",
     "twostage_topk_abs",

@@ -1,11 +1,15 @@
 """Magnitude top-k selection and sparse-set helpers, in PyTorch.
 
 Counterpart of ``gtopkssgd_tpu/ops/topk.py`` for the selection methods
-``exact | threshold | pallas | twostage``:
+``exact | blockwise | approx | threshold | pallas | twostage |
+simrecall`` and the ``auto`` policy:
 
 * ``topk_abs`` -- exact top-k of |x|; ties go to the lowest index, as
   ``lax.top_k`` orders them (a stable descending sort: ``torch.topk``
   promises no tie order on CUDA).
+* ``blockwise_topk_abs`` -- exact in two stages: a batched ``torch.topk``
+  over rows of about 65,536, its boundary ties resolved to the lowest
+  index, then a reselect over the candidates; bitwise ``topk_abs``.
 * ``threshold_topk_abs`` / ``_threshold_tau`` -- 4 rounds of 8-way
   geometric multisection on tau, then a compaction of the survivors and
   one small exact top-k. Method ``pallas`` runs the 4 rounds as one launch
@@ -13,7 +17,20 @@ Counterpart of ``gtopkssgd_tpu/ops/topk.py`` for the selection methods
   ``threshold`` counts each round with ``bucketize_counts``.
 * ``twostage_topk_abs`` -- per-bucket max candidates (the CUDA stage-1
   kernel), then an exact reselect over them.
+* ``approx`` -- the port's definition of ``lax.approx_max_k`` at recall
+  0.95, on every device: the ``twostage`` path (bucket maxima, then an
+  exact reselect; expected recall about 0.97 at ``TWOSTAGE_OVERSAMPLE``
+  16), the TPU's production behaviour. XLA lowers ``approx_max_k`` to an
+  exact top-k on the CPU, so the two are held by recall, not bitwise.
+* ``simrecall_topk_abs`` -- the JAX package's deterministic model of a
+  0.95-recall selection: the exact top-(k + pad), each of the top k
+  dropped with probability 0.05 by a ``uniform`` draw keyed from the
+  bits of sum(x) and sum(|x|) (``ops.prng``, threefry as ``jax.random``),
+  the freed slots backfilled in rank order.
 * ``select_tau`` -- tau alone, for the threshold-mask compressor.
+* ``_resolve_auto`` -- ``auto``: ``exact`` up to ``AUTO_SWITCH``
+  elements, ``twostage`` above, from the whole selection stage timed on
+  an H100 (``select_probe``).
 * ``merge_sparse_sets`` -- one round of the gTop-k tree: the sparse sum of
   two sets and their top-k, order-canonical (two stable sorts).
 
@@ -26,12 +43,15 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from gtopkssgd_tpu_torch.ops import cuda_topk
+from gtopkssgd_tpu_torch.ops import cuda_topk, prng
 from gtopkssgd_tpu_torch.ops.cuda_topk import BLOCK, BLOCK_ROWS, LANES
 
-METHODS = ("auto", "exact", "threshold", "pallas", "twostage")
+#: The JAX CLI's ``--topk-method`` choices, in its order.
+METHODS = ("auto", "exact", "blockwise", "approx", "threshold", "pallas",
+           "twostage", "simrecall")
 
 
 def k_for_density(n: int, density: float) -> int:
@@ -49,6 +69,83 @@ def topk_abs(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of |x|: (signed values, i32 indices), descending."""
     idx = _topk_order(x.abs(), k)
     return x[idx], idx.to(torch.int32)
+
+
+BLOCKWISE_ROW = 65536
+SIMRECALL_KEY = 0x51AEC
+
+
+def _blockwise_rows(n: int) -> Tuple[int, int]:
+    """(rows, row length) of the blockwise split: max(1, n // 65536)
+    rows of ceil(n / rows)."""
+    rows = max(1, n // BLOCKWISE_ROW)
+    return rows, -(-n // rows)
+
+
+def blockwise_topk_abs(x: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of |x| in two stages: each row of the zero-padded
+    (rows, length) view keeps its top min(k, length) by one batched
+    ``torch.topk``, the ties at a row's boundary value going to its
+    lowest positions; the candidates, in index order, are reselected.
+    Every true top-k element is in its row's candidates and ties go to
+    the lowest index in both stages, so the result is ``topk_abs``'s,
+    bitwise; padding (index >= n) comes back as index n, value 0."""
+    n = x.shape[0]
+    rows, length = _blockwise_rows(n)
+    kb = min(k, length)
+    xp = torch.nn.functional.pad(x, (0, rows * length - n))
+    mag = xp.abs().view(rows, length)
+    kth = torch.topk(mag, kb, dim=1).values[:, -1:]
+    above = mag > kth
+    tied = mag == kth
+    room = kb - above.sum(1, keepdim=True)
+    take = above | (tied & (torch.cumsum(tied, 1) <= room))
+    # Each row takes exactly kb: compact them in index order.
+    slot = torch.cumsum(take, 1) - 1 + torch.arange(
+        rows, device=x.device)[:, None] * kb
+    slot = torch.where(take, slot, rows * kb)
+    pos = torch.arange(rows * length, dtype=torch.int64, device=x.device)
+    cand_idx = torch.full((rows * kb + 1,), rows * length, dtype=torch.int64,
+                          device=x.device)
+    cand_idx.scatter_(0, slot.view(-1), pos)
+    cand_idx = cand_idx[:-1]
+    cand_val = xp[cand_idx]
+    sel = _topk_order(cand_val.abs(), k)
+    idx, vals = cand_idx[sel], cand_val[sel]
+    oob = idx >= n
+    return (torch.where(oob, torch.zeros_like(vals), vals),
+            torch.where(oob, torch.full_like(idx, n), idx).to(torch.int32))
+
+
+def _sum_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bits of the float32 sum of `v` as an int32 tensor."""
+    return v.sum(dtype=torch.float32).reshape(1).view(torch.int32)[0]
+
+
+def simrecall_topk_abs(x: torch.Tensor, k: int, recall: float = 0.95
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's pessimistic model of a `recall` selection: the
+    exact top-m, m = min(n, k + pad), pad = max(16, ceil(4k(1 -
+    recall))); each of the top k dropped where a uniform draw exceeds
+    `recall`; survivors in rank order, then the backfill ranks k..m, then
+    the dropped ones. The draw's key is ``PRNGKey(0x51AEC)`` folded with
+    the bits of sum(x), then of sum(|x|), both float32, so it follows
+    the data. A float32 sum depends on its order, and torch's (and the
+    card's) is not XLA's: the set is bitwise JAX's only where the sums
+    are exact in any order."""
+    n = x.shape[0]
+    pad = max(16, int(math.ceil(k * (1.0 - recall) * 4)))
+    m = min(n, k + pad)
+    vals, idx = topk_abs(x, m)
+    key = prng.fold_in(prng.prng_key(SIMRECALL_KEY, x.device), _sum_bits(x))
+    key = prng.fold_in(key, _sum_bits(x.abs()))
+    ranks = torch.arange(m, dtype=torch.int64, device=x.device)
+    draw = prng.uniform(key, m)
+    # JAX compares in float32: the float32 `recall`, exactly.
+    dropped = (ranks < k) & (draw > float(np.float32(recall)))
+    order = torch.sort(torch.where(dropped, m + ranks, ranks)).indices[:k]
+    return vals[order], idx[order]
 
 
 def bucketize_counts(mag: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -198,11 +295,29 @@ def twostage_topk_abs(
             torch.where(oob, torch.full_like(idx, n), idx))
 
 
+# The largest size at which ``exact`` (a full stable sort) took no longer
+# than ``twostage`` with ``twostage`` faster at every size above, for the
+# whole selection stage on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (``select_probe --flat``, ``parallel/select_auto.json``): 0.2630 against
+# 0.3027 ms at 2^21; 0.4043 against 0.2595 at 2^22, 3.9640 against 0.8228
+# at 61.1M. Below it both sit near the launch floor.
+AUTO_SWITCH = 1 << 21
+
+
 def _resolve_auto(n: int) -> str:
-    """The `auto` policy. Exact for now at every size: the JAX package's
-    choice above 2^20 elements was measured on a TPU and does not carry
-    over; the H100 policy waits for H100 measurements."""
-    return "exact"
+    """The `auto` policy: ``exact`` up to ``AUTO_SWITCH`` elements,
+    ``twostage`` above."""
+    return "exact" if n <= AUTO_SWITCH else "twostage"
+
+
+def _method(method: str, n: int) -> str:
+    """`method` with ``auto`` resolved at size n and ``approx`` read as
+    ``twostage`` (its definition in the port); refuses unknown names."""
+    if method not in METHODS:
+        raise ValueError(f"unknown topk method {method!r}")
+    if method == "auto":
+        method = _resolve_auto(n)
+    return "twostage" if method == "approx" else method
 
 
 def select_tau(
@@ -217,10 +332,7 @@ def select_tau(
     For twostage, tau is the k-th largest CANDIDATE magnitude, so the mask
     |acc| >= tau holds every candidate the reselect would keep."""
     n = x.shape[0]
-    if method == "auto":
-        method = _resolve_auto(n)
-    if method not in METHODS:
-        raise ValueError(f"unknown topk method {method!r}")
+    method = _method(method, n)
     if method == "twostage":
         if k >= n:
             acc = x if residual is None else x + residual
@@ -232,6 +344,13 @@ def select_tau(
     acc = x if residual is None else x + residual
     if k >= n:
         return acc.abs().min()
+    if method == "blockwise":
+        rows, length = _blockwise_rows(n)
+        mag = torch.nn.functional.pad(acc.abs(), (0, rows * length - n))
+        cand = torch.topk(mag.view(rows, length), min(k, length), dim=1)
+        return torch.topk(cand.values.reshape(-1), k).values[k - 1]
+    if method == "simrecall":
+        return simrecall_topk_abs(acc, k)[0].abs().min()
     return torch.topk(acc.abs(), k).values[k - 1]
 
 
@@ -243,18 +362,19 @@ def select_topk(
     residual: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vals, idx) of the top-k of |x (+ residual)| by the chosen method;
-    values are read from acc. `twostage` folds the add into its stage-1
-    pass; the other methods add first."""
-    if method == "auto":
-        method = _resolve_auto(x.shape[0])
-    if method not in METHODS:
-        raise ValueError(f"unknown topk method {method!r}")
+    values are read from acc. `twostage` (and `approx`, the same path)
+    folds the add into its stage-1 pass; the other methods add first."""
+    method = _method(method, x.shape[0])
     if method == "twostage":
         return twostage_topk_abs(x, k, residual=residual)
     if residual is not None:
         x = x + residual
     if method == "exact":
         return topk_abs(x, k)
+    if method == "blockwise":
+        return blockwise_topk_abs(x, k)
+    if method == "simrecall":
+        return simrecall_topk_abs(x, k)
     return threshold_topk_abs(x, k, pallas=method == "pallas")
 
 

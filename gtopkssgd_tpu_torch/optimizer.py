@@ -111,7 +111,7 @@ from gtopkssgd_tpu_torch.ops import (
     scatter_add_dense,
     select_topk,
 )
-from gtopkssgd_tpu_torch.ops.topk import _resolve_auto
+from gtopkssgd_tpu_torch.ops.topk import _method
 from gtopkssgd_tpu_torch.parallel.bucketing import (
     buckets_key,
     device_kind,
@@ -384,7 +384,7 @@ class GTopKSGD(torch.optim.SGD):
         #: where there is none, and nothing needs it).
         self.select_gamma = select_gamma
         if select_gamma is None and not self.dense_mode:
-            method = _resolve_auto(n) if topk_method == "auto" else topk_method
+            method = _method(topk_method, n)
             self.select_gamma = find_select_gamma(device_kind(device), method)
             prices_selection = bucket_spec != "concat" and (
                 pipeline_spec == "auto"

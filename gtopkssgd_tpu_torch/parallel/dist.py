@@ -11,7 +11,17 @@
   ``fn(device, *args)`` on each and returns their results in rank order,
   tensors turned into numpy arrays. ``fn`` must be importable without jax.
   A rank that raises or a run that outlasts ``timeout`` fails the call;
-  every rank process is stopped before it returns.
+  every rank process is stopped before it returns. ``setup`` runs in
+  each rank process before it joins the group (a fork there sees none of
+  the group's threads) and returns the function run after ``fn``;
+  ``forward_signals`` passes a SIGTERM or SIGINT the parent receives on
+  to every rank process while they run.
+* ``init_from_env(backend, device)`` joins the group of a job launched
+  from outside (``--multihost``): rank, world size and local rank from
+  ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, the rendezvous from
+  ``MASTER_ADDR`` and ``MASTER_PORT`` (``init_method="env://"``), retried
+  as the JAX CLI retries its ``jax.distributed.initialize``; the device
+  is ``cuda:LOCAL_RANK`` or the CPU.
 """
 
 from __future__ import annotations
@@ -19,10 +29,11 @@ from __future__ import annotations
 import multiprocessing
 import os
 import queue as queue_mod
+import signal
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,11 +79,53 @@ def init_process_group(rank: int, world_size: int, init_method: str,
             kw["device_id"] = dev
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank, **kw)
+    _warm_up(dev, backend, world_size)
+    return dev
+
+
+def _warm_up(dev: torch.device, backend: str, world_size: int) -> None:
     probe = torch.ones(1, device=dev if backend == "nccl" else "cpu")
     dist.all_reduce(probe)
     if float(probe) != world_size:
         raise RuntimeError(f"warm-up all-reduce gave {float(probe)}")
-    return dev
+
+
+ENV_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_from_env(backend: str, device: str, retries: int = 3,
+                  delay: float = 2.0, logger=None
+                  ) -> Tuple[int, int, torch.device]:
+    """Join the default process group of an externally launched job as
+    the environment says (module docstring); (rank, world size,
+    device). One thread, as a spawned rank computes."""
+    from gtopkssgd_tpu_torch.resilience.preempt import retry_call
+
+    missing = [v for v in ENV_VARS if v not in os.environ]
+    if missing:
+        raise ValueError(f"--multihost needs {', '.join(ENV_VARS)} in the "
+                         f"environment; missing {', '.join(missing)}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    torch.set_num_threads(1)
+    kw = {}
+    if torch.device(device).type == "cuda":
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        if backend == "nccl":
+            kw["device_id"] = dev
+    elif backend == "nccl":
+        raise ValueError(f"backend nccl needs CUDA tensors, not {device}")
+    else:
+        dev = torch.device("cpu")
+    retry_call(lambda: dist.init_process_group(
+        backend, init_method="env://", world_size=world, rank=rank, **kw),
+        retries=retries, delay=delay, logger=logger,
+        desc="torch.distributed.init_process_group")
+    _warm_up(dev, backend, world)
+    return rank, world, dev
 
 
 def _to_host(obj: Any) -> Any:
@@ -86,22 +139,46 @@ def _to_host(obj: Any) -> Any:
 
 
 def _rank_main(fn: Callable, rank: int, world_size: int, init_method: str,
-               backend: str, device: str, args: tuple, results) -> None:
+               backend: str, device: str, args: tuple, results,
+               setup: Optional[Callable]) -> None:
     torch.set_num_threads(1)
     try:
-        dev = init_process_group(rank, world_size, init_method, backend,
-                                 device)
+        teardown = setup() if setup is not None else None
         try:
-            out = fn(dev, *args)
+            dev = init_process_group(rank, world_size, init_method, backend,
+                                     device)
+            try:
+                out = fn(dev, *args)
+            finally:
+                dist.destroy_process_group()
         finally:
-            dist.destroy_process_group()
+            if teardown is not None:
+                teardown()
         results.put((rank, True, _to_host(out)))
     except Exception:  # reported to the parent, which raises it
         results.put((rank, False, traceback.format_exc()))
 
 
+def _forward(procs, signals) -> dict:
+    """Install handlers passing `signals` on to the live `procs`; the old
+    handlers, to restore (none off the main thread)."""
+    def handler(signum, frame):
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    old = {}
+    try:
+        for sig in signals:
+            old[sig] = signal.signal(sig, handler)
+    except ValueError:  # not the main thread
+        pass
+    return old
+
+
 def spawn(fn: Callable, nworkers: int, *args, backend: str, device: str,
-          timeout: float = 600.0) -> List[Any]:
+          timeout: float = 600.0, setup: Optional[Callable] = None,
+          forward_signals: bool = False) -> List[Any]:
     """``fn(device, *args)`` on each of `nworkers` rank processes; the
     results in rank order."""
     ctx = multiprocessing.get_context("spawn")
@@ -110,9 +187,11 @@ def spawn(fn: Callable, nworkers: int, *args, backend: str, device: str,
         init_method = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, args=(
             fn, rank, nworkers, init_method, backend, device, args,
-            results)) for rank in range(nworkers)]
+            results, setup)) for rank in range(nworkers)]
         for p in procs:
             p.start()
+        old = (_forward(procs, (signal.SIGTERM, signal.SIGINT))
+               if forward_signals else {})
         out = {}
         deadline = time.monotonic() + timeout
         try:
@@ -137,6 +216,8 @@ def spawn(fn: Callable, nworkers: int, *args, backend: str, device: str,
             for p in procs:
                 p.join(timeout=max(1.0, deadline - time.monotonic()))
         finally:
+            for sig, handler in old.items():
+                signal.signal(sig, handler)
             for p in procs:
                 if p.is_alive():
                     p.terminate()

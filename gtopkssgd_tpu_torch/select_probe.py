@@ -1,6 +1,8 @@
-"""The selection stage's cost on the card, fitted for the pipeline model.
+"""The selection stage's cost on the card, fitted for the pipeline model,
+and timed at the zoo's flat sizes for the ``auto`` policy.
 
     python -m gtopkssgd_tpu_torch.select_probe [--out PATH] [--reps R]
+    python -m gtopkssgd_tpu_torch.select_probe --flat [--out PATH]
 
 Times the port's own selection stage, ``GTopKSGD._select`` (accumulate,
 local top-k at density 0.001, zero-out; the fp32 wire, no codec fold),
@@ -23,12 +25,21 @@ Writes ``parallel/select_fit.json`` (or `--out`): the card's name and
 power limit as nvidia-smi reports them, and per method the sizes, times,
 gamma and the fit's error. ``parallel.bucketing.find_select_gamma`` reads
 it by the card's name and the method. Needs a CUDA card.
+
+``--flat`` times the same stage for every method ``auto`` could pick
+from (``FLAT_METHODS``) at the zoo's flat gradient sizes and the powers of
+two between them (``FLAT_SIZES``, 272,474 to 61,100,840), and writes
+``parallel/select_auto.json`` (or `--out`): the table, and
+``auto_switch``, the largest size at which ``exact`` is no slower than
+``twostage`` with ``twostage`` faster at every size above it.
+``ops.topk.AUTO_SWITCH`` is set from it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 from typing import Dict, List, Sequence, Tuple
@@ -38,6 +49,14 @@ import torch
 from gtopkssgd_tpu_torch.parallel import bucketing
 
 METHODS = ("exact", "threshold", "pallas", "twostage")
+FLAT_METHODS = ("exact", "blockwise", "approx", "simrecall", "twostage",
+                "pallas")
+#: ResNet-20, then powers of two, VGG-16, the PTB LSTM, AN4, ResNet-50
+#: and AlexNet: the flat gradients ``auto`` selects over.
+FLAT_SIZES = (272_474, 524_288, 1_048_576, 2_097_152, 4_194_304, 8_388_608,
+              14_986_698, 19_775_200, 20_340_477, 25_557_032, 61_100_840)
+FLAT_FIT = os.path.join(os.path.dirname(bucketing.SELECT_FIT),
+                        "select_auto.json")
 LEAF_MODELS = ("resnet20", "resnet50")
 DENSITY = 0.001
 REPS = 20
@@ -133,6 +152,26 @@ def probe(sizes: Sequence[int], methods: Sequence[str] = METHODS,
     return out
 
 
+def flat_table(sizes: Sequence[int] = FLAT_SIZES,
+               methods: Sequence[str] = FLAT_METHODS,
+               reps: int = REPS) -> Dict[str, List[float]]:
+    """Per method, the stage ms at each of `sizes`."""
+    return {method: [stage_ms(method, n, reps) for n in sizes]
+            for method in methods}
+
+
+def auto_switch(sizes: Sequence[int], exact_ms: Sequence[float],
+                twostage_ms: Sequence[float]) -> int:
+    """The largest size at which ``exact`` is no slower than ``twostage``
+    while ``twostage`` is faster at every larger size (0: ``twostage``
+    is faster everywhere)."""
+    switch = 0
+    for n, e, t in zip(sizes, exact_ms, twostage_ms):
+        if e <= t:
+            switch = n
+    return switch
+
+
 def write_fit(doc: dict, fh) -> None:
     """`doc` as JSON, one line a key and one a fit."""
     head = [f" {json.dumps(k)}: {json.dumps(v)}" for k, v in doc.items()
@@ -146,6 +185,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=bucketing.SELECT_FIT)
     ap.add_argument("--reps", type=int, default=REPS)
+    ap.add_argument("--flat", action="store_true",
+                    help="time every method at the flat sizes and write "
+                         "the auto policy's table")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("select_probe: no CUDA device", file=sys.stderr)
@@ -155,6 +197,29 @@ def main(argv=None) -> int:
     card = card_identity()
     device = torch.cuda.get_device_name(0)
     power_limit = card.split(",")[-1].strip()
+    if args.flat:
+        table = flat_table(reps=args.reps)
+        switch = auto_switch(FLAT_SIZES, table["exact"], table["twostage"])
+        for method, ms in table.items():
+            print(f"select {method}: ms at n = " + ", ".join(
+                f"{n}: {t:.4f}" for n, t in zip(FLAT_SIZES, ms)))
+        print(f"auto_switch {switch}")
+        doc = {"script": "python -m gtopkssgd_tpu_torch.select_probe "
+                         "--flat",
+               "stage": "GTopKSGD._select, density 0.001, fp32 wire; "
+                        f"median of {args.reps} calls, CUDA events on an "
+                        "idle card",
+               "card": card, "device": device, "power_limit": power_limit,
+               "torch": torch.__version__, "cuda": torch.version.cuda,
+               "sizes": list(FLAT_SIZES), "auto_switch": switch,
+               "ms": table}
+        out = FLAT_FIT if args.out == bucketing.SELECT_FIT else args.out
+        with open(out, "w") as fh:
+            json.dump(doc, fh, indent=1)
+            fh.write("\n")
+        print(card)
+        print(f"wrote {out}")
+        return 0
     sizes = sorted(set(leaf_sizes()) | set(bucket_sizes()))
     fits = [{"device": device, "power_limit": power_limit, **f}
             for f in probe(sizes, reps=args.reps)]

@@ -70,11 +70,32 @@ The lifecycle and the host path (the JAX trainer's):
   steps (``dispatch``) is decided at construction by a stated rule
   (``dispatch_rule``): on the card at P = 1 with ``dense``, ``gtopk`` or
   ``gtopk_layerwise`` under the ``serial`` pipeline, a selection method
-  of ``exact`` (``auto``), ``twostage`` or ``pallas``, and a model whose
+  of ``auto``, ``exact``, ``twostage`` or ``pallas``, and a model whose
   loss reads no lengths back to the host (not AN4's CTC), one step is
   captured in a ``torch.cuda.CUDAGraph`` and replayed ("graph");
   everywhere else the steps run one after another ("staged"). See
   ``_graph_step`` for what the graph holds and when a step runs eagerly.
+* The datasets are built first, before the model reaches the card and
+  before the prefetch thread starts: the ImageNet JPEG path's decode
+  pool (``decode_workers``) forks when its dataset is built.
+
+Resilience (``resilience/``), the JAX trainer's without the recovery
+policy:
+
+* ``inject``: step-keyed faults (``resilience.inject``), fired at the
+  dispatch boundaries; the host fetch runs under ``retry_call`` then.
+* A ``PreemptionGuard`` the command line assigns to ``self.preempt``:
+  at each dispatch boundary a triggered guard saves the step and raises
+  ``Preempted`` (exit 45). At P > 1 the ranks agree first: one
+  all-reduce of one int a dispatch (``_stop_requested``), made only
+  when a guard, an injector or ``elastic`` is there, so every rank stops
+  at the same step.
+* ``elastic``: a resize (an agreed preemption, to P - 1 unless below
+  ``min_fleet``; an injected ``resize@K:NEWP``) saves, rewrites
+  ``elastic.json`` and raises ``ResizeRestart`` (exit 46); a restore at
+  another P re-partitions the residual (``utils.checkpoint``). The
+  checkpoint's config hash then nulls the fleet size and the elastic
+  knobs, and the manifest carries the lineage id.
 """
 
 from __future__ import annotations
@@ -108,6 +129,16 @@ from gtopkssgd_tpu_torch.modes import DENSE_MODES, HIER_MODES
 from gtopkssgd_tpu_torch.ops import cuda_topk
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 from gtopkssgd_tpu_torch.parallel.collectives import pmean, psum
+from gtopkssgd_tpu_torch.resilience import (
+    FaultInjector,
+    Preempted,
+    ResizeRestart,
+    load_lineage,
+    mint_lineage_id,
+    parse_inject,
+    retry_call,
+    write_lineage,
+)
 from gtopkssgd_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     state_digest,
@@ -151,8 +182,9 @@ class TrainConfig:
                                           # | 'topk_allgather' |
                                           # 'gtopk_hier' | 'gtopk_layerwise'
     density: float = 0.001
-    topk_method: str = "auto"      # auto | exact | threshold | pallas |
-                                   # twostage
+    topk_method: str = "auto"      # auto | exact | blockwise | approx |
+                                   # threshold | pallas | twostage |
+                                   # simrecall
     wire_codec: str = "fp32"       # fp32 | int8[:BLOCK] | fp8[:BLOCK]
     hier_ici: int = 1              # gtopk_hier: ranks per slice (dense sum
                                    # within it, gTop-k across slices)
@@ -197,12 +229,31 @@ class TrainConfig:
                                    # batches staged in one transfer, one
                                    # sync; a CUDA graph replayed K times
                                    # where ``dispatch_rule`` allows
+    decode_workers: int = 0        # ImageNet JPEG path: decode processes
+    inject: Optional[str] = None   # step-keyed fault injection spec
+                                   # (resilience/inject.py grammar)
+    elastic: bool = False          # elastic fleet: a resize saves,
+                                   # rewrites elastic.json and exits 46;
+                                   # a resume at another P re-partitions
+                                   # the residual
+    min_fleet: int = 1             # elastic: never resize below this
     device: str = "cuda"
 
     def resolved(self) -> "TrainConfig":
         """The config with the dataset's defaults filled in; refuses a
         gtopk_hier slice width that does not divide the ranks, and the
         JAX trainer's invalid values."""
+        if self.nworkers < 1:
+            raise ValueError(f"nworkers={self.nworkers} must be >= 1 (the "
+                             "command line reads 0 as every visible "
+                             "device)")
+        if self.decode_workers < 0:
+            raise ValueError(f"decode_workers={self.decode_workers} must "
+                             "be >= 0")
+        if self.min_fleet < 1:
+            raise ValueError(f"min_fleet={self.min_fleet} must be >= 1")
+        if self.inject:
+            parse_inject(self.inject)  # a malformed spec fails here
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch={self.steps_per_dispatch}"
                              " must be >= 1")
@@ -276,6 +327,24 @@ class Trainer:
                                  f"group has {size} ranks")
             self.rank = dist.get_rank(self.group)
         self.device = torch.device(cfg.device)
+        self.logger = logging.getLogger("gtopkssgd_tpu_torch.trainer")
+        # The datasets first: the JPEG path's decode pool forks here,
+        # before this process touches the card or starts a thread.
+        data_kw = dict(batch_size=cfg.batch_size, data_dir=cfg.data_dir,
+                       seed=cfg.seed)
+        if cfg.dataset == "cifar10" and cfg.synth_hard:
+            data_kw["synth_hard"] = True
+        if cfg.dataset == "imagenet" and cfg.decode_workers > 0:
+            data_kw["decode_workers"] = cfg.decode_workers
+
+        def dataset(**kw):
+            return retry_call(lambda: get_dataset(cfg.dataset, **kw),
+                              retries=2, delay=0.5, logger=self.logger,
+                              desc=f"get_dataset({cfg.dataset})")
+
+        self.train_data = dataset(split="train", rank=self.rank,
+                                  nworkers=cfg.nworkers, **data_kw)
+        self.val_data = dataset(split="test", **data_kw)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.model, self.spec = get_model(
@@ -288,14 +357,6 @@ class Trainer:
         self.dropout_generator = seed_dropout(
             self.model, int(np.random.SeedSequence(
                 [cfg.seed, self.rank]).generate_state(1)[0]))
-        data_kw = dict(batch_size=cfg.batch_size, data_dir=cfg.data_dir,
-                       seed=cfg.seed)
-        if cfg.dataset == "cifar10" and cfg.synth_hard:
-            data_kw["synth_hard"] = True
-        self.train_data = get_dataset(
-            cfg.dataset, split="train", rank=self.rank,
-            nworkers=cfg.nworkers, **data_kw)
-        self.val_data = get_dataset(cfg.dataset, split="test", **data_kw)
         self.steps_per_epoch = shard_steps_per_epoch(
             self.train_data, cfg.batch_size, cfg.nsteps_update)
         self.layout = flat_layout(self.model)
@@ -334,16 +395,41 @@ class Trainer:
         #: uncounted) and the launches replays ran.
         self.graph_stats = {"captures": 0, "replays": 0,
                             "captured": {}, "replayed": {}}
-        self.logger = logging.getLogger("gtopkssgd_tpu_torch.trainer")
         self.metrics = MetricsLogger(cfg.out_dir, rank=self.rank,
                                      shard=cfg.nworkers > 1)
+        self.injector = (FaultInjector(cfg.inject, metrics=self.metrics,
+                                       logger=self.logger, rank=self.rank)
+                         if cfg.inject else None)
+        #: The PreemptionGuard the command line installs (None: signals
+        #: keep their handlers).
+        self.preempt = None
+        # The elastic lineage: one id for the logical run, carried across
+        # resizes in out_dir/elastic.json; in the manifest only under
+        # elastic.
+        self.lineage = None
+        extra = {}
+        if cfg.elastic:
+            if self.rank == 0:
+                self.lineage = load_lineage(cfg.out_dir)
+                if self.lineage is None:
+                    self.lineage = {"lineage_id": mint_lineage_id(),
+                                    "resize_epoch": 0, "p": cfg.nworkers}
+                    if cfg.out_dir:
+                        write_lineage(cfg.out_dir, **self.lineage)
+            if self.group is not None:  # rank 0's, on every rank
+                box = [self.lineage]
+                dist.broadcast_object_list(box, src=0, group=self.group)
+                self.lineage = box[0]
+            extra = {"lineage_id": self.lineage["lineage_id"],
+                     "resize_epoch": int(self.lineage.get("resize_epoch",
+                                                          0))}
         backend = None if self.group is None else dist.get_backend(self.group)
         self.manifest = run_manifest(
             self._identity(), device=self.device, backend=backend,
             world_size=cfg.nworkers, num_params=self.num_params,
             steps_per_epoch=self.steps_per_epoch,
             native_dataprep=native.available(), dispatch=self.dispatch,
-            dtype=cfg.dtype)
+            dtype=cfg.dtype, **extra)
         self.metrics.log("manifest", flush=True, **self.manifest)
         if self.plan_decision is not None:
             self.metrics.log("plan", flush=True,
@@ -352,13 +438,19 @@ class Trainer:
             self.metrics.log("bucket", flush=True,
                              **self.bucket_plan.to_manifest())
         # The checkpoint's config hash nulls what does not change the
-        # experiment (the JAX trainer's nulled fields, and resume).
+        # experiment (the JAX trainer's nulled fields, and resume): the
+        # injected faults, and under elastic the fleet size, the elastic
+        # knobs and the out dir, so both sides of a resize agree.
         self._ckpt = None
         if cfg.out_dir:
+            nulled = dict(allow_ckpt_mismatch=False, resume=False,
+                          inject=None)
+            if cfg.elastic:
+                nulled.update(nworkers=0, elastic=False, min_fleet=1,
+                              out_dir=None)
             self._ckpt = CheckpointManager(
-                f"{cfg.out_dir}/ckpt", config_hash=config_hash(
-                    self._identity(allow_ckpt_mismatch=False,
-                                   resume=False)),
+                f"{cfg.out_dir}/ckpt",
+                config_hash=config_hash(self._identity(**nulled)),
                 rank=self.rank, group=self.group, logger=self.logger)
         self._prefetch = None
         self._set_iters(start_epoch=0)
@@ -502,12 +594,17 @@ class Trainer:
             self._prefetch = None
 
     def close(self) -> None:
-        """Stop the prefetcher and the optimizer's merge thread. Training
-        goes on only through ``restore()`` or a new Trainer; ``test()``
-        is unaffected. The metrics file stays open until ``__exit__``."""
+        """Stop the prefetcher and the optimizer's merge thread, and drop
+        the datasets' hold on the decode pool. Training goes on only
+        through ``restore()`` or a new Trainer; ``test()`` is unaffected
+        (its batches decode in this process then). The metrics file
+        stays open until ``__exit__``."""
         self._close_prefetch()
         self._iter = None
         self.optimizer.close()
+        for data in (self.train_data, self.val_data):
+            if hasattr(data, "close"):
+                data.close()
 
     def __enter__(self) -> "Trainer":
         return self
@@ -516,13 +613,24 @@ class Trainer:
         self.close()
         self.metrics.close()
 
-    def _next_host(self) -> Dict[str, np.ndarray]:
-        """The next host micro-batch of the stream."""
+    def _next_host(self, k: int = 1) -> Dict[str, np.ndarray]:
+        """The next host micro-batch of the stream. With an injector, the
+        fetch for the dispatch of steps (step, step + k] runs under
+        ``retry_call``, which absorbs a loader fault (injected or not)."""
         if self._iter is None:
             raise RuntimeError("Trainer is closed; build a new Trainer "
                                "(restore() reopens it from a checkpoint)")
-        return next(self._prefetch) if self._prefetch is not None \
-            else next(self._iter)
+
+        def fetch():
+            if self.injector is not None:
+                self.injector.check_loader(self.step, self.step + k)
+            return next(self._prefetch) if self._prefetch is not None \
+                else next(self._iter)
+
+        if self.injector is None:
+            return fetch()
+        return retry_call(fetch, retries=2, delay=0.05, logger=self.logger,
+                          desc="host batch fetch")
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
@@ -630,10 +738,13 @@ class Trainer:
         returns per step its list of micro-batches (views)."""
         m = self.cfg.nsteps_update
         with record_function("data"):
-            hosts = [self._next_host() for _ in range(k * m)]
-            stacked = self._to_device({
-                key: np.stack([h[key] for h in hosts]) if len(hosts) > 1
-                else hosts[0][key][None] for key in hosts[0]})
+            hosts = [self._next_host(k) for _ in range(k * m)]
+            host = {key: np.stack([h[key] for h in hosts]) if len(hosts) > 1
+                    else hosts[0][key][None] for key in hosts[0]}
+            if self.injector is not None:
+                host = self.injector.reshape_batch(
+                    host, self.step, self.step + k, axis=1)
+            stacked = self._to_device(host)
         return [[{key: v[i * m + j] for key, v in stacked.items()}
                  for j in range(m)] for i in range(k)]
 
@@ -668,7 +779,11 @@ class Trainer:
         fresh = opt.param_groups[0]["momentum"] and any(
             "momentum_buffer" not in opt.state.get(p, {})
             for p in self.model.parameters())
-        if count < self._eager_until() or fresh:
+        if count < self._eager_until() or fresh or (
+                self._graph is not None and any(
+                    static[key].shape != raw[key].shape
+                    for static, raw in zip(self._graph["inputs"], batches)
+                    for key in static)):
             return self._train_step(batches)
         if self._graph is None or self._graph["lr"] != lr:
             self._capture(batches, lr)
@@ -754,9 +869,14 @@ class Trainer:
         step_times: List[float] = []
         t_start = time.perf_counter()
         samples = 0
+        inj = self.injector
         for _ in range(num_iters // k):
             t0 = time.perf_counter()
             outs = []
+            if inj is not None:
+                inj.sleep_if_slow(self.step, self.step + k)
+                inj.poison_params(self.model.parameters(), self.step,
+                                  self.step + k)
             for batches in self._stage(k):
                 if self.dispatch == "graph":
                     outs.append(self._graph_step(batches))
@@ -783,6 +903,7 @@ class Trainer:
                 if self.kind == "ptb":
                     row["ppl"] = float(np.exp(min(row["loss"], 20.0)))
                 self.metrics.log("train", **row)
+            self._at_boundary(self.step - k)
         wall = time.perf_counter() - t_start
         losses = cols["loss"]
         out = {
@@ -799,6 +920,121 @@ class Trainer:
         if self.kind == "ptb":
             out["ppl"] = float(np.exp(min(out["loss"], 20.0)))
         return out
+
+    # ------------------------------------------------------ resilience
+    def _at_boundary(self, prev: int) -> None:
+        """The dispatch of steps (prev, self.step] has run: fire the
+        injected preemption and resizes, then act on an agreed stop (a
+        resize to P - 1 under elastic, else the emergency save)."""
+        inj = self.injector
+        if inj is not None:
+            inj.maybe_preempt(prev, self.step, self.preempt)
+            new_p = inj.pending_resize(prev, self.step)
+            if new_p is not None:
+                self._injected_resize(new_p, reason="inject")
+            rank = inj.pending_evict(prev, self.step)
+            if rank is not None:
+                self._injected_resize(self.cfg.nworkers - 1, reason="evict",
+                                      evicted_ranks=(rank,))
+        if self._stop_requested():
+            if self.cfg.elastic:
+                self._resize_now(self.cfg.nworkers - 1, reason="preempt")
+            self._preempt_now()
+
+    def _stop_requested(self) -> bool:
+        """Whether a preemption was signalled, agreed on by every rank: at
+        P > 1 one all-reduce (max) of this rank's flag, made only when a
+        guard, an injector or elastic is there (all ranks have the same
+        configuration, so all make it or none does)."""
+        local = self.preempt is not None and self.preempt.triggered
+        if self.group is None or (self.preempt is None
+                                  and self.injector is None
+                                  and not self.cfg.elastic):
+            return local
+        nccl = dist.get_backend(self.group) == "nccl"
+        flag = torch.tensor([int(local)], dtype=torch.int32,
+                            device=self.device if nccl else "cpu")
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(flag.item())
+
+    def _injected_resize(self, new_p: int, *, reason: str,
+                         evicted_ranks=()) -> None:
+        if not self.cfg.elastic:
+            self.logger.warning("inject: %s to P=%d ignored: run without "
+                                "--elastic", reason, new_p)
+            return
+        self._resize_now(new_p, reason=reason, evicted_ranks=evicted_ranks)
+
+    def _preempt_now(self) -> None:
+        """Save this step (every rank) and raise ``Preempted``."""
+        step = self.step
+        if self._ckpt is not None:
+            self.save()
+            self.metrics.log("recovery", flush=True,
+                             action="emergency_save", step=step)
+            self.logger.warning("preemption: emergency checkpoint at step "
+                                "%d -> %s", step, self._ckpt.directory)
+        else:
+            self.logger.warning("preemption at step %d with no out_dir: "
+                                "nothing saved", step)
+        raise Preempted(f"preemption signal at step {step}")
+
+    def _resize_now(self, new_p: int, *, reason: str,
+                    evicted_ranks=()) -> None:
+        """An elastic resize at this step: save (every rank), rank 0
+        rewrites ``elastic.json`` for `new_p`, a flushed "resize" record,
+        then ``ResizeRestart``. Below ``min_fleet`` a preemption falls
+        back to the emergency save and exit 45, anything else to a
+        warning; without an out dir there is nothing to hand on."""
+        cfg, step, p = self.cfg, self.step, self.cfg.nworkers
+        if new_p < max(1, cfg.min_fleet):
+            self.logger.warning("elastic: refusing resize %d -> %d below "
+                                "min_fleet=%d (%s)", p, new_p,
+                                cfg.min_fleet, reason)
+            if reason == "preempt":
+                self._preempt_now()
+            return
+        if self._ckpt is None:
+            self.logger.warning("elastic: resize (%s) at step %d with no "
+                                "out_dir: nothing to hand the relaunch; "
+                                "ignoring", reason, step)
+            return
+        self.save()
+        evicted = [int(r) for r in evicted_ranks]
+        lineage = dict(self.lineage or {})
+        lineage.update(
+            lineage_id=lineage.get("lineage_id") or mint_lineage_id(),
+            resize_epoch=int(lineage.get("resize_epoch", 0)) + 1,
+            prev_p=p, p=int(new_p), reason=reason, evicted_ranks=evicted,
+            drained_step=step)
+        if self.rank == 0:
+            write_lineage(cfg.out_dir, **lineage)
+        if self.group is not None:
+            dist.barrier(group=self.group)  # the lineage is on disk
+        self.lineage = lineage
+        self.metrics.log(
+            "resize", flush=True, step=step, old_p=p, new_p=int(new_p),
+            reason=reason, evicted_ranks=evicted, drained_step=step,
+            restore_step=step, lineage_id=lineage["lineage_id"],
+            resize_epoch=lineage["resize_epoch"])
+        self.logger.warning(
+            "elastic resize (%s): p %d -> %d at step %d; relaunch with "
+            "--resume --elastic --nworkers %d", reason, p, new_p, step,
+            new_p)
+        raise ResizeRestart(f"resize {p} -> {new_p} ({reason}) at step "
+                            f"{step}")
+
+    def finalize_resilience(self, status: str) -> None:
+        """The run's closing "recovery" record (status: completed,
+        preempted, resized); none for a completed run without faults."""
+        if self.injector is None and status == "completed":
+            return
+        self.metrics.log(
+            "recovery", flush=True, action="summary", final_status=status,
+            completed=int(status == "completed"), n_recoveries=0,
+            step=self.step,
+            injected={} if self.injector is None
+            else self.injector.summary())
 
     @torch.no_grad()
     def test(self) -> Dict[str, float]:
@@ -946,17 +1182,33 @@ class Trainer:
 
     def restore(self) -> bool:
         """Restore the newest checkpoint of ``out_dir/ckpt`` and
-        fast-forward the data stream to its step (mid-epoch too); False
-        when there is none. Refuses a checkpoint of another config (unless
-        ``allow_ckpt_mismatch``) or another P (collective at P > 1)."""
+        fast-forward the data stream to its step (mid-epoch too; at a new
+        P, this P's shards and epochs); False when there is none. Refuses
+        a checkpoint of another config (unless ``allow_ckpt_mismatch``)
+        or of another P unless ``elastic``, which re-partitions the
+        residual (collective at P > 1). An injected ``corrupt_ckpt``
+        tears the newest step first."""
         if self._ckpt is None:
             return False
+        if self.injector is not None:
+            # corrupt_ckpt@latest fires here, right before the read.
+            if self.rank == 0:
+                self.injector.maybe_corrupt_ckpt(self._ckpt.directory)
+            if self.group is not None:
+                dist.barrier(group=self.group)
         mine = self.checkpoint_state()
         saved = self._ckpt.restore(
             state_digest(mine), allow_mismatch=self.cfg.allow_ckpt_mismatch,
-            device=self.device)
+            device=self.device, elastic=self.cfg.elastic,
+            rank_local=("dropout_rng", "carry."))
         if saved is None:
             return False
+        if self._ckpt.last_restored_world != self.cfg.nworkers:
+            # A rank the resize added keeps its own rank-local state.
+            saved = {**mine, **saved}
+            self.logger.warning(
+                "elastic restore: residual re-partitioned %d -> %d ranks",
+                self._ckpt.last_restored_world, self.cfg.nworkers)
         opt = self.optimizer
         self.model.load_state_dict(
             {name[len("model."):]: t for name, t in saved.items()

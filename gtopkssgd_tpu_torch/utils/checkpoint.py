@@ -22,9 +22,14 @@ sidecar BEFORE it reads a tensor:
   digest mismatch      -> CheckpointMismatch (the state's structure
                           changed); ``allow_mismatch`` lets it through
                           too, as in the JAX package
-  other world size     -> ValueError: a resume at another P needs the
-                          residual re-partitioned, which is the elastic
-                          resume of ROADMAP.md section 1, item 7
+  other world size     -> ValueError, unless ``elastic``: then the
+                          residual is re-partitioned onto this run's P
+                          (``resilience.elastic``): rank r adds up the
+                          old rows ``source_rows`` names (its own, then
+                          r + P * j on a shrink; none, zeros, for a rank
+                          a grow added), its rank-local entries come
+                          from its old rank's file (a new rank keeps its
+                          own), the replicated ones from any file
   unreadable file      -> the previous step, with a warning (a machine
                           killed mid-save leaves a torn latest step); at
                           P > 1 the ranks agree on the newest step every
@@ -41,12 +46,16 @@ import json
 import logging
 import os
 import shutil
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-ROADMAP_ELASTIC = "ROADMAP.md section 1, item 7 (elastic resume)"
+from gtopkssgd_tpu_torch.resilience.elastic import source_rows
+
+#: Entries whose name starts so are the rank's row of a per-rank buffer,
+#: re-partitioned by an elastic restore (the residual's layouts).
+FOLD_PREFIX = "residual"
 
 
 class CheckpointMismatch(RuntimeError):
@@ -79,10 +88,12 @@ class CheckpointManager:
         self.world = 1 if group is None else dist.get_world_size(group)
         self.logger = logger or logging.getLogger(__name__)
         self.last_restored_step: Optional[int] = None
+        self.last_restored_world: Optional[int] = None
         os.makedirs(self.directory, exist_ok=True)
 
-    def _rank_path(self, step: int) -> str:
-        return os.path.join(self.directory, str(step), f"rank{self.rank}.pt")
+    def _rank_path(self, step: int, rank: Optional[int] = None) -> str:
+        return os.path.join(self.directory, str(step),
+                            f"rank{self.rank if rank is None else rank}.pt")
 
     def _integrity_path(self, step: int) -> str:
         return os.path.join(self.directory, f"integrity-{step}.json")
@@ -143,15 +154,21 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, str(step)),
                           ignore_errors=True)
 
-    def _verify(self, step: int, digest: str, allow_mismatch: bool) -> None:
+    def saved_world(self, step: int) -> int:
+        """The world size `step` was saved at (1 without a record)."""
         rec = self._read_integrity(step) or {}
-        saved_world = int(rec.get("meta", {}).get("world_size", 1))
-        if saved_world != self.world:
+        return int(rec.get("meta", {}).get("world_size", 1))
+
+    def _verify(self, step: int, digest: str, allow_mismatch: bool,
+                elastic: bool) -> None:
+        rec = self._read_integrity(step) or {}
+        saved_world = self.saved_world(step)
+        if saved_world != self.world and not elastic:
             raise ValueError(
                 f"checkpoint step {step} in {self.directory} was saved by "
                 f"{saved_world} rank(s), this run has {self.world}: a "
                 f"resume at another P re-partitions the residual, which "
-                f"is {ROADMAP_ELASTIC}, not ported")
+                f"takes --elastic on both sides of the resize")
         problems = []
         want = rec.get("config_hash")
         if (want is not None and self.config_hash is not None
@@ -181,18 +198,51 @@ class CheckpointManager:
         dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
         return bool(flag.item())
 
+    def _load(self, step: int, rank: int, device) -> Dict[str, torch.Tensor]:
+        return torch.load(self._rank_path(step, rank), map_location=device,
+                          weights_only=True)
+
+    def _load_resized(self, step: int, old_p: int, device,
+                      rank_local: Sequence[str]
+                      ) -> Dict[str, torch.Tensor]:
+        """This rank's state of a step saved at `old_p` ranks (module
+        docstring); entries named by a prefix in `rank_local` are left
+        out for a rank the resize added."""
+        rows = source_rows(self.rank, old_p, self.world)
+        files = [self._load(step, r, "cpu") for r in rows] or [
+            self._load(step, 0, "cpu")]
+        state = {}
+        for name, t in files[0].items():
+            if name.startswith(FOLD_PREFIX):
+                if not rows:
+                    t = torch.zeros_like(t)
+                else:
+                    t = t.clone()
+                    for other in files[1:]:
+                        t += other[name]
+            elif not rows and name.startswith(tuple(rank_local)):
+                continue
+            state[name] = t.to(device)
+        return state
+
     def restore(self, digest: str, *, allow_mismatch: bool = False,
-                device="cpu") -> Optional[Dict[str, torch.Tensor]]:
+                device="cpu", elastic: bool = False,
+                rank_local: Sequence[str] = ()
+                ) -> Optional[Dict[str, torch.Tensor]]:
         """This rank's state of the newest complete step that every rank
         can read (None when there is no step), on `device`. `digest` is
-        ``state_digest`` of the state this run would save."""
+        ``state_digest`` of the state this run would save. ``elastic``
+        restores a step saved at another world size (module docstring);
+        ``last_restored_world`` then says which."""
         candidates = sorted(self.all_steps(), reverse=True)
         for s in candidates:
-            self._verify(s, digest, allow_mismatch)
+            self._verify(s, digest, allow_mismatch, elastic)
+            old_p = self.saved_world(s)
             state, err = None, None
             try:
-                state = torch.load(self._rank_path(s), map_location=device,
-                                   weights_only=True)
+                state = (self._load(s, self.rank, device)
+                         if old_p == self.world else
+                         self._load_resized(s, old_p, device, rank_local))
             except Exception as e:  # torn or unreadable: the step before
                 err = e
             if not self._all_ok(state is not None):
@@ -207,6 +257,7 @@ class CheckpointManager:
                                     "step %d was unreadable)", s,
                                     candidates[0])
             self.last_restored_step = s
+            self.last_restored_world = old_p
             return state
         if candidates:
             raise RuntimeError(f"no restorable checkpoint in "

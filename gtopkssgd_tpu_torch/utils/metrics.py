@@ -10,7 +10,9 @@ line being written; ``flush=True`` also fsyncs the record (the manifest).
 The port writes the record kinds in ``KINDS``: the run manifest first
 (``utils.manifest``), then the wire plan and the buckets where the
 trainer has them, ``train`` every ``log_interval`` steps, ``eval`` after
-each ``Trainer.test()`` and ``epoch`` after each epoch of ``fit()``.
+each ``Trainer.test()`` and ``epoch`` after each epoch of ``fit()``;
+with the resilience flags, ``inject`` a fault's firing, ``recovery`` an
+emergency save and the run's summary, ``resize`` an elastic resize.
 An unregistered kind raises, so a typo fails loudly.
 """
 
@@ -29,6 +31,9 @@ KINDS = frozenset({
     "train",     # training stats every log_interval steps
     "eval",      # validation metrics
     "epoch",     # end-of-epoch combined stats
+    "inject",    # a fault injection firing (resilience/inject.py)
+    "recovery",  # an emergency save, a run's resilience summary
+    "resize",    # an elastic resize, before exit 46 (resilience/elastic.py)
 })
 
 _SHARD_RE = re.compile(r"^metrics\.rank(\d+)\.jsonl$")

@@ -389,8 +389,8 @@ def test_resume_keeps_the_dropout_generator_and_the_carry(tmp_path):
 def test_resume_at_two_ranks_and_another_p_refused(tmp_path):
     """P = 2 over gloo: each rank's resumed state equals its uninterrupted
     one; every rank wrote its own metrics shard, both led by a manifest
-    with one config hash; resuming a P = 1 checkpoint at P = 2 raises,
-    naming the elastic resume."""
+    with one config hash; resuming a P = 1 checkpoint at P = 2 without
+    ``elastic`` raises, naming ``--elastic``."""
     p1 = str(tmp_path / "p1")
     with Trainer(TrainConfig(device="cpu", out_dir=p1, **SMALL)) as t:
         t.train(1)
@@ -404,7 +404,7 @@ def test_resume_at_two_ranks_and_another_p_refused(tmp_path):
         for name, t in out["full"].items():  # numpy, from the ranks
             np.testing.assert_array_equal(t, out["resumed"][name],
                                           err_msg=f"{rank} {name}")
-        assert "item 7" in out["other_p_error"]
+        assert "--elastic" in out["other_p_error"]
     assert not np.array_equal(ranks[0]["full"]["residual"],
                               ranks[1]["full"]["residual"])
     hashes = set()
@@ -468,11 +468,9 @@ def test_resume_without_checkpoint_starts_fresh(tmp_path):
 
 # ------------------------------------------------------------ the CLI
 
-# JAX flags the port does not have yet, by ROADMAP.md item: the real-JPEG
-# ImageNet path (item 9), resilience and observability (item 7).
+# JAX flags the port does not have yet, by ROADMAP.md item: observability
+# and the resilience that rests on it (item 7).
 MISSING_FLAGS = {
-    # item 9, the JPEG path (PIL and the files are not there)
-    "--decode-workers",
     # item 7, observability
     "--obs-counters", "--obs-interval", "--obs-layers",
     "--obs-audit-interval", "--obs-events", "--obs-timeline",
@@ -485,10 +483,9 @@ MISSING_FLAGS = {
     "--obs-link-degraded-windows", "--obs-forecast",
     "--obs-forecast-targets", "--obs-forecast-drift-x", "--obs-watchdog",
     "--obs-halt-on",
-    "--registry", "--profile-dir", "--profile-steps", "--multihost",
-    # item 7, resilience
-    "--inject", "--recover-policy", "--elastic", "--evict-after-windows",
-    "--min-fleet", "--preempt-save",
+    "--registry", "--profile-dir", "--profile-steps",
+    # item 7b, the recovery policy; 7c, eviction (it reads the goodput)
+    "--recover-policy", "--evict-after-windows",
 }
 
 
@@ -512,17 +509,36 @@ def test_cli_flags_and_defaults_match_the_jax_cli():
     missing = {f for f in set(jax) - set(port) if not f.startswith("--no-")}
     assert missing == MISSING_FLAGS
     for flag in set(port) & set(jax):
-        if flag == "--nworkers":  # JAX: 0 = every visible device
-            assert (port[flag].default, jax[flag].default) == (1, 0)
-            continue
         assert port[flag].default == jax[flag].default, flag
-    # 38 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
-    assert len({a.dest for a in port.values()}) == 38
+    # 44 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
+    assert len({a.dest for a in port.values()}) == 44
     assert len({a.dest for a in jax.values()}) == 74
     for flag in ("--out-dir", "--log-interval", "--resume",
                  "--allow-ckpt-mismatch", "--dtype", "--synth-hard",
-                 "--prefetch", "--steps-per-dispatch"):
+                 "--prefetch", "--steps-per-dispatch", "--decode-workers",
+                 "--inject", "--elastic", "--no-elastic", "--min-fleet",
+                 "--preempt-save", "--no-preempt-save", "--multihost"):
         assert flag in port
+
+
+def test_nworkers_zero_is_every_visible_device(capsys, monkeypatch):
+    """``--nworkers 0`` (the default, as in JAX) trains one rank on the
+    CPU and reads the card count on CUDA; ``resolved()`` refuses fewer
+    than one rank, so the trainer never sees 0."""
+    args = ["--batch-size", "4", "--num-iters", "1", "--eval-batches", "1",
+            "--device", "cpu", "--prefetch", "0"]
+    assert dist_trainer.main(args + ["--nworkers", "0"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["nworkers"] == 1 and out["step"] == 1
+    parse = dist_trainer.build_argparser().parse_args
+    assert parse([]).nworkers == 0
+    assert dist_trainer.resolve_nworkers(parse(["--device", "cpu"])) == 1
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert dist_trainer.resolve_nworkers(parse([])) == 3
+    assert dist_trainer.resolve_nworkers(parse(["--nworkers", "2"])) == 2
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="nworkers"):
+            TrainConfig(nworkers=bad, device="cpu").resolved()
 
 
 def test_cli_resumes_from_out_dir(tmp_path, capsys):

@@ -247,10 +247,14 @@ def test_bucketize_scatter_membership_bitwise():
 
 
 def test_unported_method_is_refused():
+    """A name outside the JAX CLI's eight is refused; since the port has
+    all eight (``approx`` among them), each of those selects."""
     x = torch.randn(100)
     for fn in (topk.select_tau, topk.select_topk):
         with pytest.raises(ValueError, match="unknown topk method"):
-            fn(x, 5, "approx")
+            fn(x, 5, "approx_max_k")
+        for method in topk.METHODS:
+            fn(x, 5, method)
 
 
 @pytest.mark.cuda

@@ -327,3 +327,18 @@ def dispatch_runs(device, cfg_kwargs, steps, ks):
             out[k] = {"losses": stats["losses"], "dispatch": t.dispatch,
                       "state": _state_cpu(t)}
     return out
+
+
+def elastic_restore(device, cfg_kwargs, out_dir):
+    """Rank program: a trainer restoring `out_dir`'s newest checkpoint
+    under ``elastic`` (saved at another P); this rank's step, restored
+    world size and residual buffers (on the CPU)."""
+    with Trainer(TrainConfig(device=str(device), out_dir=out_dir,
+                             resume=True, elastic=True,
+                             **cfg_kwargs)) as t:
+        res = t.optimizer.state["residual"]
+        res = res if isinstance(res, dict) else {"residual": res}
+        return {"rank": t.rank, "step": t.step,
+                "world": t._ckpt.last_restored_world,
+                "residual": {k: v.detach().cpu() for k, v in res.items()},
+                "manifest": dict(t.manifest)}

@@ -341,7 +341,11 @@ def test_epoch_makes_only_the_batches_asked_for(dataset, split):
 
 
 def test_imagenet_folder_is_refused(tmp_path):
+    """A split folder is read as JPEGs, never replaced by synthetic data:
+    an empty ``val/`` is refused (too few samples for a batch, the JAX
+    dataset's error); the train split, with no ``train/``, is synthetic."""
     (tmp_path / "val").mkdir()
-    get_dataset("imagenet", split="train", data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    assert get_dataset("imagenet", split="train",
+                       data_dir=str(tmp_path)).synthetic
+    with pytest.raises(ValueError, match="samples"):
         get_dataset("imagenet", split="test", data_dir=str(tmp_path))
