@@ -31,9 +31,14 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    stage-1 kernel is also held to its twin, not timed, without the
    residual at both sizes, and on ``stage1_design.edge_cases``: n in {1,
    127, 1000, 262,143, 262,145} x groups in {1, 8, 64, 2048}, views one
-   float into their buffers (4-byte loads), and equal maxima of opposite
-   signs in rows that different warps read; residual on and off, counts
-   off and on, each.
+   float into their buffers (4-byte loads), equal maxima of opposite
+   signs in rows that different warps read, and NaNs (``nan_cases``: two
+   NaNs in a bucket, NaN beside +inf, a NaN in the residual only, a NaN
+   with its sign bit set, 1% NaNs, an all-NaN gradient); residual on and
+   off, counts off and on, each, NaNs compared as bits. The multisection
+   kernel in both modes is held to its twin bitwise on the NaN cases
+   without infinities (``multisection_nan_phase``): the NaN rules of
+   ``ops.cuda_topk``.
 3. The main path: the port's Trainer, ResNet-20 at full width on synthetic
    CIFAR-10, batch 32, gTop-k at density 0.001 -- 20 steps with
    ``--topk-method twostage`` (stage-1 kernel: one launch a step), 10 with
@@ -236,7 +241,29 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        two ranks restoring it hold the saved residual and zeros.
    (d) ``--multihost``: two processes told their ranks by the environment,
        their final state's parameters bitwise the spawned P = 2 run's.
-13. A ``kernels`` JSON line, then the last line
+13. The observability and the recovery policy (``obs_phase``), batch 32,
+   density 0.001:
+   (a) ResNet-50 ``twostage`` with ``--obs-layers`` and
+       ``--obs-audit-interval 2``, 6 steps eager under deterministic
+       algorithms: one "obs" record a step and one "layers" record a layer
+       a step, each held to the counters recomputed in float64 from the
+       step's own flat gradient, residual and keep mask (``obs_check``:
+       sent and tau exact, the layers' densities and mean ages within two
+       float32 roundings, norms and mass ratios within OBS_RTOL = 1e-5),
+       the audit's recall in [0.95, 1] at counts 0, 2, 4 and carried at
+       the others; then 6 steps at ``--steps-per-dispatch 2`` in CUDA
+       graphs (two captures: the audit step and the plain one), whose
+       records at steps 2, 4, 6 equal the eager run's, stage-1 launches 6
+       counted through the replays. ResNet-20 ``pallas``, 6 steps eager,
+       held likewise: one residual-mode multisection launch a step.
+   (b) ResNet-20 ``twostage`` with ``nan_grad@3`` and ``nan_loss=skip``:
+       the state after the skip bitwise the state after step 2, one "skip"
+       record and the summary; the same through the command line: rc 0.
+   (c) Through the command line: ``--obs-halt-on error`` with
+       ``nan_grad@3`` exits 44 with step 3's "obs" record the last;
+       ``--obs-watchdog 1`` with ``slow_rank:0:3s@3`` exits 43 with one
+       "stall" record and a "stalled" summary.
+14. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -503,6 +530,35 @@ def stage1_edge_phase() -> int:
                                f"{res is not None}: {bad}")
         print(f"kernel fused_stage1_candidates edge {label} groups={groups}"
               ": match=bitwise, residual on and off, counts off and on")
+        cases += 1
+    cases += multisection_nan_phase()
+    return cases
+
+
+def multisection_nan_phase() -> int:
+    """The multisection kernel in both modes against its twin, bitwise
+    (NaNs compared as bits), on ``stage1_design.nan_cases`` without
+    infinities: the NaN rule (a NaN is never counted nor the maximum) on
+    the card. Returns the number of cases."""
+    from gtopkssgd_tpu_torch.ops import cuda_topk, topk
+    from gtopkssgd_tpu_torch.stage1_design import nan_cases, same_bits
+
+    cases = 0
+    for label, g, r, _ in nan_cases("cuda", inf=False):
+        k = topk.k_for_density(g.shape[0], 0.001)
+        acc = g + r
+        for mode, got, want in (
+                ("residual", cuda_topk.multisection_tau_lo(g, k, r),
+                 cuda_topk.multisection_tau_lo_ref(g, k, r)),
+                ("abs", cuda_topk.multisection_tau_lo(acc, k),
+                 cuda_topk.multisection_tau_lo_ref(acc, k))):
+            for part, a, b in zip(("lo", "thresholds", "counts"), got, want):
+                check(same_bits(a, b),
+                      f"multisection_tau_lo[{mode}] {label}: {part} "
+                      f"{a.flatten()[:8].tolist()} vs twin "
+                      f"{b.flatten()[:8].tolist()}")
+        print(f"kernel multisection_tau_lo edge {label}: match=bitwise, "
+              f"abs and residual (lo {float(got[0]):.6g})")
         cases += 1
     return cases
 
@@ -1922,9 +1978,10 @@ def _python(code: str, *args: str, env: dict = None):
     return proc
 
 
-def _wait(proc, what: str, timeout: float = 600.0):
+def _wait(proc, what: str, timeout: float = 600.0, quiet=()):
     """(rc, stdout) of `proc`, stopped if it outlasts `timeout`; its error
-    output is printed when the code is not 0, 45 or 46."""
+    output is printed when the code is not 0, 45, 46 or one of
+    `quiet`."""
     import subprocess
 
     try:
@@ -1937,7 +1994,7 @@ def _wait(proc, what: str, timeout: float = 600.0):
         fh.seek(0)
         texts.append(fh.read())
         fh.close()
-    if proc.returncode not in (0, 45, 46):
+    if proc.returncode not in (0, 45, 46, *quiet):
         print(f"{what}: rc {proc.returncode}\n{texts[1][-4000:]}",
               file=sys.stderr)
     return proc.returncode, texts[0]
@@ -2083,7 +2140,7 @@ def _cli(args, *, det: bool = False, env: dict = None):
 
 
 def _cli_wait(proc, what: str, want_rc: int, total: dict) -> str:
-    rc, out = _wait(proc, what)
+    rc, out = _wait(proc, what, quiet=(want_rc,))
     check(rc == want_rc, f"{what}: rc {rc}, expected {want_rc}")
     tagged = [line for line in out.splitlines()
               if line.startswith(LAUNCHES_TAG)]
@@ -2243,6 +2300,297 @@ def resilience_phase() -> dict:
     return total
 
 
+# Phase 13: the observability and the recovery policy.
+OBS_STEPS = 6
+OBS_RTOL = 1e-5  # the norms and mass ratios: float32 sums of up to 25.6M
+OBS_RECALL = (0.95, 1.0)
+OBS_BASE = dict(batch_size=32, compression="gtopk", density=0.001,
+                eval_batches=1, seed=42, log_interval=1, obs_layers=True,
+                obs_audit_interval=2)
+
+
+def obs_reference(opt, res_before, age):
+    """The counters of the P = 1 threshold step just taken, recomputed in
+    float64 from its own tensors: the flat gradient (``opt.flat_grad``;
+    no clip in these runs), the residual before the step, the keep mask;
+    `age` (f64[N], on the card) advanced in place. Returns (scalars,
+    layer rows)."""
+    import torch
+
+    acc = (opt.flat_grad + res_before).double()  # what the card selected
+    flat = opt.flat_grad.double()
+    keep = opt.last_keep
+    upd = torch.where(keep, acc, 0.0)
+    resid = torch.where(keep, 0.0, acc)
+    age.add_(1.0).masked_fill_(upd != 0, 0.0)
+    n = acc.shape[0]
+
+    def stats(o, s):
+        a, u, k = acc[o:o + s], upd[o:o + s], keep[o:o + s]
+        kept = a.abs()[k]
+        return {
+            "sent": float(k.sum()),
+            "tau": float(kept.min()) if kept.numel() else 0.0,
+            "m_k": float((u * u).sum() / max(float((a * a).sum()), 1e-30)),
+            "grad_norm_pre": float(flat[o:o + s].norm()),
+            "grad_norm_post": float(u.norm()),
+            "residual_norm": float(resid[o:o + s].norm()),
+            "residual_age": float(age[o:o + s].mean()),
+        }
+
+    whole = stats(0, n)
+    lay = opt.layout
+    rows = [stats(o, s) for o, s in zip(lay.offsets, lay.sizes)]
+    for r, s in zip(rows, lay.sizes):
+        r["density"] = r.pop("sent") / s
+    whole["sent_elems"] = whole.pop("sent")
+    whole["achieved_density"] = whole["sent_elems"] / n
+    return whole, rows
+
+
+def _obs_close(got: float, want: float, rtol: float) -> bool:
+    return abs(got - want) <= rtol * max(abs(got), abs(want), 1e-30)
+
+
+def obs_check(run: str, recs, wants, layer_names) -> None:
+    """Each step's "obs" and "layers" records against `wants` (step ->
+    the float64 counters): sent and tau exactly (tau is a float32 of the
+    card's own accumulator), the layers' densities and mean ages to two
+    float32 roundings (a float32 reciprocal, a product), the norms, mass
+    ratios and the whole-model density within OBS_RTOL; the audit's
+    recall in OBS_RECALL on the audit steps (count % 2 == 0: steps 1, 3,
+    5), the previous value on the others."""
+    obs = {r["step"]: r for r in recs if r["kind"] == "obs"}
+    layers = [r for r in recs if r["kind"] == "layers"]
+    check(sorted(obs) == list(range(1, OBS_STEPS + 1)),
+          f"{run}: obs records at steps {sorted(obs)}")
+    check(len(layers) == OBS_STEPS * len(layer_names),
+          f"{run}: {len(layers)} layers records, expected "
+          f"{OBS_STEPS} x {len(layer_names)}")
+    worst = 0.0
+    for step, (whole, rows) in wants.items():
+        r = obs[step]
+        check(r["sent_elems"] == whole["sent_elems"] and r["tau"] ==
+              np_f32(whole["tau"]) and r["collective_count"] == 0.0,
+              f"{run} step {step}: sent/tau {r['sent_elems']}/{r['tau']} "
+              f"vs {whole['sent_elems']}/{whole['tau']}")
+        for key in ("grad_norm_pre", "grad_norm_post", "residual_norm",
+                    "m_k", "achieved_density"):
+            worst = max(worst, abs(r[key] - whole[key]) / max(
+                abs(whole[key]), 1e-30))
+            check(_obs_close(r[key], whole[key], OBS_RTOL),
+                  f"{run} step {step}: {key} {r[key]} vs float64 "
+                  f"{whole[key]}")
+        recall = r["audit_recall"]
+        if step % 2:
+            check(OBS_RECALL[0] <= recall <= OBS_RECALL[1],
+                  f"{run} step {step}: audit recall {recall}")
+        else:
+            check(recall == obs[step - 1]["audit_recall"],
+                  f"{run} step {step}: recall {recall} not carried")
+        mine = [x for x in layers if x["step"] == step]
+        check([x["layer"] for x in mine] == list(layer_names),
+              f"{run} step {step}: layer names")
+        for x, want in zip(mine, rows):
+            check(x["tau"] == np_f32(want["tau"]),
+                  f"{run} step {step} {x['layer']}: tau")
+            for key in ("density", "residual_age"):  # two roundings
+                check(_obs_close(x[key], want[key], 2.5e-7),
+                      f"{run} step {step} {x['layer']}: {key} {x[key]} "
+                      f"vs {want[key]}")
+            for key in ("grad_norm_pre", "grad_norm_post", "residual_norm",
+                        "m_k"):
+                check(_obs_close(x[key], want[key], OBS_RTOL),
+                      f"{run} step {step} {x['layer']}: {key} {x[key]} "
+                      f"vs {want[key]}")
+    print(f"obs {run}: {OBS_STEPS} obs records, {len(layers)} layers "
+          f"records, float64 agreement (largest relative error of a "
+          f"whole-model float field {worst:.3g}), recall "
+          f"{[obs[s]['audit_recall'] for s in sorted(obs)]}")
+
+
+def np_f32(x: float) -> float:
+    import numpy as np
+
+    return float(np.float32(x))
+
+
+def obs_eager(dnn: str, method: str, out_dir: str):
+    """OBS_STEPS eager steps, one at a time, each held to
+    ``obs_reference``; returns (launches, the records, the trainer's
+    median step ms, the layer names)."""
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    with Trainer(TrainConfig(dnn=dnn, topk_method=method, out_dir=out_dir,
+                             device="cuda", **OBS_BASE)) as t:
+        age = torch.zeros(t.num_params, dtype=torch.float64, device="cuda")
+        wants, times = {}, []
+        cuda_topk.reset_launches()
+        for step in range(1, OBS_STEPS + 1):
+            before = t.optimizer.state["residual"].clone()
+            times += t.train(1)["step_times"]
+            wants[step] = obs_reference(t.optimizer, before, age)
+        launches = dict(cuda_topk.launches)
+        names = t.layer_names
+    recs = [json.loads(line) for line in
+            open(f"{out_dir}/metrics.jsonl")]
+    obs_check(f"{dnn} {method} eager", recs, wants, names)
+    return launches, recs, 1e3 * statistics.median(times), names
+
+
+def obs_phase() -> dict:
+    """Phase 13, on the card: (a) the default observability at full width
+    -- ResNet-50 ``twostage`` with ``--obs-layers`` and
+    ``--obs-audit-interval 2``, 6 steps eager (counters against float64,
+    ``obs_check``) and 6 in a CUDA graph at ``--steps-per-dispatch 2``
+    (the audit's and the plain step's captures replayed by the count), the
+    graph's records bitwise the eager run's under deterministic
+    algorithms, K2's launches counted through the replays; ResNet-20
+    ``pallas`` eager (the multisection kernel's launches); (b) a skip:
+    ``nan_grad@3`` claimed by ``nan_loss=skip`` leaves the trainer
+    bitwise at its state after step 2, and through the command line
+    exits 0 with one "skip" record and the summary; (c) ``--obs-halt-on
+    error`` exits 44 at the NaN's step, ``--obs-watchdog 1`` against a 3 s
+    straggler exits 43 with a "stall" record. Returns the launches of the
+    in-process runs and the command lines that read them back."""
+    import os
+    import tempfile
+
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    total = {name: 0 for name in REPLACES}
+    t0 = time.perf_counter()
+    two = ["--topk-method", "twostage", "--num-iters", "5"]
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        d = {x: os.path.join(tmp, x) for x in
+             ("eager", "graph", "pallas", "skip", "cskip", "halt", "stall")}
+        cli = {
+            "skip": (_cli(SMOKE_BASE + two + [
+                "--out-dir", d["cskip"], "--inject", "nan_grad@3",
+                "--recover-policy", "nan_loss=skip"]), 0),
+            "halt": (_cli(SMOKE_BASE + two + [
+                "--out-dir", d["halt"], "--inject", "nan_grad@3",
+                "--obs-halt-on", "error"]), 44),
+        }
+        stall = _cli(SMOKE_BASE + two + [
+            "--out-dir", d["stall"], "--inject", "slow_rank:0:3s@3",
+            "--obs-watchdog", "1"])
+        # (a) ResNet-50, eager then graph, deterministic.
+        deterministic(True)
+        try:
+            launches, eager, eager_ms, names = obs_eager(
+                "resnet50", "twostage", d["eager"])
+            check_launches(launches, {"fused_stage1_candidates": OBS_STEPS},
+                           "phase 13a resnet50 twostage eager")
+            with Trainer(TrainConfig(dnn="resnet50", topk_method="twostage",
+                                     out_dir=d["graph"], device="cuda",
+                                     steps_per_dispatch=2,
+                                     **OBS_BASE)) as g:
+                cuda_topk.reset_launches()
+                stats = g.train(OBS_STEPS)
+                gs = g.graph_stats
+                counted = {name: n - gs["captured"].get(name, 0)
+                           + gs["replayed"].get(name, 0)
+                           for name, n in cuda_topk.launches.items()}
+                check(g.dispatch == "graph" and gs["captures"] == 2,
+                      f"13a graph: dispatch {g.dispatch}, captures "
+                      f"{gs['captures']} (expected the audit's and the "
+                      "plain step's)")
+        finally:
+            deterministic(False)
+        check_launches(counted, {"fused_stage1_candidates": OBS_STEPS},
+                       "phase 13a resnet50 twostage graph")
+        graph = [json.loads(line) for line in
+                 open(os.path.join(d["graph"], "metrics.jsonl"))]
+        for kind in ("obs", "layers"):
+            mine = [{k: v for k, v in r.items() if k != "time"}
+                    for r in graph if r["kind"] == kind]
+            want = [{k: v for k, v in r.items() if k != "time"}
+                    for r in eager if r["kind"] == kind
+                    and r["step"] % 2 == 0]
+            check(len(mine) == len(want) > 0 and mine == want,
+                  f"13a: the graph's {kind} records differ from the eager "
+                  "run's")
+        graph_ms = 1e3 * statistics.median(stats["step_times"])
+        print(f"obs resnet50 twostage: eager {eager_ms:.3f} ms a step, "
+              f"graph (K = 2) {graph_ms:.3f} ms; graph obs and layers "
+              f"records bitwise the eager run's at steps 2, 4, 6; "
+              f"captures {gs['captures']}, stage-1 launches {OBS_STEPS} "
+              "in each run")
+        for run in (launches, counted):
+            for name, n in run.items():
+                total[name] += n
+        # ResNet-20 pallas: the multisection kernel under the counters.
+        launches, _, ms, _ = obs_eager("resnet20", "pallas", d["pallas"])
+        check_launches(launches,
+                       {"multisection_tau_lo[residual]": OBS_STEPS},
+                       "phase 13a resnet20 pallas eager")
+        for name, n in launches.items():
+            total[name] += n
+        print(f"obs resnet20 pallas eager: {ms:.3f} ms a step")
+        # (b) A skip, in process: bitwise the state after step 2.
+        with Trainer(TrainConfig(dnn="resnet20", batch_size=32,
+                                 compression="gtopk", density=0.001,
+                                 topk_method="twostage", out_dir=d["skip"],
+                                 inject="nan_grad@3",
+                                 recover_policy="nan_loss=skip",
+                                 device="cuda")) as t:
+            cuda_topk.reset_launches()
+            t.train(2)
+            snap = {k: v.clone() for k, v in t.checkpoint_state().items()}
+            t.train(1)
+            check(t.step == 2 and t.recovery.n_recoveries == 1,
+                  f"13b: step {t.step} after the skip")
+            now = t.checkpoint_state()
+            bad = [k for k, v in snap.items() if not torch.equal(now[k], v)]
+            check(not bad, f"13b: the state after the skip differs from "
+                           f"the snapshot in {bad[:4]}")
+            t.train(1)
+            t.finalize_resilience("completed")
+            for name, n in cuda_topk.launches.items():
+                total[name] += n
+        recs = [json.loads(line) for line in
+                open(os.path.join(d["skip"], "metrics.jsonl"))]
+        check([r["action"] for r in recs if r["kind"] == "recovery"]
+              == ["skip", "summary"], "13b: recovery records")
+        print("obs skip (in process): nan_grad@3 claimed by nan_loss=skip, "
+              "the state bitwise the pre-step snapshot, one skip record "
+              "and the summary")
+        # (b) and (c) through the command line.
+        for what, (proc, rc) in cli.items():
+            _cli_wait(proc, f"13 {what}", rc, total)
+        recs = [json.loads(line) for line in
+                open(os.path.join(d["cskip"], "metrics.jsonl"))]
+        check([r["action"] for r in recs if r["kind"] == "recovery"]
+              == ["skip", "summary"]
+              and recs[-1]["final_status"] == "completed",
+              "13b CLI: expected one skip record and a completed summary")
+        recs = [json.loads(line) for line in
+                open(os.path.join(d["halt"], "metrics.jsonl"))]
+        last = max(r["step"] for r in recs if r["kind"] == "obs")
+        check(last == 3 and recs[-1]["final_status"] == "halted",
+              f"13c halt: last obs step {last}, expected 3")
+        rc, _ = _wait(stall, "13 stall", quiet=(43,))
+        recs = [json.loads(line) for line in
+                open(os.path.join(d["stall"], "metrics.jsonl"))]
+        stalls = [r for r in recs if r["kind"] == "stall"]
+        check(rc == 43 and len(stalls) == 1
+              and recs[-1]["final_status"] == "stalled",
+              f"13c stall: rc {rc}, {len(stalls)} stall records")
+        print(f"obs CLI: skip rc 0 (one skip record, completed summary); "
+              f"halt rc 44 at step {last}; stall rc 43 (waited "
+              f"{stalls[0]['waited_s']} s, last completed step "
+              f"{stalls[0]['last_completed_step']})")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2317,6 +2665,8 @@ def main() -> int:
         total[name] += count
     topk_phase()
     for name, count in resilience_phase().items():
+        total[name] += count
+    for name, count in obs_phase().items():
         total[name] += count
 
     n0 = SIZES[0]

@@ -41,7 +41,7 @@ The port's module names map onto flax's auto-generated ones:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,7 +136,8 @@ def load_jax_state(trainer, params: Mapping[str, Any],
                    batch_stats: Optional[Mapping[str, Any]],
                    momentum: Optional[Mapping[str, Any]], residual,
                    count: int, carry: Sequence = (),
-                   step: Optional[int] = None) -> None:
+                   step: Optional[int] = None,
+                   telemetry: Optional[Mapping[str, Any]] = None) -> None:
     """Load a JAX trainer's state, as numpy trees, into `trainer` (one
     rank): ``momentum`` is optax's SGD trace, a tree like ``params``, or
     None where there is none (under momentum correction the SGD step has
@@ -146,7 +147,9 @@ def load_jax_state(trainer, params: Mapping[str, Any],
     arrays, the accumulated and the local velocity; ``carry`` is the JAX
     trainer's BPTT carry, one (c, h) pair of f32[P, B, H] per layer (empty
     for the other models), of which this rank takes row
-    ``trainer.rank``."""
+    ``trainer.rank``; ``telemetry`` is the JAX optimizer state's telemetry
+    dict, whose residual age buffer ("age": f32[N], or per leaf under
+    gtopk_layerwise) goes into the optimizer's when both have one."""
     trainer.model.load_state_dict(from_jax_params(params, batch_stats))
     named = dict(trainer.model.named_parameters())
     opt = trainer.optimizer
@@ -168,6 +171,11 @@ def load_jax_state(trainer, params: Mapping[str, Any],
     else:
         opt.state["residual"] = row(residual)
     opt.state["count"] = int(count)
+    age = (telemetry or {}).get("age")
+    if age is not None and "age" in opt.state:
+        leaves = age if isinstance(age, (tuple, list)) else [age]
+        opt.state["age"].copy_(torch.from_numpy(np.concatenate(
+            [np.asarray(a, dtype=np.float32).reshape(-1) for a in leaves])))
     if len(carry):
         trainer.carry = tuple(
             tuple(torch.from_numpy(np.array(x, dtype=np.float32)[
@@ -238,6 +246,13 @@ def _port_names(paths) -> Dict[Path, str]:
         except (KeyError, StopIteration):
             raise ValueError(f"no port name for flax path {path}") from None
     return names
+
+
+def layer_names(model: nn.Module) -> List[str]:
+    """Each leaf of ``flat_layout(model)``, in its order, by its flax key
+    path joined with '/': the JAX counters' layer names."""
+    return ["/".join(path) for path in sorted(
+        flax_path(name) for name, _ in model.named_parameters())]
 
 
 def flat_layout(model: nn.Module) -> FlatLayout:

@@ -15,7 +15,10 @@
         [--log-interval N] [--dtype bfloat16] [--synth-hard] \\
         [--prefetch N] [--steps-per-dispatch K] [--decode-workers W] \
         [--inject SPEC] [--no-preempt-save] [--elastic [--min-fleet N]] \
-        [--multihost]
+        [--multihost] [--no-obs-counters] [--obs-interval N] \
+        [--obs-layers] [--obs-audit-interval N] [--obs-watchdog S] \
+        [--no-obs-events] [--obs-halt-on error|warn] [--obs-timeline PATH] \
+        [--obs-export-port PORT] [--recover-policy POLICY]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group (0, the default:
@@ -40,10 +43,22 @@ validation metrics (``val_loss`` and ``val_top1``/``val_top5``,
 (``ckpt/``: each epoch of ``fit()``, and after ``--num-iters`` steps);
 ``--resume`` restores the newest checkpoint there before training.
 
-Exit codes (``exit_codes.py``): 0 done; 45 preempted (a SIGTERM or
-SIGINT under ``--preempt-save``, the default: the step is saved, then
-relaunch the same command with ``--resume``); 46 an elastic resize
-(``--elastic``: saved, ``elastic.json`` rewritten; relaunch with
+Observability (``obs/``), on by default as in the JAX CLI: the on-device
+counters, an "obs" record every ``--obs-interval`` steps (with
+``--obs-layers`` a "layers" record a layer, with ``--obs-audit-interval``
+the recall audit), and the anomaly monitor's "event" records;
+``--obs-halt-on`` turns events into exit 44, ``--recover-policy`` maps
+rules to skip, rollback or degrade (it needs the monitor: refused with
+``--no-obs-events``), ``--obs-watchdog S`` exits 43 after S seconds
+without progress, ``--obs-timeline`` writes the host timeline and
+``--obs-export-port`` serves the metrics on localhost.
+
+Exit codes (``exit_codes.py``): 0 done; 43 stalled (the watchdog; at
+P > 1 one rank's ends the command, the others stopped); 44 an anomaly
+halt (``--obs-halt-on``, or a recovery budget spent); 45 preempted (a
+SIGTERM or SIGINT under ``--preempt-save``, the default: the step is
+saved, then relaunch the same command with ``--resume``); 46 an elastic
+resize (``--elastic``: saved, ``elastic.json`` rewritten; relaunch with
 ``--resume --elastic --nworkers NEWP``). At P > 1 every rank returns its
 code and the command returns it only when all agree. The summary line
 is printed only on 0. ``--multihost``: this process is one rank of a job
@@ -72,12 +87,15 @@ from gtopkssgd_tpu_torch.exit_codes import (
     EXIT_ERROR,
     EXIT_OK,
     EXIT_RESIZE_RESTART,
+    EXIT_STALL,
     describe,
 )
+from gtopkssgd_tpu_torch.obs.events import HALT_EXIT_CODE, AnomalyHalt
 from gtopkssgd_tpu_torch.ops.topk import METHODS
 from gtopkssgd_tpu_torch.parallel import collectives
 from gtopkssgd_tpu_torch.parallel.dist import (
     BACKENDS,
+    RankExited,
     default_backend,
     init_from_env,
     rank_device,
@@ -88,6 +106,7 @@ from gtopkssgd_tpu_torch.resilience import (
     Preempted,
     PreemptionGuard,
     ResizeRestart,
+    describe_policy,
 )
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 
@@ -214,12 +233,55 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--decode-workers", type=int, default=0,
                    help="ImageNet JPEG path: decode worker processes (a "
                         "pool forked once a rank process)")
+    p.add_argument("--obs-counters", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="on-device compression/comm counters logged as "
+                        "'obs' records (--no-obs-counters leaves them out "
+                        "of the step)")
+    p.add_argument("--obs-interval", type=int, default=1,
+                   help="an 'obs' record every N optimizer steps")
+    p.add_argument("--obs-layers", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="per-layer counters (obs.counters.LAYER_FIELDS), "
+                        "one 'layers' record a layer an obs step")
+    p.add_argument("--obs-audit-interval", type=int, default=0,
+                   help="every N optimizer steps, the recall of the "
+                        "selection against the exact top-k of the "
+                        "accumulator (the 'obs' record's audit_recall, -1 "
+                        "before the first); 0 disables")
+    p.add_argument("--obs-watchdog", type=float, default=0.0,
+                   help="seconds a dispatch may go without a completed "
+                        "read before the stall watchdog logs a 'stall' "
+                        "record and exits 43 (0 = off)")
+    p.add_argument("--obs-events", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="the anomaly monitor (obs.events): NaN/Inf loss, "
+                        "loss spike, density collapse, residual blow-up "
+                        "and age runaway as 'event' records")
+    p.add_argument("--obs-halt-on", default=None, choices=["error", "warn"],
+                   help="exit 44 when an event of at least this severity "
+                        "fires (its record is fsynced first)")
+    p.add_argument("--obs-timeline", default=None, metavar="PATH",
+                   help="write the host timeline (Tracer spans, counter "
+                        "tracks, event and stall markers) as Chrome-trace "
+                        "JSON here on exit (a directory gets "
+                        "timeline.json)")
+    p.add_argument("--obs-export-port", type=int, default=0,
+                   help="serve the latest metric values as OpenMetrics "
+                        "text on this localhost port (curl "
+                        "localhost:PORT/metrics; rank r of --nworkers P "
+                        "on PORT + r); -1 an ephemeral port, 0 off")
     p.add_argument("--inject", default=None, metavar="SPEC",
                    help="step-keyed fault injection (resilience/inject.py "
                         "grammar KIND[:ARG...]@STEP|A-B|latest, comma-"
                         "separated): nan_grad@K, slow_rank:R:DURs@A-B, "
                         "loader_raise@K, preempt@K, corrupt_ckpt@latest, "
                         "reshape@K, resize@K:NEWP, evict_rank:R@K")
+    p.add_argument("--recover-policy", default=None, metavar="POLICY",
+                   help="map anomaly rules to recovery actions instead of "
+                        "exit 44 (grammar rule=action[:budget[:param]], "
+                        "comma-separated; actions skip, rollback, degrade), "
+                        "e.g. 'nan_loss=skip'; needs --obs-events")
     p.add_argument("--elastic", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="elastic fleet: a preemption or an injected resize "
@@ -266,16 +328,23 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         dtype=args.dtype, synth_hard=args.synth_hard,
         prefetch=args.prefetch, steps_per_dispatch=args.steps_per_dispatch,
         decode_workers=args.decode_workers, inject=args.inject,
-        elastic=args.elastic, min_fleet=args.min_fleet, device=args.device)
+        elastic=args.elastic, min_fleet=args.min_fleet,
+        obs_counters=args.obs_counters, obs_interval=args.obs_interval,
+        obs_layers=args.obs_layers,
+        obs_audit_interval=args.obs_audit_interval,
+        obs_watchdog=args.obs_watchdog, obs_events=args.obs_events,
+        obs_halt_on=args.obs_halt_on, obs_timeline=args.obs_timeline,
+        obs_export_port=args.obs_export_port,
+        recover_policy=args.recover_policy, device=args.device)
 
 
 def run(cfg: TrainConfig, num_iters: Optional[int],
         preempt_save: bool = False) -> dict:
     """On this process (one rank): train `num_iters` steps and evaluate,
     or ``fit()`` when `num_iters` is None; summarize. ``rc`` is the exit
-    code: 0, or 45 (preempted) or 46 (resized), and then the summary
-    holds only it, the step and the rank. `preempt_save` installs a
-    ``PreemptionGuard`` for the run."""
+    code: 0, or 44 (an anomaly halt), 45 (preempted) or 46 (resized), and
+    then the summary holds only it, the step and the rank. `preempt_save`
+    installs a ``PreemptionGuard`` for the run."""
     guard = None
     with Trainer(cfg) as trainer:
         if preempt_save:
@@ -290,6 +359,12 @@ def run(cfg: TrainConfig, num_iters: Optional[int],
             else:
                 stats = trainer.fit()
             trainer.finalize_resilience("completed")
+        except AnomalyHalt as halt:
+            # The monitor fsynced the event record before raising.
+            trainer.logger.error("anomaly halt: %s", halt)
+            trainer.finalize_resilience("halted")
+            return {"rc": HALT_EXIT_CODE, "step": trainer.step,
+                    "rank": trainer.rank}
         except (Preempted, ResizeRestart) as why:
             status = "preempted" if isinstance(why, Preempted) else "resized"
             trainer.logger.warning("%s: %s", status, why)
@@ -377,6 +452,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args.nworkers = resolve_nworkers(args)
     cfg = config_from_args(args)
     cfg.resolved()  # refuse a bad config before spawning ranks
+    if args.recover_policy:
+        # The policy is part of the run's identity: print it where the
+        # operator finds it (stderr: stdout ends in the summary line).
+        print(f"[dist] recovery policy: "
+              f"{describe_policy(args.recover_policy)}", file=sys.stderr,
+              flush=True)
     pool = decode_pool_size(cfg)
     if args.multihost:
         backend = args.dist_backend or default_backend(args.device)
@@ -403,10 +484,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             rank_device(0, args.nworkers, backend, args.device)
         except ValueError as e:
             raise SystemExit(f"--nworkers {args.nworkers}: {e}") from None
-        outs = spawn(_rank_run, args.nworkers, cfg, args.num_iters,
-                     args.preempt_save, backend=backend, device=args.device,
-                     setup=functools.partial(prefork_decode_pool, pool),
-                     forward_signals=args.preempt_save)
+        try:
+            outs = spawn(_rank_run, args.nworkers, cfg, args.num_iters,
+                         args.preempt_save, backend=backend,
+                         device=args.device,
+                         setup=functools.partial(prefork_decode_pool, pool),
+                         forward_signals=args.preempt_save)
+        except RankExited as e:
+            if e.code != EXIT_STALL:
+                raise
+            # A rank's watchdog ended it (its "stall" record is in its
+            # metrics shard); the others were stopped.
+            logging.getLogger(__name__).error("%s: %s", e,
+                                              describe(e.code))
+            return EXIT_STALL
         out = outs[0]
         out["dist_backend"] = backend
     else:

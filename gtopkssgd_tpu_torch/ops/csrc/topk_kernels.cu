@@ -30,7 +30,11 @@
 //    (tile, row-group, lane) of the 2048x128 tile layout, the max-|acc|
 //    element (acc = grad [+ residual]) as a signed value and its global
 //    flat index, first maximum row winning ties; optionally the same 8
-//    counts in the same pass.
+//    counts in the same pass. NaN rule: a NaN |acc| counts as the largest
+//    magnitude (as torch.argmax and jnp.argmax take it), the first NaN row
+//    of a bucket wins and its NaN is the candidate value; a NaN is never
+//    counted (NaN >= thr is false). Every index stays in [0, n) or marks
+//    a padding bucket, whatever the data.
 //    Bound: bytes, 8 B per element read (grad + residual) plus 8 B per
 //    bucket written: 0.69 us at N = 272,474 and 62.95 us at N = 25,557,032
 //    (groups 64) on 3.35 TB/s. At the small size a launch costs more.
@@ -83,6 +87,9 @@
 //    512 at N = 25,557,032. Block b owns the contiguous slice
 //    [b*S, (b+1)*S), S a multiple of 4, read with 16-byte loads where both
 //    pointers are 16-byte aligned.
+//    NaN rule: a NaN |acc| is ignored -- fmaxf drops it from maxv and
+//    NaN >= thr is false, so it is never counted; the bracket is that of
+//    the other elements (lo = 0 when every element is NaN).
 //    Phase 0 reads the slice once, forms |acc|, keeps the first elements
 //    of it in shared memory (all of it when it fits: 8.3 KB a block at
 //    N = 272,474; 227 KB of a 774 KB slice at N = 25,557,032, where the
@@ -273,8 +280,10 @@ __device__ __forceinline__ void take_row(float4 a, int row, int real,
 #pragma unroll
       for (int k = 0; k < NUM_THR; ++k) c[k] += (m >= t[k]);
     }
-    // Rows arrive in ascending order: strict '>' keeps the first.
-    if (m > b.mag[j]) {
+    // Rows arrive in ascending order: strict '>' keeps the first. A NaN
+    // magnitude counts as the largest, and nothing replaces a NaN best:
+    // the first NaN row wins.
+    if (m > b.mag[j] || (isnan(m) && !isnan(b.mag[j]))) {
       b.mag[j] = m;
       b.val[j] = v[j];
       b.row[j] = row;
@@ -333,10 +342,18 @@ __device__ __forceinline__ void write_padding(long long s,
   }
 }
 
+// Whether (wm, wr) comes before (m, row) in a bucket: a NaN magnitude is
+// the largest, equal magnitudes (two NaNs included) go to the smaller row.
+__device__ __forceinline__ bool stage1_beats(float wm, int wr, float m,
+                                             int row) {
+  if (isnan(wm)) return !isnan(m) || wr < row;
+  return !isnan(m) && (wm > m || (wm == m && wr < row));
+}
+
 // Each slab of span `s` from its warps' Best4: the block's threads, one
 // (slab, lane) each, combine the wps warps of that slab -- larger
-// magnitude, then the smaller ROW, so the first maximum wins whichever
-// warp held it -- and write it.
+// magnitude (NaN the largest), then the smaller ROW, so the first maximum
+// wins whichever warp held it -- and write it.
 __device__ __forceinline__ void write_span(const Best4& b, long long s,
                                            const Stage1Shape& sh,
                                            long long slabs,
@@ -366,7 +383,7 @@ __device__ __forceinline__ void write_span(const Best4& b, long long s,
     for (const int end = w + sh.wps; ++w < end;) {
       const float wm = rm[w * LANES + ln];
       const int wr = rr[w * LANES + ln];
-      if (wm > m || (wm == m && wr < row)) {
+      if (stage1_beats(wm, wr, m, row)) {
         m = wm;
         v = rv[w * LANES + ln];
         row = wr;

@@ -29,6 +29,22 @@ multisection wrapper counts its two modes apart, as
 
 Thresholds are taken to be >= 0, as every caller's are: elements past the
 end of the data are never counted (the TPU pads them with -1).
+
+NaN rules, one a kernel, held bitwise between kernel and twin on the card
+(``chip_smoke.py`` phase 2) and by the CPU tests on the twins; nothing
+raises on a NaN and every index stays in range:
+
+* stage 1 (K2): a NaN |acc| counts as the largest magnitude, as
+  ``torch.argmax`` and ``jnp.argmax`` take it; the first NaN row of a
+  bucket wins and its NaN is the candidate value, so a NaN gradient is
+  selected and reaches the loss. The JAX package's stride layout off the
+  TPU takes the NaN too; its Pallas kernel in interpret mode does
+  otherwise (value 0 at row rpg, an index past the bucket).
+* the counts (K1, K3, the multisection kernel) and the multisection
+  bracket: a NaN is ignored -- never counted (NaN >= thr is false) and
+  never the maximum (the kernel's ``fmaxf`` drops it), so the bracket is
+  that of the other elements, and ``pallas`` and ``threshold`` never
+  select a NaN.
 """
 
 from __future__ import annotations
@@ -90,8 +106,10 @@ def multisection_rounds(
     multisection, each counting with `count_fn(mag, thr)`. Returns lo (the
     bracket's lower end; count(mag >= lo) >= k always holds) and each
     round's thresholds f32[8] and counts i32[8]. The multisection kernel
-    repeats these float32 operations in this order."""
-    maxv = mag.max()
+    repeats these float32 operations in this order. A NaN magnitude is
+    ignored: it is not the maximum (0 when every one is NaN, the kernel's
+    starting value) and ``count_fn`` never counts it."""
+    maxv = torch.where(torch.isnan(mag), 0.0, mag).max()
     lo = torch.zeros((), dtype=mag.dtype, device=mag.device)
     hi = maxv
     powers = torch.arange(1, 9, dtype=mag.dtype, device=mag.device)
@@ -126,7 +144,9 @@ def fused_stage1_candidates_ref(
     groups: int = 8,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The tile layout, written out: bucket (tile, g, lane) holds the
-    rpg = 2048/groups elements tile*262144 + (g*rpg + row)*128 + lane."""
+    rpg = 2048/groups elements tile*262144 + (g*rpg + row)*128 + lane.
+    The candidate is the bucket's first maximum of |acc|, a NaN counting
+    as the largest (its first NaN row)."""
     n = grad.shape[0]
     if BLOCK_ROWS % groups != 0:
         raise ValueError(f"groups={groups} must divide {BLOCK_ROWS}")
@@ -137,9 +157,13 @@ def fused_stage1_candidates_ref(
     eidx = torch.arange(padded, device=grad.device, dtype=torch.int64)
     mag = torch.where(eidx < n, acc.abs(), torch.full_like(acc, -1.0))
     mag4 = mag.view(nb, groups, rpg, LANES)
-    mx = mag4.amax(dim=2, keepdim=True)
     rows = torch.arange(rpg, device=grad.device).view(1, 1, rpg, 1)
+    nan = torch.isnan(mag4)
+    first_nan = torch.where(nan, rows, rpg).amin(dim=2)
+    mag4 = torch.where(nan, -1.0, mag4)  # a NaN wins through first_nan
+    mx = mag4.amax(dim=2, keepdim=True)
     win = torch.where(mag4 == mx, rows, rpg).amin(dim=2)  # first max row
+    win = torch.where(first_nan < rpg, first_nan, win)
     cand_val = torch.gather(acc.view(nb, groups, rpg, LANES), 2,
                             win[:, :, None, :]).reshape(-1)
     tiles = torch.arange(nb, device=grad.device).view(nb, 1, 1)

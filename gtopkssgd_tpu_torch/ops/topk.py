@@ -155,6 +155,8 @@ def bucketize_counts(mag: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     nthr = thr.shape[0]
     ts, order = torch.sort(thr)
     bucket = torch.searchsorted(ts, mag, right=True)  # #{ts <= mag_j}
+    # A NaN is never counted, as the kernels' comparisons leave it.
+    bucket = torch.where(torch.isnan(mag), 0, bucket)
     # An integer scatter of ones: bincount would read the largest id back
     # to the host to size its output, a sync in the selection.
     hist = torch.zeros(nthr + 1, dtype=torch.int64, device=mag.device)

@@ -4,7 +4,7 @@ gradient exchange over P ranks, then SGD with momentum and weight decay.
 Counterpart of ``gtopkssgd_tpu.optimizer.gtopk_sgd`` in every mode
 (``dense``, ``gtopk``, ``allgather | topk | topkA | topk_allgather``,
 ``gtopk_hier``, ``gtopk_layerwise``), with every option of the JAX
-optimizer but the telemetry. One step:
+optimizer, its telemetry included. One step:
 
 1. ravel every parameter's gradient into one flat f32[N] buffer, in the
    order and layout of the JAX package's ``ravel_pytree`` (``FlatLayout``;
@@ -83,6 +83,25 @@ them).
 The residual and the step count live in the optimizer's ``state`` (keys
 "residual" and "count"; under momentum correction the residual is
 {"v": v, "u": u}), so ``state_dict()`` saves error feedback.
+
+Telemetry (``telemetry=True``; ``obs.counters``): each step also writes
+the counters of the JAX optimizer's ``state.telemetry`` into one float32
+device vector at a fixed address, ``state["telemetry"]``
+(``telemetry_fields`` in order, then with ``telemetry_layers`` the
+``obs.counters.LAYER_FIELDS`` rows of L layer values, the layout's
+leaves in order), with no host sync, so a CUDA graph of the step keeps
+them and the trainer reads them in one copy. With ``telemetry_layers``,
+``state["age"]`` f32[N] holds the steps since each coordinate last
+shipped. With ``telemetry_audit_interval`` A, a step whose count is a
+multiple of A also takes the exact top-k of the accumulator (``topk_abs``)
+and writes the recall of the production selection against it
+(``audit_recall``; carried between audits, -1 before the first); its
+other steps run no audit. At P > 1 the vector is averaged over the ranks
+in one all-reduce a step (the age is the same on every rank by
+construction, as the update is). The selection stats describe the
+LOCAL selection: the shipped values (after a lossy codec) at P > 1, the
+keep mask at P = 1; the dense mode and the dense warm-up read as
+everything sent, tau 0, m_k 1.
 """
 
 from __future__ import annotations
@@ -99,6 +118,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from gtopkssgd_tpu_torch.compression import get_compressor
+from gtopkssgd_tpu_torch.obs import counters as obs_counters
 from gtopkssgd_tpu_torch.modes import (
     ALL_MODES,
     DENSE_MODES,
@@ -125,6 +145,7 @@ from gtopkssgd_tpu_torch.parallel.codec import get_codec, roundtrip_aligned
 from gtopkssgd_tpu_torch.parallel.collectives import (
     dense_allreduce,
     ici_dense_psum,
+    psum,
     sparse_allreduce,
 )
 from gtopkssgd_tpu_torch.parallel.comm_model import committed_fit
@@ -252,7 +273,9 @@ class GTopKSGD(torch.optim.SGD):
     ``overlap`` order.
     ``_restore_rejected_u`` is an ablation of momentum correction only:
     it gives globally rejected picks their velocity back, which the JAX
-    package measured to diverge.
+    package measured to diverge. ``telemetry``, ``telemetry_layers`` and
+    ``telemetry_audit_interval`` are the JAX optimizer's counters (see the
+    module docstring).
 
     After a sparse step, ``last_keep`` is the keep mask (P = 1),
     ``last_local`` the shipped local (vals, idx) and ``last_global`` the
@@ -284,6 +307,9 @@ class GTopKSGD(torch.optim.SGD):
         select_gamma: Optional[float] = None,
         warmup_dense_steps: int = 0,
         momentum_correction: bool = False,
+        telemetry: bool = False,
+        telemetry_layers: bool = False,
+        telemetry_audit_interval: int = 0,
         _restore_rejected_u: bool = False,
         layout: Optional[FlatLayout] = None,
         process_group=None,
@@ -303,6 +329,14 @@ class GTopKSGD(torch.optim.SGD):
         if warmup_dense_steps < 0:
             raise ValueError(
                 f"warmup_dense_steps must be >= 0, got {warmup_dense_steps}")
+        if telemetry_audit_interval < 0:
+            raise ValueError(
+                f"telemetry_audit_interval must be >= 0, got "
+                f"{telemetry_audit_interval}")
+        if (telemetry_layers or telemetry_audit_interval) and not telemetry:
+            raise ValueError(
+                "telemetry_layers / telemetry_audit_interval extend the "
+                "telemetry counters; they require telemetry=True")
         if nesterov and not momentum:
             raise ValueError("nesterov momentum requires momentum > 0")
         self.dense_mode = mode in DENSE_MODES
@@ -424,9 +458,185 @@ class GTopKSGD(torch.optim.SGD):
         #: The flat gradient of the last step, before the clip (one
         #: buffer, reused).
         self.flat_grad = torch.empty(n, dtype=torch.float32, device=device)
+        self.telemetry = telemetry
+        self.telemetry_layers = telemetry_layers
+        self.audit_interval = telemetry_audit_interval
+        #: The scalar fields of ``state["telemetry"]``, in order.
+        self.telemetry_fields = (
+            obs_counters.field_names(telemetry_audit_interval > 0)
+            if telemetry else ())
+        if telemetry:
+            self._init_telemetry(hier_ici_size, device)
         self.last_keep: Optional[torch.Tensor] = None
         self.last_local = self.last_global = None
         self.last_union: Optional[torch.Tensor] = None
+
+    def _init_telemetry(self, hier_ici_size: int, device) -> None:
+        """The telemetry's buffers: the vector (zeros; audit_recall -1),
+        the age, the leaf sizes, and the step's wire model as two device
+        constants (``obs.counters.wire_model``, the JAX optimizer's
+        ``make_telemetry`` arguments)."""
+        lay, n = self.layout, self.layout.n
+        bplan = self.bucket_plan
+        if self.dense_mode:
+            k = n
+        elif self.layerwise:
+            k = bplan.k_total if bplan else sum(self.leaf_ks)
+        else:
+            k = self.compressor.k(n)
+        wire, coll = obs_counters.wire_model(
+            n=n, k=k, p=self.p, mode=self.mode,
+            ici_size=hier_ici_size if self.hier else 1,
+            codec=self.codec.name,
+            schedule=self.plan.schedule if self.plan else None,
+            buckets=bplan.pairs() if bplan else None)
+        self._tel_const = torch.tensor([wire, coll], dtype=torch.float32,
+                                       device=device)
+        layers = len(lay.sizes) if self.telemetry_layers else 0
+        self.state["telemetry"] = obs_counters.zero_vector(
+            len(self.telemetry_fields), layers, self.audit_interval > 0,
+            device)
+        if self.telemetry_layers:
+            self.state["age"] = torch.zeros(n, dtype=torch.float32,
+                                            device=device)
+            self._sizes_f = torch.tensor([max(1, s) for s in lay.sizes],
+                                         dtype=torch.float32, device=device)
+            self._inv_sizes = torch.tensor(
+                [obs_counters.reciprocal(s) for s in lay.sizes],
+                dtype=torch.float32, device=device)
+
+    def _observe(self, flat: torch.Tensor, update: torch.Tensor,
+                 residual: Optional[torch.Tensor], sel) -> None:
+        """Write the step's counters into ``state["telemetry"]`` (and
+        advance the age): `flat` is the gradient entering the pipeline,
+        `update` the averaged update, `residual` the residual after the
+        repair (None in the dense mode), `sel` the sparse step's units
+        (None for a dense step: the dense mode and the warm-up)."""
+        c, lay, n = obs_counters, self.layout, self.layout.n
+        vec = self.state["telemetry"]
+        nf = len(self.telemetry_fields)
+        post = c.tree_l2(update)
+        if sel is None:
+            tau = flat.new_zeros(())
+            sent = flat.new_full((), float(n))
+            m_k = flat.new_ones(())
+            acc = sel_dense = None
+        else:
+            tau, sent, m_k, acc, sel_dense = self._selection_stats(
+                sel, update, post)
+        res_norm = (flat.new_zeros(()) if residual is None
+                    else c.tree_l2(residual))
+        tel = c.make_telemetry(
+            n=n, wire_bytes=self._tel_const[0],
+            collective_count=self._tel_const[1],
+            grad_norm_pre=c.tree_l2(flat), grad_norm_post=post,
+            residual_norm=res_norm, tau=tau, sent_elems=sent, m_k=m_k)
+        if self.dense_mode:
+            # The JAX step's densities are constants there, n / n, which
+            # XLA folds to exactly 1.
+            tel["achieved_density"] = flat.new_ones(())
+        parts = [torch.stack([tel[f] for f in c.TELEMETRY_FIELDS])]
+        if self.audit_interval > 0:
+            # Carry the last audited value; -1 means never audited.
+            audit = vec[nf - 1:nf].clone()
+            if (sel is not None
+                    and self.state["count"] % self.audit_interval == 0):
+                recall = self._audit(sel)
+                audit = torch.where(recall >= 0, recall, audit)
+            parts.append(audit.reshape(1))
+        if self.telemetry_layers:
+            offs, sizes = lay.offsets, lay.sizes
+            age = c.update_age(self.state["age"], update != 0)
+            lsel = (c.dense_phase_selection_stats(self._sizes_f)
+                    if sel is None else
+                    c.selection_layer_stats(acc, sel_dense, offs, sizes))
+            res_l = (torch.zeros_like(self._sizes_f) if residual is None
+                     else c.seg_l2(residual, offs, sizes))
+            block = c.assemble_layer_telemetry(
+                sel_stats=lsel, inv_sizes=self._inv_sizes,
+                grad_norm_pre_l=c.seg_l2(flat, offs, sizes),
+                grad_norm_post_l=c.seg_l2(update, offs, sizes),
+                residual_norm_l=res_l,
+                residual_age_l=c.layer_age_means(age, offs, sizes,
+                                                 self._inv_sizes))
+            if self.dense_mode:
+                block[0].fill_(1.0)  # the folded constant, as above
+            parts.append(block.reshape(-1))
+        out = torch.cat(parts)
+        if self.p > 1:
+            # One all-reduce a step: the axis means of every counter.
+            out = _mean(psum(out, group=self.group), self.p)
+        vec.copy_(out)
+
+    def _selection_stats(self, sel, update: torch.Tensor,
+                         post: torch.Tensor):
+        """(tau, sent, m_k, acc, sel_dense) of a sparse step from its
+        units: at P = 1 from the keep masks, the kept taus and the update
+        (the kept accumulator densified, its norm `post`), at P > 1 from
+        the shipped values; `acc` is the flat accumulator and `sel_dense`
+        the selection densified, both None unless the per-layer stats
+        need them. Several units' norms are one fused reduction."""
+        c, n = obs_counters, self.layout.n
+        infos = [info for _, _, info in sel]
+        accs = [info["acc"] for info in infos]
+        acc_sq = c._sq(accs)
+        acc = sel_dense = None
+        if self.telemetry_layers:
+            acc = accs[0] if len(accs) == 1 else torch.cat(accs)
+        if self.p == 1:
+            if len(infos) == 1:
+                tau = infos[0]["tau"]
+                sent = infos[0]["keep"].sum(dtype=torch.float32)
+            else:
+                # A kept entry is never 0 (zeros are kept out), so the
+                # update's nonzeros are the keep masks' union.
+                taus = torch.stack([info["tau"] for info in infos])
+                tau = c._min_nonzero(taus, taus > 0)
+                sent = torch.count_nonzero(update).float()
+            sel_sq = torch.square(post)
+            sel_dense = update if self.telemetry_layers else None
+        else:
+            vals = [info["local"][0] for info in infos]
+            tau = c.selected_tau(vals[0] if len(vals) == 1
+                                 else torch.cat(vals))
+            sent = (c.sent_count(vals[0]) if len(vals) == 1 else
+                    torch.stack([c.sent_count(v) for v in vals]).sum())
+            sel_sq = c._sq(vals)
+            if self.telemetry_layers:
+                # Each unit's picks at their flat positions (padding: n).
+                pos = [torch.where(info["local"][1] < s,
+                                   info["local"][1].long() + o, n)
+                       for o, s, info in sel]
+                picks = [info.get("picked", info["local"][0])
+                         for info in infos]
+                sel_dense = c.densify(n, torch.cat(pos), torch.cat(picks))
+        return tau, sent, c.mass_ratio(acc_sq, sel_sq), acc, sel_dense
+
+    def _audit(self, sel) -> torch.Tensor:
+        """The recall of this step's selection against the exact top-k of
+        the accumulator: a bucketed wire per bucket (k_b each), else over
+        the whole flat accumulator with the step's k (the sum of the
+        leaves' under gtopk_layerwise)."""
+        c, n = obs_counters, self.layout.n
+
+        def mask(s, info):
+            if "keep" in info:
+                return info["keep"]
+            return c.selected_mask(s, info["local"][1])
+
+        if self.bucket_plan is not None:
+            pairs = [c.exact_recall(info["acc"], k, mask(s, info))
+                     for (_, s, info), k in zip(sel, self.bucket_plan.ks)]
+            return c.topk_recall(torch.cat([h for h, _ in pairs]),
+                                 torch.cat([v for _, v in pairs]))
+        k = sum(self.leaf_ks) if self.layerwise else self.compressor.k(n)
+        if len(sel) == 1:
+            _, s, info = sel[0]
+            acc, sel_mask = info["acc"], mask(s, info)
+        else:
+            acc = torch.cat([info["acc"] for _, _, info in sel])
+            sel_mask = torch.cat([mask(s, info) for _, s, info in sel])
+        return c.topk_recall(*c.exact_recall(acc, k, sel_mask))
 
     def _units(self) -> List[Tuple[int, int]]:
         """The (offset, size) ranges a sparse step selects over one by one:
@@ -457,7 +667,8 @@ class GTopKSGD(torch.optim.SGD):
 
     def compress(self, flat: torch.Tensor) -> torch.Tensor:
         """The update for flat gradient `flat`, averaged over the P ranks;
-        advances the residual (and the velocity)."""
+        advances the residual (and the velocity) and, with telemetry, the
+        counters."""
         p = self.p
         self.last_keep = self.last_local = None
         self.last_global = self.last_union = None
@@ -468,10 +679,13 @@ class GTopKSGD(torch.optim.SGD):
                 flat = ici_dense_psum(flat, ici_size=self.ici,
                                       group=self.group)
         if self.dense_mode:
-            if p == 1:
-                return flat
-            with record_function("exchange"):
-                return _mean(dense_allreduce(flat, group=self.group), p)
+            update = flat
+            if p > 1:
+                with record_function("exchange"):
+                    update = _mean(dense_allreduce(flat, group=self.group), p)
+            if self.telemetry:
+                self._observe(flat, update, None, None)
+            return update
         state = self.state["residual"]
         u = None
         if self.correction:
@@ -486,19 +700,23 @@ class GTopKSGD(torch.optim.SGD):
                 reduced = src if p == 1 else dense_allreduce(
                     src, group=self.group)
             update, residual, u_out = _mean(reduced, p * self.ici), res_in, u
+            sel = None
         elif self.layerwise and self.bucket_plan is None and p > 1:
-            update, residual, u_out = self._concat(src, res_in, u)
+            update, residual, u_out, sel = self._concat(src, res_in, u)
         else:
-            update, residual, u_out = self._by_unit(src, res_in, u)
+            update, residual, u_out, sel = self._by_unit(src, res_in, u)
         self.state["residual"] = ({"v": residual, "u": u_out}
                                   if self.correction else residual)
+        if self.telemetry:
+            self._observe(flat, update, residual, sel)
         return update
 
     def _by_unit(self, src: torch.Tensor, res_in: torch.Tensor,
                  u: Optional[torch.Tensor]):
-        """(update, residual, u) of a sparse step that selects and
+        """(update, residual, u, sel) of a sparse step that selects and
         exchanges each unit (``_units``) on its own, in the bucket plan's
-        execution order."""
+        execution order; `sel` is the units' (offset, size, info), what
+        the telemetry reads."""
         units = self._units()
         if (self.p > 1 and len(units) > 1
                 and self.bucket_plan.pipeline == "overlap"):
@@ -507,23 +725,24 @@ class GTopKSGD(torch.optim.SGD):
             outs = [self._sparse(src[o:o + s], res_in[o:o + s],
                                  None if u is None else u[o:o + s])
                     for o, s in units]
+        sel = [(o, s, out[3]) for (o, s), out in zip(units, outs)]
         if len(outs) == 1 and self.bucket_plan is None:
             update, residual, u_out, info = outs[0]
             self.last_keep = info.get("keep")
             self.last_local = info.get("local")
             self.last_global = info.get("global")
             self.last_union = info.get("union")
-            return update, residual, u_out
+            return update, residual, u_out, sel
         if self.p == 1:
             self.last_keep = torch.cat([info["keep"] for *_, info in outs])
         else:
             self.last_local = [info["local"] for *_, info in outs]
             self.last_global = [info["global"] for *_, info in outs]
         if len(outs) == 1:
-            return outs[0][:3]
+            return outs[0][:3] + (sel,)
         cat = [torch.cat([out[j] for out in outs]) for j in range(2)]
         u_out = None if u is None else torch.cat([out[2] for out in outs])
-        return cat[0], cat[1], u_out
+        return cat[0], cat[1], u_out, sel
 
     def _sparse(self, src: torch.Tensor, res_in: torch.Tensor,
                 u: Optional[torch.Tensor]):
@@ -535,11 +754,14 @@ class GTopKSGD(torch.optim.SGD):
         comp = self.compressor
         with record_function("select"):
             acc = comp.accumulate(src, res_in)
-            keep, residual, _ = comp.compress_by_threshold(
+            keep, residual, tau = comp.compress_by_threshold(
                 acc, grad=src, residual=res_in)
             if u is not None:  # every local pick is delivered at P = 1
                 u = torch.where(keep, torch.zeros_like(u), u)
-        return acc - residual, residual, u, {"keep": keep}
+        info = {"keep": keep}
+        if self.telemetry:
+            info.update(acc=acc, tau=tau)
+        return acc - residual, residual, u, info
 
     def _select(self, src: torch.Tensor, res_in: torch.Tensor,
                 u: Optional[torch.Tensor]) -> dict:
@@ -563,7 +785,7 @@ class GTopKSGD(torch.optim.SGD):
             # Momentum factor masking at the local picks, delivered or not.
             u_out = None if u is None else _zero_at(u, idx)
         return {"vals": vals, "idx": idx, "res": residual, "u": u_out,
-                "u_in": u}
+                "u_in": u, "acc": acc if self.telemetry else None}
 
     def _merge(self, st: dict):
         """Stage 2 of a unit (the JAX optimizer's ``_merge``): the
@@ -576,7 +798,7 @@ class GTopKSGD(torch.optim.SGD):
             result, gidx, needs_repair = sparse_allreduce(
                 self.mode, vals, idx, k=comp.k(n), n=n, group=self.group,
                 ici_size=self.ici, codec=self.codec, plan=self.plan)
-        info = {"local": (vals, idx)}
+        info = {"local": (vals, idx), "acc": st["acc"]}
         if not needs_repair:  # the allgather union: every pick lands
             info["union"] = result
             return _mean(result, p), residual, u_out, info
@@ -622,7 +844,8 @@ class GTopKSGD(torch.optim.SGD):
             if side is not None:
                 st["ready"] = torch.cuda.Event()
                 st["ready"].record(side)
-                for t in (st["vals"], st["idx"], st["res"], st["u"]):
+                for t in (st["vals"], st["idx"], st["res"], st["u"],
+                          st["acc"]):
                     if t is not None:  # made on the side stream, read on main
                         t.record_stream(main)
             return st
@@ -669,9 +892,9 @@ class GTopKSGD(torch.optim.SGD):
 
     def _concat(self, src: torch.Tensor, res_in: torch.Tensor,
                 u: Optional[torch.Tensor]):
-        """(update, residual, u) of gtopk_layerwise under 'concat' at P >
-        1: per-leaf selection, one merge of the concatenated set in the
-        global index space."""
+        """(update, residual, u, sel) of gtopk_layerwise under 'concat' at
+        P > 1: per-leaf selection, one merge of the concatenated set in
+        the global index space."""
         comp, p, n = self.compressor, self.p, src.shape[0]
         lay = self.layout
         with record_function("select"):
@@ -690,6 +913,7 @@ class GTopKSGD(torch.optim.SGD):
                                                      lay.sizes)])
             residual = _zero_at(acc, pos)
             u_out = None if u is None else _zero_at(u, pos)
+            picked = vals
             if self.codec.lossy:
                 vq = roundtrip_aligned(self.codec, vals, idx, n=n)
                 residual = _add_at(residual, pos, vals - vq)
@@ -705,8 +929,11 @@ class GTopKSGD(torch.optim.SGD):
             back = torch.where(rejected, torch.cat([u, u.new_zeros(1)])[pos],
                                0.0)
             u_out = _add_at(u_out, pos, back)
+        # The telemetry's view: the flat positions (a leaf's padding at n)
+        # and, for the per-layer stats, the picks before the codec.
+        sel = [(0, n, {"acc": acc, "local": (vals, pos), "picked": picked})]
         return (_mean(scatter_add_dense(n, gidx, gvals), p), residual,
-                u_out)
+                u_out, sel)
 
     @torch.no_grad()
     def step(self, closure=None):

@@ -176,11 +176,37 @@ def _forward(procs, signals) -> dict:
     return old
 
 
+EXIT_GRACE_S = 2.0  # how long a rank's failure waits for a peer's exit
+
+
+def _exited(procs, out, grace: float) -> List[int]:
+    """The ranks that exited nonzero without a result, waiting up to
+    `grace` seconds for one."""
+    end = time.monotonic() + grace
+    while True:
+        dead = [r for r, p in enumerate(procs)
+                if p.exitcode not in (None, 0) and r not in out]
+        if dead or time.monotonic() >= end:
+            return dead
+        time.sleep(0.05)
+
+
+class RankExited(RuntimeError):
+    """A rank process ended with a nonzero exit code (``code``) before it
+    gave a result: the stall watchdog's ``os._exit(43)``, a crash."""
+
+    def __init__(self, rank: int, code: int):
+        super().__init__(f"rank {rank} exited with code {code}")
+        self.rank, self.code = rank, code
+
+
 def spawn(fn: Callable, nworkers: int, *args, backend: str, device: str,
           timeout: float = 600.0, setup: Optional[Callable] = None,
           forward_signals: bool = False) -> List[Any]:
     """``fn(device, *args)`` on each of `nworkers` rank processes; the
-    results in rank order."""
+    results in rank order. A rank that exits without a result raises
+    ``RankExited`` (the others are stopped), also when a peer's collective
+    failed first because of it."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="gtopk-rendezvous-") as tmp:
@@ -202,15 +228,20 @@ def spawn(fn: Callable, nworkers: int, *args, backend: str, device: str,
                     dead = [r for r, p in enumerate(procs)
                             if p.exitcode not in (None, 0) and r not in out]
                     if dead:
-                        raise RuntimeError(
-                            f"rank {dead[0]} exited with code "
-                            f"{procs[dead[0]].exitcode}") from None
+                        raise RankExited(
+                            dead[0], procs[dead[0]].exitcode) from None
                     if time.monotonic() > deadline:
                         raise TimeoutError(
                             f"{nworkers} ranks: {nworkers - len(out)} gave "
                             f"no result in {timeout:.0f} s") from None
                     continue
                 if not ok:
+                    # A peer that died without a result (a watchdog's
+                    # exit, a crash) is what broke this rank's collective.
+                    dead = [r for r in _exited(procs, out, EXIT_GRACE_S)
+                            if r != rank]
+                    if dead:
+                        raise RankExited(dead[0], procs[dead[0]].exitcode)
                     raise RuntimeError(f"rank {rank} failed:\n{value}")
                 out[rank] = value
             for p in procs:

@@ -1,6 +1,5 @@
 """Resilience for long synchronous runs, the port of
-``gtopkssgd_tpu/resilience`` less its recovery policy (which acts on the
-anomaly monitor, not ported yet):
+``gtopkssgd_tpu/resilience``:
 
   preempt.py  ``PreemptionGuard`` (SIGTERM/SIGINT set a flag; the trainer
               saves at the next dispatch boundary and exits 45) and
@@ -13,6 +12,9 @@ anomaly monitor, not ported yet):
               ``elastic.json`` lineage and exits 46; the relaunch at the
               new P re-partitions the residual (grow: zero rows; shrink:
               rows folded by addition, column sums kept).
+  policy.py   ``--recover-policy``: anomaly rules (``obs.events``) mapped
+              to skip, rollback or degrade; ``RecoveryManager`` claims an
+              event before it halts and the trainer applies the action.
 
 Checkpoint integrity (config hash and state digest sidecars, the torn-step
 fallback) lives in ``utils/checkpoint.py``.
@@ -35,6 +37,12 @@ from gtopkssgd_tpu_torch.resilience.inject import (
     corrupt_checkpoint_dir,
     parse_inject,
 )
+from gtopkssgd_tpu_torch.resilience.policy import (
+    ActionSpec,
+    RecoveryManager,
+    describe_policy,
+    parse_policy,
+)
 from gtopkssgd_tpu_torch.resilience.preempt import (
     PREEMPT_EXIT_CODE,
     Preempted,
@@ -44,6 +52,8 @@ from gtopkssgd_tpu_torch.resilience.preempt import (
 
 __all__ = [
     "PREEMPT_EXIT_CODE",
+    "ActionSpec",
+    "RecoveryManager",
     "Fault",
     "FaultInjector",
     "InjectedLoaderError",
@@ -51,9 +61,11 @@ __all__ = [
     "PreemptionGuard",
     "ResizeRestart",
     "corrupt_checkpoint_dir",
+    "describe_policy",
     "load_lineage",
     "mint_lineage_id",
     "parse_inject",
+    "parse_policy",
     "repartition_buffer",
     "repartition_residual",
     "retry_call",

@@ -82,13 +82,61 @@ def tie_input(n: int, groups: int,
     return g, r
 
 
+def nan_input(n: int, groups: int, seed: int = 0,
+              inf: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """(grad, residual) f32[n], normal draws with NaNs placed against the
+    NaN rules (``ops.cuda_topk``): in slab 0, every third lane holds NaN at
+    rows 1 and rpg - 1 (the first must win, whichever warp reads it), lane
+    5 a NaN in the residual only, lane 10 a NaN with the sign bit set;
+    with `inf`, lane 11 holds +inf at row 0 and NaN at row rpg - 1 (the
+    NaN wins) and lane 13 -inf alone; then 1% of all elements NaN.
+    n >= 262144 / groups."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(n).astype(np.float32)
+    r = (0.3 * rng.standard_normal(n)).astype(np.float32)
+    rpg = cuda_topk.BLOCK_ROWS // groups
+
+    def at(row: int, lane: int) -> int:
+        return min(row, rpg - 1) * cuda_topk.LANES + lane
+
+    for lane in range(0, cuda_topk.LANES, 3):
+        g[at(1, lane)] = g[at(rpg - 1, lane)] = np.nan
+    r[at(3, 5)] = np.nan
+    g[at(0, 10)] = np.copysign(np.float32(np.nan), np.float32(-1.0))
+    if inf:
+        g[at(0, 11)], g[at(rpg - 1, 11)] = np.inf, np.nan
+        g[at(0, 13)] = -np.inf
+    g[rng.random(n) < 0.01] = np.nan
+    return g, r
+
+
+def nan_cases(device: torch.device | str, seed: int = 0,
+              inf: bool = True) -> Iterator[Tuple[str, torch.Tensor,
+                                                  torch.Tensor, int]]:
+    """(label, grad, residual, groups) on `device` holding NaNs:
+    ``nan_input`` at groups 8 and 64 (with `inf`, also infinities), an
+    all-NaN gradient (an injected ``nan_grad``) at n = 1000 and groups 8,
+    and a NaN view one float into its buffer."""
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device)
+
+    for groups in (8, 64):
+        g, r = nan_input(272_474, groups, seed, inf=inf)
+        yield "n=272474 nan", dev(g), dev(r), groups
+    r = (0.3 * np.random.default_rng(seed).standard_normal(1000)).astype(
+        np.float32)
+    yield "n=1000 all nan", dev(np.full(1000, np.nan, np.float32)), dev(r), 8
+    g, r = nan_input(262_146, 64, seed + 1, inf=inf)
+    yield "n=262145 nan unaligned x[1:]", dev(g)[1:], dev(r)[1:], 64
+
+
 def edge_cases(device: torch.device | str,
                seed: int = 0) -> Iterator[Tuple[str, torch.Tensor,
                                                 torch.Tensor, int]]:
     """(label, grad, residual, groups) on `device`: every n in EDGE_SIZES at
     every groups in EDGE_GROUPS; views one float into their buffers
-    (``x[1:]``, not 16-byte aligned); and ``tie_input`` at groups 8 and
-    64."""
+    (``x[1:]``, not 16-byte aligned); ``tie_input`` at groups 8 and 64;
+    and ``nan_cases``."""
     rng = np.random.default_rng(seed)
 
     def dev(a: np.ndarray) -> torch.Tensor:
@@ -106,13 +154,25 @@ def edge_cases(device: torch.device | str,
     for groups in (8, 64):
         g, r = tie_input(272_474, groups, seed)
         yield "n=272474 ties", dev(g), dev(r), groups
+    yield from nan_cases(device, seed)
 
 
 def thresholds_for(mag: torch.Tensor) -> torch.Tensor:
-    """8 thresholds over `mag`: 6 quantiles and two of its values."""
-    q = torch.quantile(mag[:1 << 24], torch.tensor(
+    """8 thresholds over `mag`: 6 quantiles of its non-NaN values and two
+    of its values."""
+    q = torch.nanquantile(mag[:1 << 24], torch.tensor(
         [0.05, 0.3, 0.5, 0.7, 0.9, 0.99], device=mag.device))
     return torch.cat([q, mag[:1], mag[mag.shape[0] // 2:][:1]]).contiguous()
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """`t` as integers: a float32 tensor's bit patterns (NaNs compare)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `a` and `b` are bitwise equal, NaNs included."""
+    return a.dtype == b.dtype and torch.equal(bits(a), bits(b))
 
 
 def stage1_mismatch(g: torch.Tensor, r: Optional[torch.Tensor],
@@ -126,8 +186,8 @@ def stage1_mismatch(g: torch.Tensor, r: Optional[torch.Tensor],
         for name, a, b in zip(("values", "indices", "counts"), got, want):
             if (a is None) != (b is None):
                 return f"{name}: one side is None"
-            if a is not None and not torch.equal(a, b):
-                at = (a != b).nonzero()[:4].flatten().tolist()
+            if a is not None and not same_bits(a, b):
+                at = (bits(a) != bits(b)).nonzero()[:4].flatten().tolist()
                 counts = "off" if t is None else "on"
                 return (f"{name} differ (counts {counts}) at {at}: "
                         f"{a[at].tolist()} vs twin {b[at].tolist()}")

@@ -38,10 +38,14 @@ record as one ``plan {...}`` line: the buckets' resolved execution order
 (``pipeline``) and the chosen plan's modeled spans under either order
 (``span_serial_ms``, ``span_overlap_ms``) beside every candidate's.
 
-A step is three profiler ranges (``torch.profiler.record_function``):
-"data" (host batch + copy to the device), "forward_backward" and
-"optimizer" (compression, the gradient exchange and SGD); ``profile_step``
-reads them.
+A dispatch is ``obs.tracing.Tracer`` spans, each a profiler range
+(``torch.profiler.record_function``, and NVTX on the card) under its own
+name and a host timing under its nested path: "data" (host batches +
+copy to the device), "dispatch" holding each step's "forward_backward"
+and "optimizer" (compression, the gradient exchange and SGD), and
+"obs_read" (the one read of the counters); ``profile_step`` reads the
+ranges by name, and the span means go out as a "spans" record every
+``log_interval`` steps.
 
 The lifecycle and the host path (the JAX trainer's):
 
@@ -79,8 +83,24 @@ The lifecycle and the host path (the JAX trainer's):
   before the prefetch thread starts: the ImageNet JPEG path's decode
   pool (``decode_workers``) forks when its dataset is built.
 
-Resilience (``resilience/``), the JAX trainer's without the recovery
-policy:
+Observability (``obs/``), the JAX trainer's anomaly core:
+
+* ``obs_counters`` (default on): the optimizer computes the counters of
+  ``obs.counters`` inside the step (``GTopKSGD(telemetry=True)``); every
+  ``obs_interval`` steps (a dispatch that crosses a multiple) one "obs"
+  record of the dispatch's last step, read in the same one device-to-host
+  copy as the losses; with ``obs_layers`` one "layers" record a layer
+  (``layer_names``), with ``obs_audit_interval`` the recall audit.
+* ``obs_events`` (default on): an ``AnomalyMonitor`` fed those reads (the
+  loss alone at ``log_interval`` when the counters are off): "event"
+  records; ``obs_halt_on`` raises ``AnomalyHalt`` (exit 44).
+* ``obs_watchdog`` seconds: a ``StallWatchdog`` armed over ``train()``,
+  heartbeat after each dispatch's read; a stall logs a "stall" record and
+  the run's summary and exits 43.
+* ``obs_timeline``: the host timeline (rank 0), written on exit;
+  ``obs_export_port``: the metrics as OpenMetrics text on localhost.
+
+Resilience (``resilience/``), the JAX trainer's:
 
 * ``inject``: step-keyed faults (``resilience.inject``), fired at the
   dispatch boundaries; the host fetch runs under ``retry_call`` then.
@@ -96,6 +116,16 @@ policy:
   another P re-partitions the residual (``utils.checkpoint``). The
   checkpoint's config hash then nulls the fleet size and the elastic
   knobs, and the manifest carries the lineage id.
+* ``recover_policy`` (``resilience.policy``; needs ``obs_events``): the
+  monitor's events claimed by a ``RecoveryManager`` are acted on at the
+  end of the dispatch: ``skip`` restores the snapshot taken before the
+  dispatch (and before an injected ``nan_grad``): a device copy of the
+  parameters and BatchNorm buffers, SGD's momentum, the residual (and u),
+  the counters and the age, the step and count, the PTB carry and the
+  dropout generator; ``rollback`` restores the newest checkpoint;
+  ``degrade`` runs the optimizer's dense warm-up branch for a cooldown.
+  At P > 1 every rank sees the same averaged loss and counters, so every
+  rank takes the same action.
 """
 
 from __future__ import annotations
@@ -111,10 +141,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from gtopkssgd_tpu_torch import native
-from gtopkssgd_tpu_torch.convert import flat_layout
+from gtopkssgd_tpu_torch.convert import flat_layout, layer_names
 from gtopkssgd_tpu_torch.ctc import ctc_loss, greedy_error_counts
 from gtopkssgd_tpu_torch.data import get_dataset
 from gtopkssgd_tpu_torch.data.cifar import CIFAR_MEAN, CIFAR_STD
@@ -126,16 +155,24 @@ from gtopkssgd_tpu_torch.models import (
     seed_dropout,
 )
 from gtopkssgd_tpu_torch.modes import DENSE_MODES, HIER_MODES
+from gtopkssgd_tpu_torch.obs import counters as obs_counters
+from gtopkssgd_tpu_torch.obs.events import AnomalyHalt, AnomalyMonitor
+from gtopkssgd_tpu_torch.obs.exporter import MetricsExporter
+from gtopkssgd_tpu_torch.obs.timeline import TimelineRecorder
+from gtopkssgd_tpu_torch.obs.tracing import Tracer
+from gtopkssgd_tpu_torch.obs.watchdog import StallWatchdog, _default_on_stall
 from gtopkssgd_tpu_torch.ops import cuda_topk
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 from gtopkssgd_tpu_torch.parallel.collectives import pmean, psum
 from gtopkssgd_tpu_torch.resilience import (
     FaultInjector,
     Preempted,
+    RecoveryManager,
     ResizeRestart,
     load_lineage,
     mint_lineage_id,
     parse_inject,
+    parse_policy,
     retry_call,
     write_lineage,
 )
@@ -220,6 +257,30 @@ class TrainConfig:
                                    # variant (class patterns at 0.07, 10%
                                    # of the train labels resampled)
     log_interval: int = 50         # a "train" record every N steps
+    obs_counters: bool = True      # on-device counters (obs.counters) in
+                                   # the step, an "obs" record every
+                                   # obs_interval steps
+    obs_interval: int = 1          # an "obs" record every N steps
+    obs_layers: bool = False       # per-layer counters: one "layers"
+                                   # record a layer (needs obs_counters)
+    obs_audit_interval: int = 0    # every N steps, the recall of the
+                                   # selection against the exact top-k
+                                   # (audit_recall; 0 = never)
+    obs_watchdog: float = 0.0      # seconds a dispatch may go without a
+                                   # completed read before the watchdog
+                                   # exits 43; 0 = off
+    obs_events: bool = True        # the anomaly monitor (obs.events)
+    obs_halt_on: Optional[str] = None  # "error" | "warn": AnomalyHalt
+                                   # (exit 44) at an event of at least
+                                   # this severity; None = record only
+    obs_timeline: Optional[str] = None  # the host timeline's JSON path
+                                   # (a directory gets timeline.json)
+    obs_export_port: int = 0       # OpenMetrics on this localhost port
+                                   # (rank r: the port + r); -1 an
+                                   # ephemeral one; 0 = off
+    recover_policy: Optional[str] = None  # anomaly rules -> skip |
+                                   # rollback | degrade (resilience/
+                                   # policy.py grammar; needs obs_events)
     resume: bool = False           # restore out_dir/ckpt at construction
     allow_ckpt_mismatch: bool = False  # restore past a config hash or
                                    # state digest that differs
@@ -254,6 +315,12 @@ class TrainConfig:
             raise ValueError(f"min_fleet={self.min_fleet} must be >= 1")
         if self.inject:
             parse_inject(self.inject)  # a malformed spec fails here
+        if self.recover_policy:
+            parse_policy(self.recover_policy)  # likewise
+            if not self.obs_events:
+                raise ValueError(
+                    "recover_policy requires obs_events (recovery acts "
+                    "on AnomalyMonitor events)")
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch={self.steps_per_dispatch}"
                              " must be >= 1")
@@ -360,6 +427,8 @@ class Trainer:
         self.steps_per_epoch = shard_steps_per_epoch(
             self.train_data, cfg.batch_size, cfg.nsteps_update)
         self.layout = flat_layout(self.model)
+        #: The layout's leaves by flax key path: the "layers" records'.
+        self.layer_names = layer_names(self.model)
         self.num_params = self.layout.n
         self.optimizer = self.make_optimizer()
         #: The wire plan's decision at P > 1 (parallel.planner) and the
@@ -395,8 +464,48 @@ class Trainer:
         #: uncounted) and the launches replays ran.
         self.graph_stats = {"captures": 0, "replays": 0,
                             "captured": {}, "replayed": {}}
-        self.metrics = MetricsLogger(cfg.out_dir, rank=self.rank,
-                                     shard=cfg.nworkers > 1)
+        # The live exporter first: it is the metrics logger's sink. Each
+        # rank process exports its own view, rank r on the port plus r
+        # (the ranks of one host cannot share a port); -1: ephemeral.
+        self.exporter = None
+        if cfg.obs_export_port:
+            port = (0 if cfg.obs_export_port < 0
+                    else cfg.obs_export_port + self.rank)
+            self.exporter = MetricsExporter(port=port).start()
+            self.logger.info("obs exporter: http://127.0.0.1:%d/metrics",
+                             self.exporter.port)
+        self.metrics = MetricsLogger(
+            cfg.out_dir, rank=self.rank, shard=cfg.nworkers > 1,
+            sink=self.exporter.observe if self.exporter else None)
+        # The host timeline (rank 0), the span tracer feeding it, the
+        # anomaly monitor (density rules only for a sparse mode's rho),
+        # the stall watchdog and the recovery manager claiming the
+        # monitor's events.
+        self.timeline = (TimelineRecorder(rank=self.rank)
+                         if cfg.obs_timeline and self.rank == 0 else None)
+        self.tracer = Tracer(
+            metrics=self.metrics,
+            sink=self.timeline.span_sink if self.timeline else None)
+        self.monitor = (AnomalyMonitor(
+            metrics=self.metrics,
+            rho=cfg.density if cfg.compression not in DENSE_MODES else None,
+            halt_on=cfg.obs_halt_on, timeline=self.timeline)
+            if cfg.obs_events else None)
+        self.watchdog = (StallWatchdog(
+            cfg.obs_watchdog, on_stall=self._on_stall,
+            diagnostics=self._stall_diagnostics)
+            if cfg.obs_watchdog > 0 else None)
+        self.recovery = (RecoveryManager(parse_policy(cfg.recover_policy),
+                                         metrics=self.metrics,
+                                         logger=self.logger)
+                         if cfg.recover_policy else None)
+        if self.recovery is not None:
+            self.monitor.recovery = self.recovery.claim
+        self._snap_bufs = None  # the recovery snapshot's buffers
+        # A degrade episode: the dense warm-up branch until this step.
+        self._degraded = False
+        self._degrade_until = 0
+        self._sparse_warmup = 0
         self.injector = (FaultInjector(cfg.inject, metrics=self.metrics,
                                        logger=self.logger, rank=self.rank)
                          if cfg.inject else None)
@@ -494,6 +603,8 @@ class Trainer:
             comm_model_fit=cfg.comm_model_fit,
             warmup_dense_steps=warmup_dense_steps,
             momentum_correction=cfg.momentum_correction,
+            telemetry=cfg.obs_counters, telemetry_layers=cfg.obs_layers,
+            telemetry_audit_interval=cfg.obs_audit_interval,
             _restore_rejected_u=cfg.restore_rejected_u,
             layout=self.layout, process_group=self.group)
 
@@ -611,6 +722,16 @@ class Trainer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+        if self.watchdog is not None:
+            self.watchdog.close()
+        if self.timeline is not None:
+            try:
+                path = self.timeline.write(self.cfg.obs_timeline)
+                self.logger.info("timeline -> %s", path)
+            except OSError as e:
+                self.logger.warning("timeline write failed: %s", e)
+        if self.exporter is not None:
+            self.exporter.close()
         self.metrics.close()
 
     def _next_host(self, k: int = 1) -> Dict[str, np.ndarray]:
@@ -715,14 +836,14 @@ class Trainer:
         opt.zero_grad(set_to_none=True)
         sums = None
         for raw in batches:
-            with record_function("forward_backward"):
+            with self.tracer.span("forward_backward"):
                 loss, metrics, _ = self._forward(self._prepare(raw))
                 loss.backward()
             values = [loss.detach()] + [metrics[key]
                                         for key in self._metric_names[1:]]
             sums = values if sums is None else [
                 a + b for a, b in zip(sums, values)]
-        with record_function("optimizer"):
+        with self.tracer.span("optimizer"):
             if cfg.nsteps_update > 1:
                 for p in self.model.parameters():
                     p.grad.div_(cfg.nsteps_update)
@@ -737,7 +858,7 @@ class Trainer:
         stacked per field and copied to the device in one transfer each;
         returns per step its list of micro-batches (views)."""
         m = self.cfg.nsteps_update
-        with record_function("data"):
+        with self.tracer.span("data"):
             hosts = [self._next_host(k) for _ in range(k * m)]
             host = {key: np.stack([h[key] for h in hosts]) if len(hosts) > 1
                     else hosts[0][key][None] for key in hosts[0]}
@@ -772,22 +893,31 @@ class Trainer:
         (the dense warm-up's branch, the lr ramp) and while SGD has no
         momentum buffers yet (its first step makes them). The dropout
         generator is registered with the graph, so each replay draws the
-        masks the eager step would."""
+        masks the eager step would. With the counters' recall audit, a step
+        whose count is a multiple of the audit interval replays a second
+        capture, the audit's (``_graph`` holds one capture a variant,
+        keyed by whether the step audits); the host picks the variant by
+        the count it keeps, and the two share the state buffers."""
         opt = self.optimizer
         count = opt.state["count"]
         lr = float(opt.schedule(count)) if opt.schedule else None
         fresh = opt.param_groups[0]["momentum"] and any(
             "momentum_buffer" not in opt.state.get(p, {})
             for p in self.model.parameters())
+        audit = bool(opt.telemetry and opt.audit_interval > 0
+                     and count % opt.audit_interval == 0)
+        held = next(iter(self._graph.values())) if self._graph else None
         if count < self._eager_until() or fresh or (
-                self._graph is not None and any(
+                held is not None and any(
                     static[key].shape != raw[key].shape
-                    for static, raw in zip(self._graph["inputs"], batches)
+                    for static, raw in zip(held["inputs"], batches)
                     for key in static)):
             return self._train_step(batches)
-        if self._graph is None or self._graph["lr"] != lr:
-            self._capture(batches, lr)
-        g = self._graph
+        if held is not None and held["lr"] != lr:
+            self._reset_graphs()  # every variant holds the old lr
+        if not self._graph or audit not in self._graph:
+            self._capture(batches, lr, audit)
+        g = self._graph[audit]
         for static, raw in zip(g["inputs"], batches):
             for key, t in static.items():
                 t.copy_(raw[key])
@@ -803,14 +933,18 @@ class Trainer:
             stats["replayed"][name] = stats["replayed"].get(name, 0) + n
         return [t.clone() for t in g["outputs"]]
 
-    def _capture(self, batches: List[Dict[str, torch.Tensor]],
-                 lr: Optional[float]) -> None:
-        """Capture one step in a new CUDA graph (replacing the last one),
-        with host syncs made errors while it records."""
-        opt = self.optimizer
-        if self._graph is not None:
-            self._graph["graph"].reset()
+    def _reset_graphs(self) -> None:
+        """Drop every captured step."""
+        for g in (self._graph or {}).values():
+            g["graph"].reset()
         self._graph = None
+
+    def _capture(self, batches: List[Dict[str, torch.Tensor]],
+                 lr: Optional[float], audit: bool = False) -> None:
+        """Capture one step in a new CUDA graph, the variant `audit` (the
+        count's step decides it; see ``_graph_step``), with host syncs
+        made errors while it records."""
+        opt = self.optimizer
         inputs = [{key: v.clone() for key, v in b.items()} for b in batches]
         residual, carry = opt.state["residual"], self.carry
         count = opt.state["count"]
@@ -840,8 +974,9 @@ class Trainer:
         stats["captures"] += 1
         for name, n in launches.items():
             stats["captured"][name] = stats["captured"].get(name, 0) + n
-        self._graph = {"graph": graph, "lr": lr, "inputs": inputs,
-                       "outputs": outputs, "launches": launches}
+        self._graph = self._graph or {}
+        self._graph[audit] = {"graph": graph, "lr": lr, "inputs": inputs,
+                              "outputs": outputs, "launches": launches}
 
     def train(self, num_iters: int) -> Dict[str, object]:
         """Run `num_iters` optimizer steps, ``steps_per_dispatch`` K at a
@@ -852,7 +987,11 @@ class Trainer:
         dispatch is given 1/K of it), the throughput in samples/s and
         ``dispatch``. A "train" record goes to the metrics file whenever
         a dispatch crosses a multiple of ``log_interval``, with the epoch
-        its last step belongs to."""
+        its last step belongs to; an "obs" record (and "layers" records)
+        whenever it crosses a multiple of ``obs_interval``, read in the
+        dispatch's one device-to-host copy. The monitor sees those reads;
+        a recovery it claims is applied before the next dispatch. A
+        skipped dispatch keeps its entries in the returned lists."""
         cfg = self.cfg
         k = cfg.steps_per_dispatch
         if self._iter is None:
@@ -864,46 +1003,97 @@ class Trainer:
                 f"steps_per_dispatch={k} (a dispatch stages and runs K "
                 "steps)")
         cuda = self.device.type == "cuda"
+        opt = self.optimizer
         cols: Dict[str, List[float]] = {name: []
                                          for name in self._metric_names}
         step_times: List[float] = []
         t_start = time.perf_counter()
         samples = 0
-        inj = self.injector
-        for _ in range(num_iters // k):
-            t0 = time.perf_counter()
-            outs = []
-            if inj is not None:
-                inj.sleep_if_slow(self.step, self.step + k)
-                inj.poison_params(self.model.parameters(), self.step,
-                                  self.step + k)
-            for batches in self._stage(k):
-                if self.dispatch == "graph":
-                    outs.append(self._graph_step(batches))
+        inj, rec, wd = self.injector, self.recovery, self.watchdog
+        nm = len(self._metric_names)
+        nf = len(opt.telemetry_fields)
+        if wd is not None:
+            wd.arm("train", step=self.step)
+        try:
+            for _ in range(num_iters // k):
+                t0 = time.perf_counter()
+                if self._degraded and self.step >= self._degrade_until:
+                    self._end_degrade()
+                if inj is not None:
+                    inj.sleep_if_slow(self.step, self.step + k)
+                staged = self._stage(k)
+                # What a skip restores: taken before an injected NaN.
+                snap = self._snapshot() if rec is not None else None
+                if inj is not None:
+                    inj.poison_params(self.model.parameters(), self.step,
+                                      self.step + k)
+                outs = []
+                with self.tracer.span("dispatch"):
+                    for batches in staged:
+                        if self.dispatch == "graph":
+                            outs.append(self._graph_step(batches))
+                        else:
+                            outs.append(self._train_step(batches))
+                        self.step += 1
+                step = self.step
+                obs_now = (opt.telemetry and cfg.obs_interval > 0
+                           and step % cfg.obs_interval < k)
+                # One device-to-host copy a dispatch: the steps' scalars
+                # and, on an obs step, the counters.
+                vals = torch.stack([torch.stack(o) for o in outs])
+                if obs_now:
+                    with self.tracer.span("obs_read"):
+                        host = torch.cat([vals.reshape(-1),
+                                          opt.state["telemetry"]]).cpu()
+                        scalars, max_age = self._log_obs(
+                            step, host[k * nm:].tolist(), nf)
                 else:
-                    outs.append(self._train_step(batches))
-                self.step += 1
-            # One sync a dispatch: the scalars come back together.
-            host = torch.stack([torch.stack(o) for o in outs]).cpu()
-            if cuda:
-                torch.cuda.synchronize(self.device)
-            dt = (time.perf_counter() - t0) / k
-            step_times.extend([dt] * k)
-            for name, col in zip(self._metric_names, host.T.tolist()):
-                cols[name].extend(col)
-            samples += k * cfg.batch_size * cfg.nsteps_update
-            if self.step % cfg.log_interval < k:
-                row = dict(step=self.step,
-                           epoch=(self.step - 1) // self.steps_per_epoch,
-                           loss=cols["loss"][-1],
-                           throughput=samples / (time.perf_counter()
-                                                 - t_start))
-                row.update({name: cols[name][-1]
-                            for name in self._metric_names[1:]})
-                if self.kind == "ptb":
-                    row["ppl"] = float(np.exp(min(row["loss"], 20.0)))
-                self.metrics.log("train", **row)
-            self._at_boundary(self.step - k)
+                    host = vals.reshape(-1).cpu()
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                dt = (time.perf_counter() - t0) / k
+                step_times.extend([dt] * k)
+                for name, col in zip(self._metric_names,
+                                     host[:k * nm].view(k, nm).T.tolist()):
+                    cols[name].extend(col)
+                samples += k * cfg.batch_size * cfg.nsteps_update
+                observed = False
+                if obs_now and self.monitor is not None:
+                    # The read above synced the step: no extra device read.
+                    self.monitor.observe(step, loss=cols["loss"][-1],
+                                         telemetry=scalars,
+                                         max_residual_age=max_age)
+                    observed = True
+                if step % cfg.log_interval < k:
+                    row = dict(step=step,
+                               epoch=(step - 1) // self.steps_per_epoch,
+                               loss=cols["loss"][-1],
+                               throughput=samples / (time.perf_counter()
+                                                     - t_start))
+                    row.update({name: cols[name][-1]
+                                for name in self._metric_names[1:]})
+                    if self.kind == "ptb":
+                        row["ppl"] = float(np.exp(min(row["loss"], 20.0)))
+                    self.metrics.log("train", **row)
+                    self.tracer.flush(step)
+                    if self.timeline is not None:
+                        self.timeline.counter("train", row)
+                    # The loss alone when the counters are off.
+                    if self.monitor is not None and not observed:
+                        self.monitor.observe(step, loss=row["loss"])
+                        observed = True
+                if rec is not None:
+                    pending = rec.pop_pending()
+                    if pending:
+                        self._apply_recovery(pending, snap)
+                    elif observed:
+                        rec.note_ok()
+                if wd is not None:
+                    wd.heartbeat(step=self.step)
+                self._at_boundary(step - k, step)
+        finally:
+            if wd is not None:
+                wd.disarm()
         wall = time.perf_counter() - t_start
         losses = cols["loss"]
         out = {
@@ -921,18 +1111,182 @@ class Trainer:
             out["ppl"] = float(np.exp(min(out["loss"], 20.0)))
         return out
 
+    def _log_obs(self, step: int, values: List[float], nf: int):
+        """The "obs" record of `step` from the counters' host copy
+        `values` (``nf`` scalars, then the layers' rows), the "layers"
+        records and the timeline's counter track. Returns the scalars and
+        the largest mean residual age of a layer (None without layers),
+        the monitor's feed."""
+        opt = self.optimizer
+        scalars = obs_counters.telemetry_scalars(values[:nf],
+                                                 opt.telemetry_fields)
+        self.metrics.log("obs", step=step, **scalars)
+        max_age = None
+        if opt.telemetry_layers:
+            rows = obs_counters.layer_rows(values[nf:],
+                                           len(self.layer_names))
+            ages = rows["residual_age"]
+            max_age = float(ages.max()) if ages.size else None
+            for i, name in enumerate(self.layer_names):
+                self.metrics.log("layers", step=step, layer=name,
+                                 **{f: float(c[i]) for f, c in rows.items()})
+        if self.timeline is not None:
+            self.timeline.counter("obs", scalars)
+        return scalars, max_age
+
+    # ------------------------------------------------------ recovery
+    def _snapshot_sources(self):
+        """The live tensors a snapshot copies, in order -- the parameters
+        and model buffers, SGD's momentum buffers that exist, the residual
+        (and u), the counters and the age, the PTB carry -- and which
+        parameters have a momentum buffer."""
+        opt = self.optimizer
+        params = list(self.model.parameters())
+        moms = [opt.state.get(p, {}).get("momentum_buffer") for p in params]
+        live = (params + list(self.model.buffers())
+                + [b for b in moms if b is not None]
+                + _leaves(opt.state["residual"])
+                + [opt.state[key] for key in ("telemetry", "age")
+                   if key in opt.state]
+                + _leaves(self.carry))
+        return live, tuple(b is not None for b in moms)
+
+    @torch.no_grad()
+    def _snapshot(self) -> Dict[str, object]:
+        """A device copy of everything a step changes (``_snapshot_
+        sources``), into buffers kept from one dispatch to the next, in a
+        fused copy a dtype; with the step, the count, the dropout
+        generator's state and which momentum buffers existed. Torch
+        updates in place, so the live tensors are no snapshot."""
+        live, has_momentum = self._snapshot_sources()
+        bufs = self._snap_bufs
+        if bufs is None or [(b.shape, b.dtype) for b in bufs] != [
+                (t.shape, t.dtype) for t in live]:
+            bufs = self._snap_bufs = [torch.empty_like(t) for t in live]
+        _copy_all(bufs, live)
+        return {"step": self.step, "count": self.optimizer.state["count"],
+                "momentum": has_momentum,
+                "dropout": (None if self.dropout_generator is None
+                            else self.dropout_generator.get_state())}
+
+    @torch.no_grad()
+    def _restore_snapshot(self, snap: Dict[str, object]) -> None:
+        """Put `snap` back into the live tensors (a captured graph keeps
+        reading them): bitwise the state before the snapshot's dispatch.
+        A momentum buffer SGD made in between is dropped again."""
+        opt = self.optimizer
+        for p, had in zip(self.model.parameters(), snap["momentum"]):
+            if not had:
+                opt.state.get(p, {}).pop("momentum_buffer", None)
+        live, _ = self._snapshot_sources()
+        _copy_all(live, self._snap_bufs)
+        if snap["dropout"] is not None:
+            self.dropout_generator.set_state(snap["dropout"])
+        opt.state["count"] = snap["count"]
+        self.step = snap["step"]
+
+    def _apply_recovery(self, pending, snap) -> None:
+        """Apply the actions claimed during this dispatch's observations
+        (the JAX trainer's ``_apply_recovery``): skip restores the
+        dispatch's snapshot; rollback the newest checkpoint, after a
+        backoff that doubles with each use (none: halt); degrade runs the
+        dense warm-up branch until ``param`` steps from now."""
+        rec, opt = self.recovery, self.optimizer
+        for event, spec in pending:
+            rule = spec.rule
+            if spec.action == "skip":
+                self._restore_snapshot(snap)
+                rec.consecutive_skips += 1
+                rec.record("skip", self.step, rule,
+                           consecutive=rec.consecutive_skips,
+                           budget=spec.budget)
+            elif spec.action == "rollback":
+                if self._ckpt is None or not self._ckpt.all_steps():
+                    self.logger.error(
+                        "recovery: rollback for rule %s but no checkpoint "
+                        "exists -- escalating to halt", rule)
+                    raise AnomalyHalt(event)
+                uses = rec.rollback_uses.get(rule, 0)
+                wait = spec.param * (2 ** uses)
+                rec.rollback_uses[rule] = uses + 1
+                if wait > 0:
+                    time.sleep(wait)
+                self.restore()
+                rec.record("rollback", self.step, rule, backoff_s=wait,
+                           use=uses + 1, budget=spec.budget)
+            elif spec.action == "degrade":
+                if self._degraded:
+                    continue
+                # The dense branch of the same step over the same state.
+                self._sparse_warmup = opt.warmup_dense_steps
+                opt.warmup_dense_steps = 1 << 30
+                self._degraded = True
+                rec.degraded = True
+                rec.degrade_episodes += 1
+                self._degrade_until = self.step + int(spec.param)
+                rec.record("degrade", self.step, rule,
+                           until_step=self._degrade_until,
+                           episode=rec.degrade_episodes, budget=spec.budget)
+
+    def _end_degrade(self) -> None:
+        """The degrade cooldown is over: back to the sparse step."""
+        self.optimizer.warmup_dense_steps = self._sparse_warmup
+        self._degraded = False
+        if self.recovery is not None:
+            self.recovery.degraded = False
+            self.recovery.record("sparse_resume", step=self.step)
+
+    # ------------------------------------------------------ the watchdog
+    def _stall_diagnostics(self) -> Dict[str, object]:
+        """Host state for the stall record: the span means of the current
+        logging window. Never touches the device (presumed wedged)."""
+        return {"phase_means_s": {
+            path: round(sec, 6)
+            for path, sec in self.tracer.stats.summary().items()}}
+
+    def _on_stall(self, record: Dict[str, object]) -> None:
+        """On the watchdog's thread, with the card presumed wedged: the
+        "stall" record and the run's summary (final_status "stalled"),
+        fsynced, the timeline, then stderr and exit 43. Nothing here
+        touches the device, and ``os._exit`` skips every handler."""
+        step = record.get("step", record.get("last_completed_step"))
+        step = int(step) if isinstance(step, (int, float)) else 0
+        try:
+            self.metrics.log("stall", flush=True, **{
+                key: v for key, v in record.items()
+                if key not in ("kind", "time")})
+            self.metrics.log(
+                "recovery", flush=True, action="summary",
+                final_status="stalled", completed=0,
+                n_recoveries=(self.recovery.n_recoveries
+                              if self.recovery is not None else 0),
+                step=step)
+            self.metrics.close()
+        except Exception:
+            pass
+        if self.timeline is not None:
+            try:
+                self.timeline.instant("stall", args={
+                    key: v for key, v in record.items()
+                    if isinstance(v, (int, float, str))})
+                self.timeline.write(self.cfg.obs_timeline)
+            except Exception:
+                pass
+        _default_on_stall(record)
+
     # ------------------------------------------------------ resilience
-    def _at_boundary(self, prev: int) -> None:
-        """The dispatch of steps (prev, self.step] has run: fire the
-        injected preemption and resizes, then act on an agreed stop (a
-        resize to P - 1 under elastic, else the emergency save)."""
+    def _at_boundary(self, prev: int, new: int) -> None:
+        """The dispatch of steps (prev, new] has run (a skip may have set
+        the step back since): fire the injected preemption and resizes,
+        then act on an agreed stop (a resize to P - 1 under elastic, else
+        the emergency save)."""
         inj = self.injector
         if inj is not None:
-            inj.maybe_preempt(prev, self.step, self.preempt)
-            new_p = inj.pending_resize(prev, self.step)
+            inj.maybe_preempt(prev, new, self.preempt)
+            new_p = inj.pending_resize(prev, new)
             if new_p is not None:
                 self._injected_resize(new_p, reason="inject")
-            rank = inj.pending_evict(prev, self.step)
+            rank = inj.pending_evict(prev, new)
             if rank is not None:
                 self._injected_resize(self.cfg.nworkers - 1, reason="evict",
                                       evicted_ranks=(rank,))
@@ -1025,13 +1379,17 @@ class Trainer:
                             f"{step}")
 
     def finalize_resilience(self, status: str) -> None:
-        """The run's closing "recovery" record (status: completed,
-        preempted, resized); none for a completed run without faults."""
-        if self.injector is None and status == "completed":
+        """The run's closing "recovery" record (status: completed, halted,
+        preempted, resized); none for a completed run without faults or a
+        recovery policy."""
+        if (self.injector is None and self.recovery is None
+                and status == "completed"):
             return
         self.metrics.log(
             "recovery", flush=True, action="summary", final_status=status,
-            completed=int(status == "completed"), n_recoveries=0,
+            completed=int(status == "completed"),
+            n_recoveries=(0 if self.recovery is None
+                          else self.recovery.n_recoveries),
             step=self.step,
             injected={} if self.injector is None
             else self.injector.summary())
@@ -1149,8 +1507,10 @@ class Trainer:
         SGD has not made yet is saved as zeros, which is what its first
         step would start from no more than a missing one), the residual
         ("residual", or "residual.v" and "residual.u" under momentum
-        correction) and the count, the PTB carry, and the dropout
-        generator's state."""
+        correction) and the count, the counters ("telemetry": the audit's
+        carried recall is state) and the residual age ("age") where the
+        optimizer keeps them, the PTB carry, and the dropout generator's
+        state."""
         opt = self.optimizer
         state = {"step": torch.tensor(self.step, dtype=torch.int64),
                  "count": torch.tensor(opt.state["count"],
@@ -1167,6 +1527,9 @@ class Trainer:
             state.update({f"residual.{key}": v for key, v in res.items()})
         else:
             state["residual"] = res
+        for key in ("telemetry", "age"):
+            if key in opt.state:
+                state[key] = opt.state[key]
         for i, t in enumerate(_leaves(self.carry)):
             state[f"carry.{i}"] = t
         if self.dropout_generator is not None:
@@ -1224,6 +1587,9 @@ class Trainer:
         else:
             opt.state["residual"] = saved["residual"]
         opt.state["count"] = int(saved["count"])
+        for key in ("telemetry", "age"):  # in place: fixed addresses
+            if key in opt.state and key in saved:
+                opt.state[key].copy_(saved[key])
         if self.carry is not None:
             flat = [saved[f"carry.{i}"] for i in range(len(_leaves(
                 self.carry)))]
@@ -1238,6 +1604,17 @@ class Trainer:
         self._set_iters(self.step // self.steps_per_epoch,
                         skip_steps=self.step % self.steps_per_epoch)
         return True
+
+
+def _copy_all(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
+    """dst.copy_(src) for each pair, one fused copy a dtype."""
+    groups: Dict[torch.dtype, tuple] = {}
+    for d, src in zip(dsts, srcs):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(src)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
 
 def _leaves(tree) -> List[torch.Tensor]:

@@ -12,8 +12,13 @@ The port writes the record kinds in ``KINDS``: the run manifest first
 trainer has them, ``train`` every ``log_interval`` steps, ``eval`` after
 each ``Trainer.test()`` and ``epoch`` after each epoch of ``fit()``;
 with the resilience flags, ``inject`` a fault's firing, ``recovery`` an
-emergency save and the run's summary, ``resize`` an elastic resize.
-An unregistered kind raises, so a typo fails loudly.
+emergency save, a recovery action and the run's summary, ``resize`` an
+elastic resize; with the observability (``obs/``), ``obs`` the counters
+and ``layers`` one a layer every ``obs_interval`` steps, ``spans`` the
+Tracer's window means, ``event`` an anomaly and ``stall`` the watchdog's
+diagnostic. An unregistered kind raises, so a typo fails loudly.
+``sink`` is called with every record, file or no file (the exporter's
+``observe``); its errors are swallowed, so export cannot stop a run.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import json
 import os
 import re
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 KINDS = frozenset({
     "manifest",  # run provenance header (utils/manifest.py), first record
@@ -32,8 +37,15 @@ KINDS = frozenset({
     "eval",      # validation metrics
     "epoch",     # end-of-epoch combined stats
     "inject",    # a fault injection firing (resilience/inject.py)
-    "recovery",  # an emergency save, a run's resilience summary
+    "recovery",  # an emergency save, a recovery action (resilience/
+                 # policy.py), a run's resilience summary
     "resize",    # an elastic resize, before exit 46 (resilience/elastic.py)
+    "obs",       # on-device counters (obs/counters.py)
+    "layers",    # per-layer counters, one record a layer an obs step
+    "spans",     # Tracer window means (obs/tracing.py flush)
+    "span",      # one Tracer span (record_each=True)
+    "event",     # an anomaly event (obs/events.py)
+    "stall",     # the stall watchdog's diagnostic (obs/watchdog.py)
 })
 
 _SHARD_RE = re.compile(r"^metrics\.rank(\d+)\.jsonl$")
@@ -53,12 +65,15 @@ def shard_rank(path: str) -> Optional[int]:
 class MetricsLogger:
     """``shard=True`` (P > 1) writes ``metrics.rank{rank}.jsonl`` on every
     rank; the default writes ``metrics.jsonl`` on rank 0 only. Without
-    an ``out_dir`` nothing is written. A context manager; owners that
+    an ``out_dir`` nothing is written. ``sink(record)`` sees every
+    record. A context manager; owners that
     hold one for their whole life call ``close()``."""
 
     def __init__(self, out_dir: Optional[str] = None, rank: int = 0,
-                 shard: bool = False):
+                 shard: bool = False,
+                 sink: Optional[Callable[[Dict[str, Any]], None]] = None):
         self.rank = rank
+        self.sink = sink
         self._fh = None
         if out_dir is not None and (shard or rank == 0):
             os.makedirs(out_dir, exist_ok=True)
@@ -85,6 +100,11 @@ class MetricsLogger:
                     os.fsync(self._fh.fileno())
                 except OSError:
                     pass
+        if self.sink is not None:
+            try:
+                self.sink(rec)
+            except Exception:
+                pass
         return rec
 
     def close(self) -> None:

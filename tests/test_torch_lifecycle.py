@@ -119,10 +119,11 @@ def test_manifest_roundtrip_and_hash_stability():
 
 
 def test_trainer_records_match_the_jax_trainer(tmp_path):
-    """ResNet-20, 2 steps and ``test()``: the same record kinds in the
-    same order with the same fields. The JAX trainer's span tracer
-    (``spans``, an observability plane of ROADMAP item 7) is left out;
-    the manifest's backend fields are the port's own."""
+    """ResNet-20, 2 steps and ``test()``, the counters off on both sides:
+    the same record kinds in the same order with the same fields. A
+    "spans" record holds each tracer's own span paths (the port's are its
+    dispatch's ranges), so only its step and "dispatch" are compared; the
+    manifest's backend fields are the port's own."""
     from gtopkssgd_tpu.trainer import TrainConfig as JaxConfig
     from gtopkssgd_tpu.trainer import Trainer as JaxTrainer
 
@@ -136,15 +137,18 @@ def test_trainer_records_match_the_jax_trainer(tmp_path):
     jt.test()
     jt.metrics.close()
     with Trainer(TrainConfig(device="cpu", out_dir=str(tmp_path / "port"),
-                             **common)) as pt:
+                             obs_counters=False, **common)) as pt:
         pt.train(2)
         pt.test()
-    want = [r for r in _records(tmp_path / "jax" / "metrics.jsonl")
-            if r["kind"] != "spans"]
+    want = _records(tmp_path / "jax" / "metrics.jsonl")
     got = _records(tmp_path / "port" / "metrics.jsonl")
     assert [r["kind"] for r in got] == [r["kind"] for r in want]
     for g, w in zip(got[1:], want[1:]):
-        assert set(g) == set(w), g["kind"]
+        if g["kind"] == "spans":
+            assert g["step"] == w["step"] and "dispatch" in g
+            assert "dispatch" in w
+        else:
+            assert set(g) == set(w), g["kind"]
     man = got[0]
     assert man["config_hash"] == config_hash(pt._identity())
     for key in ("dnn", "dataset", "compression", "density", "wire_codec",
@@ -155,14 +159,17 @@ def test_trainer_records_match_the_jax_trainer(tmp_path):
     for key in ("torch_version", "cuda_version", "device_name",
                 "power_limit", "backend", "world_size"):
         assert key in man
-    assert got[1]["step"] == 1 and got[2]["step"] == 2
-    assert got[3]["step"] == 2
+    steps = [(r["kind"], r["step"]) for r in got[1:]]
+    assert steps == [("train", 1), ("spans", 1), ("train", 2),
+                     ("spans", 2), ("eval", 2)]
 
 
 def test_fit_writes_epoch_records_and_checkpoints(tmp_path, monkeypatch):
     """``fit()`` logs an ``epoch`` record with the JAX trainer's fields
     and saves after each epoch. Both packages' synthetic CIFAR-10 is cut
-    to 32 training images, so an epoch is 4 steps of 8."""
+    to 32 training images, so an epoch is 4 steps of 8; the counters are
+    off on both sides, and "spans" records are held by kind and step (each
+    tracer has its own span paths)."""
     import gtopkssgd_tpu.data.cifar as jax_cifar
     import gtopkssgd_tpu_torch.data.cifar as port_cifar
     from gtopkssgd_tpu.trainer import TrainConfig as JaxConfig
@@ -183,20 +190,22 @@ def test_fit_writes_epoch_records_and_checkpoints(tmp_path, monkeypatch):
         jt.metrics.close()
         with Trainer(TrainConfig(device="cpu",
                                  out_dir=str(tmp_path / "port"),
-                                 **common)) as pt:
+                                 obs_counters=False, **common)) as pt:
             assert pt.steps_per_epoch == 4
             pt.fit()
     finally:
         for mod in (jax_cifar, port_cifar):
             mod._synthetic.cache_clear()
-    want = [r for r in _records(tmp_path / "jax" / "metrics.jsonl")
-            if r["kind"] != "spans"]
+    want = _records(tmp_path / "jax" / "metrics.jsonl")
     got = _records(tmp_path / "port" / "metrics.jsonl")
     assert [r["kind"] for r in got] == [r["kind"] for r in want]
-    assert [r["kind"] for r in got] == ["manifest", "train", "train",
-                                        "eval", "epoch"]
+    assert [r["kind"] for r in got] == ["manifest", "train", "spans",
+                                        "train", "spans", "eval", "epoch"]
     for g, w in zip(got[1:], want[1:]):
-        assert set(g) == set(w), g["kind"]
+        if g["kind"] == "spans":
+            assert g["step"] == w["step"]
+        else:
+            assert set(g) == set(w), g["kind"]
     assert pt.step == 4 and got[-1]["epoch"] == 0
     assert sorted(os.listdir(tmp_path / "port" / "ckpt")) == [
         "4", "integrity-4.json"]
@@ -468,24 +477,21 @@ def test_resume_without_checkpoint_starts_fresh(tmp_path):
 
 # ------------------------------------------------------------ the CLI
 
-# JAX flags the port does not have yet, by ROADMAP.md item: observability
-# and the resilience that rests on it (item 7).
+# JAX flags the port does not have yet, by ROADMAP.md item: the
+# observability planes that read traces and fleets (item 7c).
 MISSING_FLAGS = {
-    # item 7, observability
-    "--obs-counters", "--obs-interval", "--obs-layers",
-    "--obs-audit-interval", "--obs-events", "--obs-timeline",
-    "--obs-export-port", "--obs-calib", "--obs-calib-interval",
+    # item 7c, observability
+    "--obs-calib", "--obs-calib-interval",
     "--obs-critpath", "--obs-critpath-shift-windows", "--obs-mem",
     "--obs-mem-interval", "--obs-recompile-warmup",
     "--obs-mem-leak-windows", "--obs-hbm-headroom-frac", "--obs-goodput",
     "--obs-goodput-interval", "--obs-goodput-collapse-windows",
     "--obs-linkmap", "--obs-link-degraded-x",
     "--obs-link-degraded-windows", "--obs-forecast",
-    "--obs-forecast-targets", "--obs-forecast-drift-x", "--obs-watchdog",
-    "--obs-halt-on",
+    "--obs-forecast-targets", "--obs-forecast-drift-x",
     "--registry", "--profile-dir", "--profile-steps",
-    # item 7b, the recovery policy; 7c, eviction (it reads the goodput)
-    "--recover-policy", "--evict-after-windows",
+    # item 7c, eviction (it reads the goodput)
+    "--evict-after-windows",
 }
 
 
@@ -510,14 +516,19 @@ def test_cli_flags_and_defaults_match_the_jax_cli():
     assert missing == MISSING_FLAGS
     for flag in set(port) & set(jax):
         assert port[flag].default == jax[flag].default, flag
-    # 44 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
-    assert len({a.dest for a in port.values()}) == 44
+    # 54 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
+    assert len({a.dest for a in port.values()}) == 54
     assert len({a.dest for a in jax.values()}) == 74
     for flag in ("--out-dir", "--log-interval", "--resume",
                  "--allow-ckpt-mismatch", "--dtype", "--synth-hard",
                  "--prefetch", "--steps-per-dispatch", "--decode-workers",
                  "--inject", "--elastic", "--no-elastic", "--min-fleet",
-                 "--preempt-save", "--no-preempt-save", "--multihost"):
+                 "--preempt-save", "--no-preempt-save", "--multihost",
+                 "--obs-counters", "--no-obs-counters", "--obs-interval",
+                 "--obs-layers", "--no-obs-layers", "--obs-audit-interval",
+                 "--obs-watchdog", "--obs-events", "--no-obs-events",
+                 "--obs-halt-on", "--obs-timeline", "--obs-export-port",
+                 "--recover-policy"):
         assert flag in port
 
 
@@ -553,7 +564,10 @@ def test_cli_resumes_from_out_dir(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["step"] == 4 and len(out["losses"]) == 2
     kinds = [r["kind"] for r in _records(tmp_path / "metrics.jsonl")]
-    assert kinds == ["manifest", "train", "train", "eval"] * 2
+    # The counters are on by default, as in the JAX CLI: an "obs" record
+    # a step, and the span means with each "train" record.
+    assert kinds == ["manifest", "obs", "train", "spans", "obs", "train",
+                     "spans", "eval"] * 2
 
 
 # ------------------------------------------------------- JAX checkpoints

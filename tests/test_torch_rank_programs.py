@@ -342,3 +342,45 @@ def elastic_restore(device, cfg_kwargs, out_dir):
                 "world": t._ckpt.last_restored_world,
                 "residual": {k: v.detach().cpu() for k, v in res.items()},
                 "manifest": dict(t.manifest)}
+
+
+def telemetry_cases(device, leaves0, grads, cases):
+    """For each {name: opt_kwargs} of `cases`, ``GTopKSGD`` with the
+    counters on over the whole world on the 1-D parameters `leaves0` (one
+    leaf each), one step per entry of `grads` (a list of f32[P, n_l] a
+    leaf, row = rank); after each step this rank's telemetry vector and
+    residual age (None without layers), by name."""
+    rank = dist.get_rank()
+    out = {}
+    for name, kw in cases.items():
+        params = [torch.nn.Parameter(torch.from_numpy(x.copy()).to(device))
+                  for x in leaves0]
+        opt = GTopKSGD(params, process_group=dist.group.WORLD, **kw)
+        steps = []
+        for g in grads:
+            for p, gl in zip(params, g):
+                p.grad = torch.from_numpy(gl[rank].copy()).to(device)
+            opt.step()
+            age = opt.state.get("age")
+            steps.append({"telemetry": opt.state["telemetry"].clone(),
+                          "age": None if age is None else age.clone()})
+        out[name] = {"fields": opt.telemetry_fields, "steps": steps}
+        opt.close()
+    return out
+
+
+def skip_runs(device, cfg_kwargs, chaos_kwargs):
+    """One step of a trainer from `cfg_kwargs`, then two of one with
+    `chaos_kwargs` added (an injected NaN at step 2 claimed by a skip
+    policy, a metrics exporter); each's final ``checkpoint_state`` (on
+    the CPU), the second's step, recoveries and exporter port."""
+    cfg = dict(cfg_kwargs, device=str(device))
+    with Trainer(TrainConfig(**cfg)) as clean:
+        clean.train(1)
+        clean_state = _state_cpu(clean)
+    with Trainer(TrainConfig(**cfg, **chaos_kwargs)) as chaos:
+        chaos.train(2)
+        return {"clean": clean_state, "chaos": _state_cpu(chaos),
+                "step": chaos.step,
+                "recoveries": chaos.recovery.n_recoveries,
+                "port": chaos.exporter.port}
