@@ -263,7 +263,35 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        ``nan_grad@3`` exits 44 with step 3's "obs" record the last;
        ``--obs-watchdog 1`` with ``slow_rank:0:3s@3`` exits 43 with one
        "stall" record and a "stalled" summary.
-14. A ``kernels`` JSON line, then the last line
+14. The trace planes (``trace_phase``), batch 32, density 0.001:
+   (a) ResNet-50 ``twostage`` eager, 6 steps, with ``--obs-critpath
+       --obs-calib-interval 2 --obs-mem --obs-mem-interval 2
+       --obs-goodput-interval 2``: "critpath" records at steps 2, 4, 6;
+       each profiled dispatch's attributed select at least 0.8 x phase 2's
+       K2 time at 25,557,032 a K2 launch, ``stage1_kernel`` among its
+       select events; every "goodput" record conserved to 1e-6; one
+       "compile" record, its FLOPs ``benchmark.py``'s count of the same
+       step; "mem" records at steps 1, 3, 5 whose ``bytes_limit`` is the
+       card's memory; ResNet-20 ``pallas``, 4 steps, a capture at step 4
+       with the multisection kernel in select, the goodput record at step
+       3 with other_frac <= 0.05.
+   (b) ResNet-50 at ``--steps-per-dispatch 2`` in CUDA graphs, a capture
+       at steps 3-4: source "ops", its stage-1 events in select as many as
+       the replays ran (2); launches 6 through the replays.
+   (c) P = 2 over gloo on the card, ResNet-20 ``twostage``, 8 steps,
+       ``--obs-calib --obs-linkmap --obs-critpath --obs-calib-interval 2``:
+       "attr" comm from the host's gloo events (> 0), "calib" records with
+       finite constants fed the "obs" records' wire bytes, "linkmap"
+       records keyed by ``round_peers``, ``calib_fit_2proc.json`` naming
+       the card.
+   (d) Through the command line: ``--profile-dir D --profile-steps 2``
+       exits 0 and D's trace attributes compute and select; ``--inject
+       nan_grad@3 --recover-policy nan_loss=skip`` ends in a "goodput"
+       record with one wasted step.
+   One line an arm: the attributed ms of each class, the overlap share,
+   the critical path, the goodput fractions. No event of the rules these
+   planes feed.
+15. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1375,6 +1403,7 @@ def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
     import torch.distributed as dist
 
     from gtopkssgd_tpu_torch import benchmark, profile_step
+    from gtopkssgd_tpu_torch.obs import trace_attr
     from gtopkssgd_tpu_torch.ops import cuda_topk
     from gtopkssgd_tpu_torch.parallel import collectives
     from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
@@ -1443,7 +1472,7 @@ def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
         res["share"] = {}
         for order in ("serial", "overlap"):
             trainer.optimizer = opts[order]
-            with profile_step._profiler() as prof:
+            with trace_attr.profiler() as prof:
                 stats = trainer.train(1)
             res["share"][order] = profile_step.summarize(
                 prof, stats, 1)["overlap_share"]
@@ -2567,14 +2596,15 @@ def obs_phase() -> dict:
             _cli_wait(proc, f"13 {what}", rc, total)
         recs = [json.loads(line) for line in
                 open(os.path.join(d["cskip"], "metrics.jsonl"))]
-        check([r["action"] for r in recs if r["kind"] == "recovery"]
-              == ["skip", "summary"]
-              and recs[-1]["final_status"] == "completed",
+        summary = [r for r in recs if r["kind"] == "recovery"]
+        check([r["action"] for r in summary] == ["skip", "summary"]
+              and summary[-1]["final_status"] == "completed",
               "13b CLI: expected one skip record and a completed summary")
         recs = [json.loads(line) for line in
                 open(os.path.join(d["halt"], "metrics.jsonl"))]
         last = max(r["step"] for r in recs if r["kind"] == "obs")
-        check(last == 3 and recs[-1]["final_status"] == "halted",
+        summary = [r for r in recs if r["kind"] == "recovery"]
+        check(last == 3 and summary[-1]["final_status"] == "halted",
               f"13c halt: last obs step {last}, expected 3")
         rc, _ = _wait(stall, "13 stall", quiet=(43,))
         recs = [json.loads(line) for line in
@@ -2588,6 +2618,325 @@ def obs_phase() -> dict:
               f"{stalls[0]['waited_s']} s, last completed step "
               f"{stalls[0]['last_completed_step']})")
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# Phase 14: the trace planes.
+TRACE_BASE = dict(batch_size=32, compression="gtopk", density=0.001,
+                  eval_batches=1, seed=42, log_interval=1)
+TRACE_STEPS = 6
+TRACE_DIST = (2, 8)  # P over gloo on the one card, steps
+K2_N = 25_557_032    # ResNet-50's gradient
+K2_SHARE = 0.8       # select >= 0.8 x K2's phase-2 time a launch
+GOODPUT_TOL = 1e-6
+CLEAN_OTHER = 0.05   # the JAX package's gate on a clean run's other_frac
+# The monitor rules the trace planes feed.
+TRACE_RULES = ("comm_model_drift", "recompile_storm", "device_mem_leak",
+               "hbm_headroom", "critpath_shift", "goodput_collapse",
+               "link_degraded")
+
+
+def k2_ms(n: int = K2_N) -> float:
+    """The stage-1 kernel's device ms at `n`, timed as phase 2 times it."""
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk, topk
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    g = torch.randn(n, device="cuda", generator=gen)
+    r = 0.3 * torch.randn(n, device="cuda", generator=gen)
+    groups = topk._twostage_pallas_groups(n, topk.k_for_density(n, 0.001))
+    return device_ms(lambda: cuda_topk.fused_stage1_candidates(
+        g, None, r, groups=groups))
+
+
+def _jsonl(path: str) -> list:
+    return [json.loads(line) for line in open(path)]
+
+
+def trace_line(arm: str, recs: list) -> dict:
+    """Print one arm's split: the attributed ms a step of each class (the
+    mean over its captures), the overlap fraction, the critical path's
+    wall and wait share, and the final goodput fractions."""
+    from gtopkssgd_tpu_torch.obs import goodput
+
+    attrs = [r for r in recs if r["kind"] == "attr"]
+    cps = [r for r in recs if r["kind"] == "critpath"]
+    fin = [r for r in recs if r["kind"] == "goodput"][-1]
+    ms = {t: statistics.mean(r[f"t_{t}_us"] / 1e3 / r["n_steps"]
+                             for r in attrs)
+          for t in ("compute", "select", "comm")}
+    fracs = {c: round(v, 4) for c, v in goodput.category_fracs(fin).items()
+             if v > 0}
+    print(f"trace {arm}: attributed ms a step compute {ms['compute']:.3f} "
+          f"select {ms['select']:.3f} comm {ms['comm']:.3f} (source "
+          f"{attrs[-1]['source']}, comm {attrs[-1]['comm_source']}); "
+          f"overlap {statistics.mean(r['overlap_frac'] for r in attrs):.4f}"
+          + (f"; critpath wall "
+             f"{statistics.mean(r['wall_us'] for r in cps) / 1e3:.3f} ms, "
+             f"wait {statistics.mean(r['t_wait_us'] for r in cps) / 1e3:.3f}"
+             " ms" if cps else "")
+          + f"; goodput {fracs} (other_frac {fin['other_frac']})")
+    return ms
+
+
+def trace_checks(run: str, recs: list) -> None:
+    """Every "goodput" record conserved; no event of a trace-plane rule."""
+    from gtopkssgd_tpu_torch.obs import goodput
+
+    gps = [r for r in recs if r["kind"] == "goodput"]
+    check(gps and gps[-1]["final"] == 1, f"{run}: no final goodput record")
+    for r in gps:
+        err = goodput.conservation_error(r)
+        check(err <= GOODPUT_TOL,
+              f"{run}: goodput at step {r['step']} conserved to {err}")
+    fired = [(r["rule"], r["step"]) for r in recs if r["kind"] == "event"
+             and r["rule"] in TRACE_RULES]
+    check(not fired, f"{run}: trace-plane events {fired}")
+
+
+def trace_rank(device, out_dir: str, steps: int) -> dict:
+    """One rank of phase 14c: ResNet-20 ``twostage`` at P ranks over gloo
+    with the calibrator, the link map and critpath every 2 steps; its
+    records and the calibrator's samples."""
+    import torch.distributed as dist
+
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    with Trainer(TrainConfig(dnn="resnet20", topk_method="twostage",
+                             nworkers=dist.get_world_size(),
+                             obs_calib=True, obs_linkmap=True,
+                             obs_critpath=True, obs_calib_interval=2,
+                             out_dir=out_dir, device=str(device),
+                             **TRACE_BASE)) as t:
+        t.train(steps)
+        samples = [(b, ms) for _, b, ms in t.calib.samples]
+    rank = dist.get_rank()
+    return {"rank": rank, "samples": samples, "records": _jsonl(
+        f"{out_dir}/metrics.rank{rank}.jsonl")}
+
+
+def trace_phase(k2: float = None) -> dict:
+    """Phase 14, on the card, batch 32, density 0.001, TF32 off: the trace
+    planes (``obs.trace_attr``, ``critpath``, ``calib``, ``linkmap``,
+    ``memwatch``, ``goodput``) -- (a) ResNet-50 ``twostage`` eager with
+    critpath and the memory watch every 2 steps: three "critpath" records,
+    each captured dispatch's select at least K2_SHARE x K2's time `k2`
+    (phase 2's at K2_N; timed here when None) with ``stage1_kernel``
+    among the select events, goodput conserved, one "compile" record whose
+    FLOPs equal ``benchmark.py``'s count, "mem" records whose limit is the
+    card's memory; ResNet-20 ``pallas`` with a capture at step 4: the
+    multisection kernel in select, the goodput before it clean (other_frac
+    <= CLEAN_OTHER); (b) ResNet-50 in CUDA graphs (K = 2): attributed on
+    kernel names ("ops"), K2's replayed launches in select as many as the
+    replays ran; (c) P = 2 over gloo on the card: calib with finite
+    constants and the "obs" records' wire bytes, "linkmap" records keyed
+    by ``round_peers``, ``calib_fit_2proc.json`` naming the card, the comm
+    from the host's gloo events; (d) ``--profile-dir`` (a trace the planes
+    read) and a skip's final goodput (one wasted step). No event of the
+    rules these planes feed. Returns the launches of the runs."""
+    import os
+    import tempfile
+
+    import torch
+
+    from gtopkssgd_tpu_torch.benchmark import BenchConfig, _Bench
+    from gtopkssgd_tpu_torch.obs import linkmap, trace_attr
+    from gtopkssgd_tpu_torch.obs.memwatch import step_flops
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.parallel.dist import spawn
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    total = {name: 0 for name in REPLACES}
+    t0 = time.perf_counter()
+    if k2 is None:
+        k2 = k2_ms()
+    card_bytes = torch.cuda.mem_get_info()[1]
+    two = ["--topk-method", "twostage"]
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        d = {x: os.path.join(tmp, x) for x in
+             ("prof", "skip", "eager", "pallas", "graph", "dist")}
+        # (d) The command line: both processes at once, first.
+        cli = {"prof": _cli(SMOKE_BASE + two + [
+                   "--num-iters", "1", "--profile-dir", d["prof"],
+                   "--profile-steps", "2"]),
+               "skip": _cli(SMOKE_BASE + two + [
+                   "--num-iters", "5", "--out-dir", d["skip"], "--inject",
+                   "nan_grad@3", "--recover-policy", "nan_loss=skip"])}
+        for what, proc in cli.items():
+            _cli_wait(proc, f"14d {what}", 0, total)
+        rec = trace_attr.attribute(d["prof"])
+        check(os.listdir(d["prof"]) == ["rank0.trace.json"]
+              and rec["t_compute_us"] > 0 and rec["t_select_us"] > 0,
+              f"14d --profile-dir: {os.listdir(d['prof'])}, compute "
+              f"{rec['t_compute_us']} us, select {rec['t_select_us']} us")
+        fin = [r for r in _jsonl(os.path.join(d["skip"], "metrics.jsonl"))
+               if r["kind"] == "goodput"][-1]
+        check(fin["final"] == 1 and fin["n_wasted_steps"] == 1
+              and fin["wasted_s"] > 0,
+              f"14d skip: final goodput {fin}")
+        print(f"trace CLI: --profile-dir trace attributed compute "
+              f"{rec['t_compute_us'] / 1e3:.3f} ms select "
+              f"{rec['t_select_us'] / 1e3:.3f} ms over 2 steps; skip: "
+              f"{fin['n_wasted_steps']} wasted step, {fin['wasted_s']} s "
+              f"of {fin['wall_s']} s")
+
+        # (a) ResNet-50 twostage, eager.
+        cuda_topk.reset_launches()
+        with Trainer(TrainConfig(
+                dnn="resnet50", topk_method="twostage", out_dir=d["eager"],
+                obs_critpath=True, obs_calib_interval=2, obs_mem=True,
+                obs_mem_interval=2, obs_goodput_interval=2, device="cuda",
+                **TRACE_BASE)) as t:
+            t.train(TRACE_STEPS)
+        launches = dict(cuda_topk.launches)
+        check_launches(launches, {"fused_stage1_candidates": TRACE_STEPS},
+                       "phase 14a resnet50 twostage eager")
+        for name, n in launches.items():
+            total[name] += n
+        recs = _jsonl(os.path.join(d["eager"], "metrics.jsonl"))
+        trace_checks("14a resnet50", recs)
+        cps = [r["step"] for r in recs if r["kind"] == "critpath"]
+        check(cps == [2, 4, 6], f"14a: critpath records at {cps}")
+        for r in (r for r in recs if r["kind"] == "attr"):
+            k2s = sum(n for name, n in r["select_ops"].items()
+                      if "stage1_kernel" in name)
+            check(k2s == r["n_steps"] and r["t_select_us"] / 1e3
+                  >= K2_SHARE * k2 * k2s,
+                  f"14a step {r['step']}: {k2s} stage-1 events, select "
+                  f"{r['t_select_us']} us against K2 {k2:.5f} ms a launch")
+        bench = _Bench(BenchConfig(dnn="resnet50", batch_size=32,
+                                   dtype="float32", topk_method="twostage"),
+                       "gtopk", 0.001, torch.device("cuda"), None)
+        try:
+            _, flops = step_flops(bench.step)
+        finally:
+            bench.close()
+        comp = [r for r in recs if r["kind"] == "compile"]
+        check(len(comp) == 1 and comp[0]["flops"] == flops > 0,
+              f"14a: compile records {comp}, benchmark FLOPs {flops}")
+        mems = [r for r in recs if r["kind"] == "mem"]
+        check([r["step"] for r in mems] == [1, 3, 5] and all(
+            r["bytes_limit"] == card_bytes for r in mems),
+            f"14a: mem records {mems}, card {card_bytes} bytes")
+        trace_line("resnet50 twostage eager", recs)
+        print(f"trace resnet50 compile: first step {comp[0]['compile_s']} "
+              f"s, {flops:.6g} FLOPs (= benchmark.py), peak "
+              f"{comp[0]['peak_hbm_bytes']} bytes; mem live "
+              f"{mems[-1]['live_bytes']} reserved {mems[-1]['bytes_in_use']}"
+              f" of {card_bytes}; K2 {k2:.5f} ms a launch")
+        # ResNet-20 pallas: the multisection kernel in select.
+        cuda_topk.reset_launches()
+        with Trainer(TrainConfig(
+                dnn="resnet20", topk_method="pallas", out_dir=d["pallas"],
+                obs_critpath=True, obs_calib_interval=4, obs_mem=True,
+                obs_mem_interval=2, obs_goodput_interval=2, device="cuda",
+                **TRACE_BASE)) as t:
+            t.train(4)
+        launches = dict(cuda_topk.launches)
+        check_launches(launches, {"multisection_tau_lo[residual]": 4},
+                       "phase 14a resnet20 pallas")
+        for name, n in launches.items():
+            total[name] += n
+        recs = _jsonl(os.path.join(d["pallas"], "metrics.jsonl"))
+        trace_checks("14a resnet20 pallas", recs)
+        (attr,) = [r for r in recs if r["kind"] == "attr"]
+        check(attr["step"] == 4 and any(
+            "multisection_kernel" in name for name in attr["select_ops"]),
+            f"14a pallas: select events {attr['select_ops']}")
+        clean = [r for r in recs if r["kind"] == "goodput"][0]
+        check(clean["step"] == 3 and clean["other_frac"] <= CLEAN_OTHER,
+              f"14a pallas: goodput before the capture {clean}")
+        trace_line("resnet20 pallas eager", recs)
+
+        # (b) ResNet-50 in CUDA graphs, K = 2: the capture at steps 3-4.
+        cuda_topk.reset_launches()
+        with Trainer(TrainConfig(
+                dnn="resnet50", topk_method="twostage", out_dir=d["graph"],
+                steps_per_dispatch=2, obs_critpath=True,
+                obs_calib_interval=4, obs_goodput_interval=2, device="cuda",
+                **TRACE_BASE)) as g:
+            g.train(2)
+            before = dict(g.graph_stats["replayed"])
+            g.train(2)
+            replayed = {name: n - before.get(name, 0)
+                        for name, n in g.graph_stats["replayed"].items()}
+            g.train(TRACE_STEPS - 4)
+            gs = g.graph_stats
+            counted = {name: n - gs["captured"].get(name, 0)
+                       + gs["replayed"].get(name, 0)
+                       for name, n in cuda_topk.launches.items()}
+            check(g.dispatch == "graph" and gs["captures"] >= 1,
+                  f"14b: dispatch {g.dispatch}, captures {gs['captures']}")
+        check_launches(counted, {"fused_stage1_candidates": TRACE_STEPS},
+                       "phase 14b resnet50 twostage graph")
+        for name, n in counted.items():
+            total[name] += n
+        recs = _jsonl(os.path.join(d["graph"], "metrics.jsonl"))
+        trace_checks("14b resnet50 graph", recs)
+        (attr,) = [r for r in recs if r["kind"] == "attr"]
+        k2s = sum(n for name, n in attr["select_ops"].items()
+                  if "stage1_kernel" in name)
+        want = replayed.get("fused_stage1_candidates", 0)
+        check(attr["step"] == 4 and attr["source"] == "ops"
+              and k2s == want == 2,
+              f"14b: source {attr['source']}, {k2s} stage-1 events in "
+              f"select, {want} replayed")
+        trace_line("resnet50 twostage graph K=2", recs)
+
+        # (c) P = 2 over gloo on the one card.
+        p, steps = TRACE_DIST
+        ranks = spawn(trace_rank, p, d["dist"], steps, backend="gloo",
+                      device="cuda", timeout=600)
+        links = {linkmap.link_key(rd["axis"], *pair)
+                 for rd in linkmap.round_peers("gtopk", p)
+                 for pair in rd["pairs"]}
+        for out in ranks:
+            run = f"14c rank {out['rank']}"
+            recs = out["records"]
+            trace_checks(run, recs)
+            attrs = [r for r in recs if r["kind"] == "attr"]
+            check(len(attrs) == steps // 2 and all(
+                r["comm_source"] == "host" and r["t_comm_us"] > 0
+                for r in attrs), f"{run}: attr {attrs}")
+            fits = [r for r in recs if r["kind"] == "calib"]
+            check(fits and all(math.isfinite(r["alpha_fit_ms"])
+                               and math.isfinite(r["beta_fit_gbps"])
+                               for r in fits), f"{run}: calib {fits}")
+            wire = {r["step"]: r["wire_bytes"] for r in recs
+                    if r["kind"] == "obs"}
+            check([b for b, _ in out["samples"]]
+                  == [wire[s] for s in range(2, steps + 1, 2)],
+                  f"{run}: calib samples {out['samples']} vs obs {wire}")
+            lms = [r for r in recs if r["kind"] == "linkmap"]
+            check(len(lms) == steps // 2 and all(
+                {x["link"] for x in r["links"]} <= links
+                and r["wire_bytes"] == wire[r["step"]] for r in lms),
+                f"{run}: linkmap records {lms}")
+            cps = [r for r in recs if r["kind"] == "critpath"]
+            check(all(r["t_comm_wire_us"] + r["t_wait_us"] > 0
+                      and r["t_wait_us"] >= 0 for r in cps),
+                  f"{run}: critpath {cps}")
+            trace_line(f"resnet20 twostage P=2 gloo rank {out['rank']}",
+                       recs)
+            print(f"trace P=2 rank {out['rank']}: calib alpha "
+                  f"{fits[-1]['alpha_fit_ms']} ms beta "
+                  f"{fits[-1]['beta_fit_gbps']} Gb/s "
+                  f"({fits[-1]['identifiable']}, planner's "
+                  f"{fits[-1].get('planner_fit_source')}); link "
+                  f"{lms[-1]['worst_link']} ewma "
+                  f"{lms[-1]['worst_ewma_ms']} ms; critpath wire "
+                  f"{[r['t_comm_wire_us'] for r in cps]} us, wait "
+                  f"{[r['t_wait_us'] for r in cps]} us")
+        art = json.load(open(os.path.join(d["dist"],
+                                          "calib_fit_2proc.json")))
+        check((art.get("card") or "").startswith(
+            torch.cuda.get_device_name(0))
+            and art["alpha_beta_fit"]["beta_gbps"] > 0,
+            f"14c: calib_fit_2proc.json {art}")
+        print(f"trace calib_fit_2proc.json: {art['alpha_beta_fit']} on "
+              f"{art['card']}")
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -2667,6 +3016,9 @@ def main() -> int:
     for name, count in resilience_phase().items():
         total[name] += count
     for name, count in obs_phase().items():
+        total[name] += count
+    k2 = kernels[K2_N]["fused_stage1_candidates"]["ms"]
+    for name, count in trace_phase(k2).items():
         total[name] += count
 
     n0 = SIZES[0]

@@ -14,7 +14,9 @@ Counterpart of ``gtopkssgd_tpu/benchmark.py``, with its records:
   device sync, which fences every stream and so the whole updated state
   (parameters, velocity, residual). FLOPs per step come from
   ``torch.utils.flop_counter.FlopCounterMode`` over one step (matrix
-  products and convolutions, forward and backward), the MFU from a peak
+  products and convolutions, forward and backward; ``obs.memwatch.
+  step_flops``, which the trainer's "compile" records use too), the MFU
+  from a peak
   looked up by the card's name, the dtype and the TF32 setting (None for
   a card not in ``PEAK_FLOPS``). The model computes in ``dtype``
   (bfloat16 by default, as the JAX harness; ``models.layers``).
@@ -58,6 +60,7 @@ import torch.nn.functional as F
 from gtopkssgd_tpu_torch.convert import flat_layout
 from gtopkssgd_tpu_torch.models import get_model
 from gtopkssgd_tpu_torch.modes import DENSE_MODES, HIER_MODES, LAYERWISE_MODES
+from gtopkssgd_tpu_torch.obs.memwatch import step_flops
 from gtopkssgd_tpu_torch.ops import scatter_add_dense
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 from gtopkssgd_tpu_torch.parallel.collectives import (
@@ -213,11 +216,7 @@ def _throughput(device, cfg: BenchConfig, mode: Optional[str],
         for _ in range(3):
             bench.step()
         _sync(bench.device)
-        from torch.utils.flop_counter import FlopCounterMode
-
-        with FlopCounterMode(display=False) as counter:
-            bench.step()
-        flops = counter.get_total_flops()
+        _, flops = step_flops(bench.step)
         sec, steps = _window(bench.step, bench, cfg.min_seconds)
     finally:
         bench.close()

@@ -18,7 +18,11 @@
         [--multihost] [--no-obs-counters] [--obs-interval N] \
         [--obs-layers] [--obs-audit-interval N] [--obs-watchdog S] \
         [--no-obs-events] [--obs-halt-on error|warn] [--obs-timeline PATH] \
-        [--obs-export-port PORT] [--recover-policy POLICY]
+        [--obs-export-port PORT] [--recover-policy POLICY] \\
+        [--no-obs-goodput] [--obs-goodput-interval N] [--obs-critpath] \\
+        [--obs-calib [--obs-linkmap]] [--obs-calib-interval N] \\
+        [--obs-mem [--obs-mem-interval N]] [--profile-dir DIR \\
+         [--profile-steps N]]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group (0, the default:
@@ -51,7 +55,18 @@ the recall audit), and the anomaly monitor's "event" records;
 rules to skip, rollback or degrade (it needs the monitor: refused with
 ``--no-obs-events``), ``--obs-watchdog S`` exits 43 after S seconds
 without progress, ``--obs-timeline`` writes the host timeline and
-``--obs-export-port`` serves the metrics on localhost.
+``--obs-export-port`` serves the metrics on localhost. The goodput ledger
+is on by default too: a "goodput" record every ``--obs-goodput-interval``
+steps and at the end. The trace planes are opt-in: every
+``--obs-calib-interval`` steps one dispatch is profiled with
+``torch.profiler`` and attributed ("attr"; at P > 1 a "ledger" row), with
+``--obs-critpath`` into a "critpath" record, with ``--obs-calib`` (P > 1,
+counters on) into the live comm-model fit ("calib", and
+``calib_fit_{P}proc.json`` in the out dir) and with ``--obs-linkmap``
+into the link weather map ("linkmap"); ``--obs-mem`` writes "compile" and
+"mem" records. ``--profile-dir DIR`` writes a Chrome trace a rank,
+``DIR/rank{r}.trace.json``, of ``--profile-steps`` steps (whole
+dispatches) after one warm-up dispatch, before the run's own steps.
 
 Exit codes (``exit_codes.py``): 0 done; 43 stalled (the watchdog; at
 P > 1 one rank's ends the command, the others stopped); 44 an anomaly
@@ -90,6 +105,7 @@ from gtopkssgd_tpu_torch.exit_codes import (
     EXIT_STALL,
     describe,
 )
+from gtopkssgd_tpu_torch.obs import trace_attr
 from gtopkssgd_tpu_torch.obs.events import HALT_EXIT_CODE, AnomalyHalt
 from gtopkssgd_tpu_torch.ops.topk import METHODS
 from gtopkssgd_tpu_torch.parallel import collectives
@@ -271,6 +287,85 @@ def build_argparser() -> argparse.ArgumentParser:
                         "text on this localhost port (curl "
                         "localhost:PORT/metrics; rank r of --nworkers P "
                         "on PORT + r); -1 an ephemeral port, 0 off")
+    p.add_argument("--obs-goodput", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="the goodput ledger (obs.goodput): the run's wall "
+                        "split into goodput and the badput taxonomy "
+                        "(select, comm, wait, compile, ckpt, wasted, "
+                        "degraded, data, startup) with the remainder as "
+                        "other_frac; cumulative 'goodput' records and an "
+                        "end-of-run summary. Host arithmetic only: on by "
+                        "default")
+    p.add_argument("--obs-goodput-interval", type=int, default=50,
+                   help="optimizer steps between 'goodput' records (<= 0 "
+                        "keeps only the end-of-run summary); each feeds "
+                        "the goodput_collapse rule")
+    p.add_argument("--obs-goodput-collapse-windows", type=int, default=3,
+                   help="consecutive 'goodput' records with goodput_frac "
+                        "below half its EWMA before goodput_collapse fires")
+    p.add_argument("--obs-calib", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="live comm-model calibration (obs.calib): every "
+                        "--obs-calib-interval steps, profile one dispatch "
+                        "and feed its (wire bytes, comm time) to a robust "
+                        "alpha/beta fit; 'calib' records, the "
+                        "comm_model_drift rule against the planner's "
+                        "fit, and calib_fit_{P}proc.json in out-dir at "
+                        "the end. Needs the counters and --nworkers > 1; "
+                        "each sample costs a profiler capture and a sync")
+    p.add_argument("--obs-calib-interval", type=int, default=25,
+                   help="optimizer steps between profiled dispatches "
+                        "(shared by --obs-calib and --obs-critpath)")
+    p.add_argument("--obs-critpath",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="per-step stage records (obs.critpath): every "
+                        "--obs-calib-interval steps, profile one dispatch "
+                        "into ordered {stage, t0, t1} segments, the comm "
+                        "span split into wire and wait by the alpha-beta "
+                        "model; a durable 'critpath' record (and its "
+                        "'attr' split). Each costs a profiler capture")
+    p.add_argument("--obs-critpath-shift-windows", type=int, default=3,
+                   help="consecutive captures whose critical stage leaves "
+                        "the modal one before critpath_shift fires")
+    p.add_argument("--obs-mem", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="compile and memory watch (obs.memwatch): a "
+                        "'compile' record for each new batch shape's first "
+                        "step (seconds, FLOPs, allocator peak), recompiles "
+                        "(new shapes, unexpected graph captures; the "
+                        "recompile_storm rule), and 'mem' records from the "
+                        "CUDA caching allocator feeding device_mem_leak "
+                        "and hbm_headroom")
+    p.add_argument("--obs-mem-interval", type=int, default=50,
+                   help="optimizer steps between 'mem' records")
+    p.add_argument("--obs-recompile-warmup", type=int, default=1,
+                   help="compile-watch polls before recompile_storm arms "
+                        "(0 fires on any growth)")
+    p.add_argument("--obs-mem-leak-windows", type=int, default=3,
+                   help="consecutive growing live-memory windows before "
+                        "device_mem_leak fires")
+    p.add_argument("--obs-hbm-headroom-frac", type=float, default=0.92,
+                   help="reserved over total device memory above which "
+                        "hbm_headroom fires (the CPU never trips it)")
+    p.add_argument("--obs-linkmap", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="per-(link class, peer) weather map (obs.linkmap): "
+                        "each calibration capture's comm span carved over "
+                        "the schedule's rounds into per-link EWMA latency "
+                        "and bandwidth, a durable 'linkmap' record, the "
+                        "link_degraded rule. Rides --obs-calib")
+    p.add_argument("--obs-link-degraded-x", type=float, default=4.0,
+                   help="a link's EWMA latency above this multiple of the "
+                        "median counts as a degraded window")
+    p.add_argument("--obs-link-degraded-windows", type=int, default=3,
+                   help="consecutive degraded windows before "
+                        "link_degraded fires")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace (one "
+                        "rank{r}.trace.json a rank; obs.trace_attr reads "
+                        "it) of --profile-steps steps after one warm-up "
+                        "dispatch, before the run's own steps")
+    p.add_argument("--profile-steps", type=int, default=10)
     p.add_argument("--inject", default=None, metavar="SPEC",
                    help="step-keyed fault injection (resilience/inject.py "
                         "grammar KIND[:ARG...]@STEP|A-B|latest, comma-"
@@ -335,13 +430,46 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         obs_watchdog=args.obs_watchdog, obs_events=args.obs_events,
         obs_halt_on=args.obs_halt_on, obs_timeline=args.obs_timeline,
         obs_export_port=args.obs_export_port,
-        recover_policy=args.recover_policy, device=args.device)
+        recover_policy=args.recover_policy,
+        obs_goodput=args.obs_goodput,
+        obs_goodput_interval=args.obs_goodput_interval,
+        obs_goodput_collapse_windows=args.obs_goodput_collapse_windows,
+        obs_calib=args.obs_calib, obs_calib_interval=args.obs_calib_interval,
+        obs_critpath=args.obs_critpath,
+        obs_critpath_shift_windows=args.obs_critpath_shift_windows,
+        obs_mem=args.obs_mem, obs_mem_interval=args.obs_mem_interval,
+        obs_recompile_warmup=args.obs_recompile_warmup,
+        obs_mem_leak_windows=args.obs_mem_leak_windows,
+        obs_hbm_headroom_frac=args.obs_hbm_headroom_frac,
+        obs_linkmap=args.obs_linkmap,
+        obs_link_degraded_x=args.obs_link_degraded_x,
+        obs_link_degraded_windows=args.obs_link_degraded_windows,
+        device=args.device)
+
+
+def profile(trainer: Trainer, profile_dir: str, steps: int) -> int:
+    """The JAX CLI's ``--profile-dir``: one warm-up dispatch (the
+    compile stays out of the trace), then `steps` rounded up to whole
+    dispatches under ``obs.trace_attr.capture``, written to
+    ``profile_dir/rank{r}.trace.json``. Returns the steps traced."""
+    k = trainer.cfg.steps_per_dispatch
+    traced = max(k, -(-steps // k) * k)
+    trainer.train(k)
+    with trace_attr.capture(profile_dir, trainer.rank):
+        trainer.train(traced)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+    trainer.logger.info("profiler: %d-step trace -> %s", traced,
+                        profile_dir)
+    return traced
 
 
 def run(cfg: TrainConfig, num_iters: Optional[int],
-        preempt_save: bool = False) -> dict:
-    """On this process (one rank): train `num_iters` steps and evaluate,
-    or ``fit()`` when `num_iters` is None; summarize. ``rc`` is the exit
+        preempt_save: bool = False, profile_dir: Optional[str] = None,
+        profile_steps: int = 10) -> dict:
+    """On this process (one rank): with `profile_dir`, the profiled steps
+    (``profile``) first; then train `num_iters` steps and evaluate, or
+    ``fit()`` when `num_iters` is None; summarize. ``rc`` is the exit
     code: 0, or 44 (an anomaly halt), 45 (preempted) or 46 (resized), and
     then the summary holds only it, the step and the rank. `preempt_save`
     installs a ``PreemptionGuard`` for the run."""
@@ -353,6 +481,8 @@ def run(cfg: TrainConfig, num_iters: Optional[int],
         collectives.reset_wire()
         start = trainer.step
         try:
+            if profile_dir:
+                profile(trainer, profile_dir, profile_steps)
             if num_iters is not None:
                 stats = {**trainer.train(num_iters), **trainer.test()}
                 trainer.save()
@@ -403,9 +533,10 @@ def run(cfg: TrainConfig, num_iters: Optional[int],
 
 
 def _rank_run(device, cfg: TrainConfig, num_iters: Optional[int],
-              preempt_save: bool) -> dict:
+              preempt_save: bool, profile_dir: Optional[str] = None,
+              profile_steps: int = 10) -> dict:
     return run(dataclasses.replace(cfg, device=str(device)), num_iters,
-               preempt_save)
+               preempt_save, profile_dir, profile_steps)
 
 
 def decode_pool_size(cfg: TrainConfig) -> int:
@@ -466,7 +597,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             rank, world, device = init_from_env(backend, args.device)
             try:
                 out = run(dataclasses.replace(cfg, device=str(device)),
-                          args.num_iters, args.preempt_save)
+                          args.num_iters, args.preempt_save,
+                          args.profile_dir, args.profile_steps)
                 codes = [None] * world
                 dist.all_gather_object(codes, out["rc"])
             finally:
@@ -486,7 +618,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             raise SystemExit(f"--nworkers {args.nworkers}: {e}") from None
         try:
             outs = spawn(_rank_run, args.nworkers, cfg, args.num_iters,
-                         args.preempt_save, backend=backend,
+                         args.preempt_save, args.profile_dir,
+                         args.profile_steps, backend=backend,
                          device=args.device,
                          setup=functools.partial(prefork_decode_pool, pool),
                          forward_signals=args.preempt_save)
@@ -501,7 +634,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         out = outs[0]
         out["dist_backend"] = backend
     else:
-        outs = [run(cfg, args.num_iters, args.preempt_save)]
+        outs = [run(cfg, args.num_iters, args.preempt_save,
+                    args.profile_dir, args.profile_steps)]
         out = outs[0]
     rc = _finish(outs)
     if rc == EXIT_OK:

@@ -60,6 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.autograd import DeviceType
 
+from gtopkssgd_tpu_torch.obs import trace_attr
 from gtopkssgd_tpu_torch.ops import k_for_density, select_tau
 from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
 from gtopkssgd_tpu_torch.utils.manifest import card_identity
@@ -75,23 +76,6 @@ TOPK_KERNELS = ("count_kernel", "stage1_kernel", "multisection_kernel")
 Interval = Tuple[float, float]
 
 
-def _union_us(intervals: List[tuple]) -> float:
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b <= end:
-            continue
-        total += b - max(a, end)
-        end = b
-    return total
-
-
-def _overlap_us(interval: Interval, windows: Sequence[Interval]) -> float:
-    """How much of `interval` lies inside the union of `windows`."""
-    a, b = interval
-    return _union_us([(max(a, s), min(b, e)) for s, e in windows
-                      if min(b, e) > max(a, s)])
-
-
 def overlap_share(select_kernels: Sequence[Sequence[Interval]],
                   exchanges: Sequence[Interval]) -> Optional[float]:
     """Of the kernel time of unit i's selection (``select_kernels[i]``),
@@ -105,20 +89,8 @@ def overlap_share(select_kernels: Sequence[Sequence[Interval]],
         others = [w for j, w in enumerate(exchanges) if j != i]
         for kern in kernels:
             total += kern[1] - kern[0]
-            inside += _overlap_us(kern, others)
+            inside += trace_attr.overlap_length([kern], others)
     return inside / total if total else None
-
-
-def _profiler():
-    """A profiler of CPU and CUDA activity on every thread of the
-    process (the optimizer's merge thread included)."""
-    from torch._C._profiler import _ExperimentalConfig
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    return torch.profiler.profile(
-        activities=acts, acc_events=True,
-        experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
 
 def trace_overlap_share(prof) -> Optional[float]:
@@ -178,8 +150,8 @@ def summarize(prof, stats: Dict[str, object], steps: int) -> Dict[str, object]:
     device = [e for e in on_card if not e.is_user_annotation]
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
-                         for e in device]) / 1e3 / steps
+    busy_ms = trace_attr.union_length(
+        [(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / steps
     wall_ms = sum(stats["step_times"]) * 1e3 / steps
     ranges = {}
     for name in RANGES:
@@ -215,7 +187,7 @@ def profile_trainer(trainer: Trainer,
     """Warm-up, unprofiled and profiled steps of `trainer`; the report."""
     trainer.train(WARMUP)
     unprofiled = trainer.train(TIMED_STEPS)["step_times"]
-    with _profiler() as prof:
+    with trace_attr.profiler() as prof:
         stats = trainer.train(steps)
     out = summarize(prof, stats, steps)
     out["median_step_ms_unprofiled"] = statistics.median(unprofiled) * 1e3

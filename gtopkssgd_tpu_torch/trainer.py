@@ -99,6 +99,20 @@ Observability (``obs/``), the JAX trainer's anomaly core:
   the run's summary and exits 43.
 * ``obs_timeline``: the host timeline (rank 0), written on exit;
   ``obs_export_port``: the metrics as OpenMetrics text on localhost.
+* ``obs_goodput`` (default on): the goodput ledger (``obs.goodput``),
+  marked where the work happens -- startup, the kernels' load and each
+  new batch shape's first step and graph capture as compile, "data",
+  the dispatch and its reads as step time (split by the latest critpath
+  shares), checkpoints, a skip's or rollback's wasted step, the degraded
+  excess, evaluation as goodput, host-side attribution as other -- and a
+  "goodput" record every ``obs_goodput_interval`` steps and on exit.
+* Every ``obs_calib_interval`` steps (with ``obs_critpath``, or the
+  calibrator) one dispatch runs under ``obs.trace_attr.capture`` and is
+  attributed: an "attr" record, at P > 1 a "ledger" row, a "critpath"
+  record, the calibrator's sample (``obs_calib``: P > 1, counters on;
+  its ``calib_fit_{P}proc.json`` written on exit) and the link map's
+  (``obs_linkmap``). ``obs_mem``: "compile" and "mem" records
+  (``obs.memwatch``). Each feeds its monitor rule.
 
 Resilience (``resilience/``), the JAX trainer's:
 
@@ -130,9 +144,13 @@ Resilience (``resilience/``), the JAX trainer's:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
+import math
+import shutil
+import tempfile
 import time
 import weakref
 from typing import Dict, List, Optional
@@ -156,14 +174,25 @@ from gtopkssgd_tpu_torch.models import (
 )
 from gtopkssgd_tpu_torch.modes import DENSE_MODES, HIER_MODES
 from gtopkssgd_tpu_torch.obs import counters as obs_counters
-from gtopkssgd_tpu_torch.obs.events import AnomalyHalt, AnomalyMonitor
+from gtopkssgd_tpu_torch.obs import critpath, ledger, trace_attr
+from gtopkssgd_tpu_torch.obs.calib import CommCalibrator
+from gtopkssgd_tpu_torch.obs.events import (
+    AnomalyHalt,
+    AnomalyMonitor,
+    Thresholds,
+)
 from gtopkssgd_tpu_torch.obs.exporter import MetricsExporter
+from gtopkssgd_tpu_torch.obs.goodput import GoodputLedger
+from gtopkssgd_tpu_torch.obs.linkmap import LinkMap
+from gtopkssgd_tpu_torch.obs.memwatch import MemWatch, batch_shape_key
 from gtopkssgd_tpu_torch.obs.timeline import TimelineRecorder
 from gtopkssgd_tpu_torch.obs.tracing import Tracer
 from gtopkssgd_tpu_torch.obs.watchdog import StallWatchdog, _default_on_stall
-from gtopkssgd_tpu_torch.ops import cuda_topk
+from gtopkssgd_tpu_torch.ops import _build, cuda_topk
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
+from gtopkssgd_tpu_torch.parallel import comm_model
 from gtopkssgd_tpu_torch.parallel.collectives import pmean, psum
+from gtopkssgd_tpu_torch.parallel.planner import planner_inputs
 from gtopkssgd_tpu_torch.resilience import (
     FaultInjector,
     Preempted,
@@ -190,6 +219,8 @@ _WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD),
 # sync, so it can be captured in a CUDA graph (``dispatch_rule``).
 GRAPH_MODES = (None, "none", "dense", "gtopk", "gtopk_layerwise")
 GRAPH_METHODS = ("auto", "exact", "twostage", "pallas")
+# The selection methods that launch the port's CUDA kernels.
+KERNEL_METHODS = ("auto", "approx", "twostage", "pallas")
 
 
 def dataset_defaults(dataset: str, dnn: str):
@@ -281,6 +312,43 @@ class TrainConfig:
     recover_policy: Optional[str] = None  # anomaly rules -> skip |
                                    # rollback | degrade (resilience/
                                    # policy.py grammar; needs obs_events)
+    obs_goodput: bool = True       # the goodput ledger (obs/goodput.py):
+                                   # the run's wall split into goodput and
+                                   # the badput taxonomy, a "goodput"
+                                   # record every obs_goodput_interval
+                                   # steps and at the end
+    obs_goodput_interval: int = 50  # steps between "goodput" records
+                                   # (<= 0: the final one only); each
+                                   # feeds goodput_collapse
+    obs_goodput_collapse_windows: int = 3  # records below half the
+                                   # goodput EWMA before goodput_collapse
+    obs_calib: bool = False        # the live comm-model fit
+                                   # (obs/calib.py) from a dispatch
+                                   # profiled every obs_calib_interval
+                                   # steps; needs obs_counters and P > 1
+    obs_calib_interval: int = 25   # steps between captures (calib and
+                                   # critpath share one)
+    obs_critpath: bool = False     # a "critpath" record a captured
+                                   # dispatch (obs/critpath.py)
+    obs_critpath_shift_windows: int = 3  # captures whose critical stage
+                                   # leaves the modal one before
+                                   # critpath_shift
+    obs_mem: bool = False          # the compile and memory watch
+                                   # (obs/memwatch.py): "compile" and
+                                   # "mem" records
+    obs_mem_interval: int = 50     # steps between "mem" records
+    obs_recompile_warmup: int = 1  # compile-watch polls before
+                                   # recompile_storm arms
+    obs_mem_leak_windows: int = 3  # growing live-bytes windows before
+                                   # device_mem_leak
+    obs_hbm_headroom_frac: float = 0.92  # in use / limit above which
+                                   # hbm_headroom fires
+    obs_linkmap: bool = False      # the link weather map (obs/linkmap.py)
+                                   # at the calibrator's captures
+    obs_link_degraded_x: float = 4.0  # a link's EWMA over the median by
+                                   # this factor is a degraded window
+    obs_link_degraded_windows: int = 3  # degraded windows before
+                                   # link_degraded
     resume: bool = False           # restore out_dir/ckpt at construction
     allow_ckpt_mismatch: bool = False  # restore past a config hash or
                                    # state digest that differs
@@ -384,6 +452,10 @@ class Trainer:
 
     def __init__(self, config: TrainConfig):
         self.cfg = cfg = config.resolved()
+        # The goodput ledger first, so its clock covers the whole set-up;
+        # its logger and monitor are attached once they exist.
+        self.goodput = (GoodputLedger(interval=cfg.obs_goodput_interval)
+                        if cfg.obs_goodput else None)
         self.group = None
         self.rank = 0
         if cfg.nworkers > 1:
@@ -419,6 +491,12 @@ class Trainer:
         self.kind = cfg.dataset if self.spec.recurrent else "vision"
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         self.model.to(self.device).train()
+        if (self.device.type == "cuda" and cfg.compression not in DENSE_MODES
+                and cfg.topk_method in KERNEL_METHODS):
+            # Building or loading the kernels is the port's compile.
+            self._mark("startup")
+            _build.load()
+            self._mark("compile")
         # The JAX trainer folds the rank into its dropout key: the ranks
         # draw different masks.
         self.dropout_generator = seed_dropout(
@@ -489,8 +567,19 @@ class Trainer:
         self.monitor = (AnomalyMonitor(
             metrics=self.metrics,
             rho=cfg.density if cfg.compression not in DENSE_MODES else None,
-            halt_on=cfg.obs_halt_on, timeline=self.timeline)
+            halt_on=cfg.obs_halt_on, timeline=self.timeline,
+            thresholds=Thresholds(
+                recompile_warmup=cfg.obs_recompile_warmup,
+                mem_leak_windows=cfg.obs_mem_leak_windows,
+                hbm_headroom_frac=cfg.obs_hbm_headroom_frac,
+                critpath_shift_windows=cfg.obs_critpath_shift_windows,
+                goodput_collapse_windows=cfg.obs_goodput_collapse_windows,
+                link_degraded_x=cfg.obs_link_degraded_x,
+                link_degraded_windows=cfg.obs_link_degraded_windows))
             if cfg.obs_events else None)
+        if self.goodput is not None:
+            self.goodput.metrics = self.metrics
+            self.goodput.monitor = self.monitor
         self.watchdog = (StallWatchdog(
             cfg.obs_watchdog, on_stall=self._on_stall,
             diagnostics=self._stall_diagnostics)
@@ -546,6 +635,15 @@ class Trainer:
         if self.bucket_plan is not None:
             self.metrics.log("bucket", flush=True,
                              **self.bucket_plan.to_manifest())
+        #: What the comm model prices this run with (obs.ledger): the
+        #: manifest, the plan's schedule, the buckets, the slice width.
+        self.model_manifest = dict(self.manifest, hier_ici=cfg.hier_ici)
+        if self.plan_decision is not None:
+            self.model_manifest["comm_plan_schedule"] = (
+                self.plan_decision.plan.schedule)
+        if self.bucket_plan is not None:
+            self.model_manifest.update(self.bucket_plan.to_manifest())
+        self._init_trace_planes(backend)
         # The checkpoint's config hash nulls what does not change the
         # experiment (the JAX trainer's nulled fields, and resume): the
         # injected faults, and under elastic the fleet size, the elastic
@@ -565,6 +663,71 @@ class Trainer:
         self._set_iters(start_epoch=0)
         if cfg.resume:
             self.restore()
+
+    def _mark(self, category: Optional[str]) -> None:
+        """The goodput ledger's mark, where there is a ledger."""
+        if self.goodput is not None:
+            self.goodput.mark(category)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _init_trace_planes(self, backend: Optional[str]) -> None:
+        """The compile and memory watch (``obs_mem``), and at P > 1 with
+        the counters the comm-model calibrator (``obs_calib``) with the
+        link map riding it (``obs_linkmap``), as the JAX trainer builds
+        them: the calibrator's baseline and the carve's constants are the
+        inputs that priced this run's plan (the committed fit for the
+        backend, or ``comm_model_fit``)."""
+        cfg = self.cfg
+        #: The batch-shape keys whose first step has run, the graph
+        #: variants captured (audit, lr) and the captures beyond them:
+        #: the executables the compile watch counts.
+        self._shape_keys = set()
+        self._graph_keys = set()
+        self._extra_captures = 0
+        #: The comm model's constants at P > 1, read once (a calib_fit
+        #: an earlier run left in out_dir, else the committed fit for the
+        #: backend): critpath's wait split and the ledger price with it.
+        self.comm_fit = (ledger.load_alpha_beta(
+            cfg.out_dir, nprocs=cfg.nworkers, backend=backend)
+            if cfg.nworkers > 1 else None)
+        self.memwatch = None
+        if cfg.obs_mem:
+            self.memwatch = MemWatch(
+                metrics=self.metrics, monitor=self.monitor,
+                mem_interval=cfg.obs_mem_interval, device=self.device,
+                logger=self.logger)
+            self.memwatch.attach(self._compile_cache_size)
+        self.calib = self.linkmap = None
+        if not (cfg.obs_calib and cfg.obs_counters and cfg.nworkers > 1):
+            return
+        d = self.plan_decision
+        if d is not None:
+            wire_mode, inputs = d.plan.wire_mode, d.inputs
+        else:
+            wire_mode = "dense"
+            inputs = planner_inputs(cfg.comm_model_fit
+                                    or comm_model.committed_fit(backend))
+        self.calib = CommCalibrator(
+            wire_mode, cfg.nworkers,
+            baseline={key: inputs.get(key) for key in
+                      ("alpha_ms", "beta_gbps", "ici_gbps", "fit_source")},
+            metrics=self.metrics, monitor=self.monitor,
+            ici_size=cfg.hier_ici)
+        if cfg.obs_linkmap:
+            self.linkmap = LinkMap(
+                wire_mode, cfg.nworkers, rank=self.rank,
+                ici_size=cfg.hier_ici, alpha_ms=inputs.get("alpha_ms"),
+                beta_gbps=inputs.get("beta_gbps"),
+                ici_gbps=inputs.get("ici_gbps"),
+                metrics=self.metrics, monitor=self.monitor)
+
+    def _compile_cache_size(self) -> int:
+        """The executables this run has made: one a batch shape, plus
+        the graph captures beyond one a (variant, lr)."""
+        return len(self._shape_keys) + self._extra_captures
 
     def _identity(self, **nulled) -> TrainConfig:
         """The resolved config as the manifest and the checkpoints hash it:
@@ -730,6 +893,22 @@ class Trainer:
                 self.logger.info("timeline -> %s", path)
             except OSError as e:
                 self.logger.warning("timeline write failed: %s", e)
+        # The calibrator's fit for the next run, then the goodput
+        # summary (final=1), the JAX trainer's last records.
+        if (self.calib is not None and self.cfg.out_dir
+                and self.rank == 0):
+            try:
+                path = self.calib.write_artifact(
+                    self.cfg.out_dir, manifest=self.model_manifest)
+                if path:
+                    self.logger.info("comm-model fit -> %s", path)
+            except OSError as e:
+                self.logger.warning("calib artifact write failed: %s", e)
+        if self.goodput is not None:
+            try:
+                self.goodput.log_record(self.step, final=True)
+            except Exception as e:
+                self.logger.warning("goodput summary failed: %s", e)
         if self.exporter is not None:
             self.exporter.close()
         self.metrics.close()
@@ -945,6 +1124,13 @@ class Trainer:
         count's step decides it; see ``_graph_step``), with host syncs
         made errors while it records."""
         opt = self.optimizer
+        if self.goodput is not None:
+            # The steps this dispatch ran so far are step time; the
+            # capture is the port's compile.
+            self.goodput.step_mark(degraded=self._degraded)
+        if (audit, lr) in self._graph_keys:
+            self._extra_captures += 1
+        self._graph_keys.add((audit, lr))
         inputs = [{key: v.clone() for key, v in b.items()} for b in batches]
         residual, carry = opt.state["residual"], self.carry
         count = opt.state["count"]
@@ -977,6 +1163,7 @@ class Trainer:
         self._graph = self._graph or {}
         self._graph[audit] = {"graph": graph, "lr": lr, "inputs": inputs,
                               "outputs": outputs, "launches": launches}
+        self._mark("compile")
 
     def train(self, num_iters: int) -> Dict[str, object]:
         """Run `num_iters` optimizer steps, ``steps_per_dispatch`` K at a
@@ -1012,8 +1199,13 @@ class Trainer:
         inj, rec, wd = self.injector, self.recovery, self.watchdog
         nm = len(self._metric_names)
         nf = len(opt.telemetry_fields)
+        gp = self.goodput
         if wd is not None:
             wd.arm("train", step=self.step)
+        if gp is not None:
+            # The first call: all since construction not yet attributed is
+            # startup; a later call (fit()'s epochs) drops the gap.
+            gp.train_started()
         try:
             for _ in range(num_iters // k):
                 t0 = time.perf_counter()
@@ -1021,21 +1213,40 @@ class Trainer:
                     self._end_degrade()
                 if inj is not None:
                     inj.sleep_if_slow(self.step, self.step + k)
+                    # Injected slowness is the taxonomy's wait.
+                    self._mark("wait")
                 staged = self._stage(k)
+                self._mark("data")
                 # What a skip restores: taken before an injected NaN.
                 snap = self._snapshot() if rec is not None else None
                 if inj is not None:
                     inj.poison_params(self.model.parameters(), self.step,
                                       self.step + k)
+                # One profiled dispatch serves critpath and the calibrator,
+                # at the JAX trainer's cadence.
+                capture = ((self.calib is not None or cfg.obs_critpath)
+                           and cfg.obs_calib_interval > 0
+                           and (self.step + k) % cfg.obs_calib_interval < k)
+                trace_dir = (tempfile.mkdtemp(prefix="gtopk-capture-")
+                             if capture else None)
                 outs = []
-                with self.tracer.span("dispatch"):
+                with self.tracer.span("dispatch"), (
+                        trace_attr.capture(trace_dir, self.rank) if capture
+                        else contextlib.nullcontext()):
                     for batches in staged:
-                        if self.dispatch == "graph":
-                            outs.append(self._graph_step(batches))
-                        else:
-                            outs.append(self._train_step(batches))
+                        outs.append(self._step(batches))
                         self.step += 1
+                    if capture:  # the device's work inside the trace
+                        self._sync()
                 step = self.step
+                if gp is not None:
+                    # The dispatch is step time, split by the latest
+                    # critpath stage shares (all goodput before one).
+                    gp.step_mark(begin=True, degraded=self._degraded)
+                if capture:
+                    self._attribute_capture(step, k, trace_dir)
+                    # Host-side attribution is no category: other.
+                    self._mark(None)
                 obs_now = (opt.telemetry and cfg.obs_interval > 0
                            and step % cfg.obs_interval < k)
                 # One device-to-host copy a dispatch: the steps' scalars
@@ -1082,6 +1293,9 @@ class Trainer:
                     if self.monitor is not None and not observed:
                         self.monitor.observe(step, loss=row["loss"])
                         observed = True
+                if gp is not None:
+                    # The reads waited for the dispatch: step time too.
+                    gp.step_mark(degraded=self._degraded)
                 if rec is not None:
                     pending = rec.pop_pending()
                     if pending:
@@ -1090,6 +1304,15 @@ class Trainer:
                         rec.note_ok()
                 if wd is not None:
                     wd.heartbeat(step=self.step)
+                if self.memwatch is not None:
+                    # Recompiles and live memory, at the sync just paid;
+                    # may raise AnomalyHalt after its records.
+                    self.memwatch.poll(self.step)
+                    self._mark("compile")
+                if gp is not None:
+                    # A "goodput" record every interval (a skip may have
+                    # set the step back).
+                    gp.tick(self.step)
                 self._at_boundary(step - k, step)
         finally:
             if wd is not None:
@@ -1110,6 +1333,101 @@ class Trainer:
         if self.kind == "ptb":
             out["ppl"] = float(np.exp(min(out["loss"], 20.0)))
         return out
+
+    def _step(self, batches: List[Dict[str, torch.Tensor]]
+              ) -> List[torch.Tensor]:
+        """One step of a dispatch. The first step of a new batch shape is
+        the port's compile (set-up the card does once: cuDNN, cuBLAS,
+        lazy module loads): it runs eagerly between two syncs, timed as
+        compile, and with ``obs_mem`` counted and logged (a "compile"
+        record, ``MemWatch.account``)."""
+        key = batch_shape_key(batches)
+        if key in self._shape_keys:
+            if self.dispatch == "graph":
+                return self._graph_step(batches)
+            return self._train_step(batches)
+        if self.goodput is not None:
+            self.goodput.step_mark(degraded=self._degraded)
+        self._shape_keys.add(key)
+        if self.memwatch is not None:
+            out, _ = self.memwatch.account(
+                lambda: self._train_step(batches), shape_key=key,
+                step=self.step + 1)
+        else:
+            self._sync()
+            out = self._train_step(batches)
+            self._sync()
+        self._mark("compile")
+        return out
+
+    def _attribute_capture(self, step: int, k: int, trace_dir: str) -> None:
+        """Attribute the dispatch of `k` steps just profiled into
+        `trace_dir` (``obs.trace_attr``): an "attr" record; at P > 1 its
+        "ledger" row against the comm model; with ``obs_critpath`` one
+        durable "critpath" record (the comm span wait-split against the
+        modeled wire time of `k` steps), the goodput ledger's new stage
+        shares and the critpath_shift rule; with the calibrator, its
+        sample (``_feed_calibrator``). A failed attribution degrades to a
+        warning, as in the JAX trainer; AnomalyHalt propagates."""
+        cfg = self.cfg
+        try:
+            w = (critpath.modeled_wire_us(self.model_manifest,
+                                          fit=self.comm_fit)
+                 if cfg.obs_critpath and self.comm_fit else None)
+            rec = trace_attr.attribute(
+                trace_dir, mode=cfg.compression,
+                stage_intervals=cfg.obs_critpath,
+                wire_us=None if w is None else w * k)
+        except Exception as e:
+            self.logger.warning("trace attribution failed: %s", e)
+            return
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        cp = rec.pop("critpath", None)
+        rec.pop("trace_file", None)
+        self.metrics.log("attr", step=step, n_steps=k, **rec)
+        if self.comm_fit is not None:
+            rows = ledger.ledger_rows(
+                [{"kind": "attr", "step": step, "n_steps": k, **rec}],
+                manifest=self.model_manifest, fit=self.comm_fit)
+            for row in rows:
+                self.metrics.log("ledger", **{key: v for key, v in
+                                              row.items() if key != "rank"})
+        if cp:
+            self.metrics.log("critpath", flush=True, step=step, **cp)
+            if self.goodput is not None:
+                self.goodput.note_stage_fracs(cp)
+            if self.monitor is not None:
+                self.monitor.observe_critpath(
+                    step, crit_stage=cp.get("crit_stage"))
+        if self.calib is not None:
+            self._feed_calibrator(step, k, rec)
+
+    def _feed_calibrator(self, step: int, k: int, rec: Dict) -> None:
+        """One (wire bytes, comm ms a step) sample of the captured
+        dispatch to the calibrator, then the link map: the counters'
+        wire bytes of its last step, its attributed comm over `k`. An
+        overlapped pipeline's sample is quarantined (its comm is partly
+        hidden)."""
+        t_comm_us = rec.get("t_comm_us")
+        tel = self.optimizer.state.get("telemetry")
+        if (not isinstance(t_comm_us, (int, float)) or t_comm_us <= 0
+                or tel is None):
+            return
+        opt = self.optimizer
+        wire = float(obs_counters.telemetry_scalars(
+            tel[:len(opt.telemetry_fields)].tolist(),
+            opt.telemetry_fields).get("wire_bytes", 0.0))
+        if not math.isfinite(wire) or wire <= 0:
+            return
+        overlapped = (self.bucket_plan is not None
+                      and self.bucket_plan.pipeline == "overlap")
+        t_comm_ms = float(t_comm_us) / 1e3 / k
+        self.calib.observe(step, wire_bytes=wire, t_comm_ms=t_comm_ms,
+                           overlapped=overlapped)
+        if self.linkmap is not None and not overlapped:
+            self.linkmap.observe(step, t_comm_ms=t_comm_ms,
+                                 wire_bytes=wire)
 
     def _log_obs(self, step: int, values: List[float], nf: int):
         """The "obs" record of `step` from the counters' host copy
@@ -1197,6 +1515,9 @@ class Trainer:
             if spec.action == "skip":
                 self._restore_snapshot(snap)
                 rec.consecutive_skips += 1
+                if self.goodput is not None:
+                    # The discarded update's step time was no progress.
+                    self.goodput.wasted_step()
                 rec.record("skip", self.step, rule,
                            consecutive=rec.consecutive_skips,
                            budget=spec.budget)
@@ -1212,6 +1533,10 @@ class Trainer:
                 if wait > 0:
                     time.sleep(wait)
                 self.restore()
+                if self.goodput is not None:
+                    # restore() marked its span ckpt (the backoff in it);
+                    # the rewound step's time becomes wasted.
+                    self.goodput.wasted_step()
                 rec.record("rollback", self.step, rule, backoff_s=wait,
                            use=uses + 1, budget=spec.budget)
             elif spec.action == "degrade":
@@ -1255,6 +1580,9 @@ class Trainer:
             self.metrics.log("stall", flush=True, **{
                 key: v for key, v in record.items()
                 if key not in ("kind", "time")})
+            if self.goodput is not None:
+                # The wall this run did spend before it wedged.
+                self.goodput.log_record(step, final=True)
             self.metrics.log(
                 "recovery", flush=True, action="summary",
                 final_status="stalled", completed=0,
@@ -1465,6 +1793,8 @@ class Trainer:
                 out["val_cer"] = float(ce / chars)
                 out["val_wer"] = float(we / max(1.0, words))
         self.metrics.log("eval", step=self.step, **out)
+        # Evaluation is productive work: goodput, as in the JAX trainer.
+        self._mark("goodput")
         return out
 
     def fit(self, max_epochs: Optional[int] = None) -> Dict[str, object]:
@@ -1542,6 +1872,7 @@ class Trainer:
         dir."""
         if self._ckpt is not None:
             self._ckpt.save(self.step, self.checkpoint_state())
+            self._mark("ckpt")
 
     def restore(self) -> bool:
         """Restore the newest checkpoint of ``out_dir/ckpt`` and
@@ -1599,10 +1930,14 @@ class Trainer:
             self.dropout_generator.set_state(saved["dropout_rng"].cpu())
         self.step = int(saved["step"])
         self._graph = None
+        # The restore drops the captured graphs: a recapture is expected.
+        self._graph_keys.clear()
         self.logger.info("restored step %d from %s", self.step,
                          self._ckpt.directory)
         self._set_iters(self.step // self.steps_per_epoch,
                         skip_steps=self.step % self.steps_per_epoch)
+        # The restore and the stream's fast-forward are checkpoint cost.
+        self._mark("ckpt")
         return True
 
 

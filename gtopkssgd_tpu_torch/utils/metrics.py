@@ -16,7 +16,12 @@ emergency save, a recovery action and the run's summary, ``resize`` an
 elastic resize; with the observability (``obs/``), ``obs`` the counters
 and ``layers`` one a layer every ``obs_interval`` steps, ``spans`` the
 Tracer's window means, ``event`` an anomaly and ``stall`` the watchdog's
-diagnostic. An unregistered kind raises, so a typo fails loudly.
+diagnostic, ``goodput`` the goodput ledger's decomposition (on by
+default: every ``obs_goodput_interval`` steps and at the end); with the
+trace planes, ``attr``, ``critpath`` and ``ledger`` a captured dispatch,
+``calib`` and ``linkmap`` the comm model's refits and links, ``compile``
+and ``mem`` the compile and memory watch. An unregistered kind raises, so
+a typo fails loudly.
 ``sink`` is called with every record, file or no file (the exporter's
 ``observe``); its errors are swallowed, so export cannot stop a run.
 """
@@ -46,6 +51,19 @@ KINDS = frozenset({
     "span",      # one Tracer span (record_each=True)
     "event",     # an anomaly event (obs/events.py)
     "stall",     # the stall watchdog's diagnostic (obs/watchdog.py)
+    "attr",      # a captured dispatch's T_compute/T_select/T_comm split
+                 # (obs/trace_attr.py)
+    "critpath",  # its ordered stage segments, comm split into wire and
+                 # wait (obs/critpath.py)
+    "ledger",    # its measured comm against the alpha-beta model, P > 1
+                 # (obs/ledger.py)
+    "calib",     # a live refit of the comm model (obs/calib.py)
+    "linkmap",   # the per-(class, peer) link weather map (obs/linkmap.py)
+    "compile",   # a new batch shape's first step, or a recompile
+                 # (obs/memwatch.py)
+    "mem",       # a live-memory window (obs/memwatch.py)
+    "goodput",   # the cumulative goodput/badput decomposition
+                 # (obs/goodput.py)
 })
 
 _SHARD_RE = re.compile(r"^metrics\.rank(\d+)\.jsonl$")

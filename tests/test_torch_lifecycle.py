@@ -137,7 +137,8 @@ def test_trainer_records_match_the_jax_trainer(tmp_path):
     jt.test()
     jt.metrics.close()
     with Trainer(TrainConfig(device="cpu", out_dir=str(tmp_path / "port"),
-                             obs_counters=False, **common)) as pt:
+                             obs_counters=False, obs_goodput=False,
+                             **common)) as pt:
         pt.train(2)
         pt.test()
     want = _records(tmp_path / "jax" / "metrics.jsonl")
@@ -190,7 +191,8 @@ def test_fit_writes_epoch_records_and_checkpoints(tmp_path, monkeypatch):
         jt.metrics.close()
         with Trainer(TrainConfig(device="cpu",
                                  out_dir=str(tmp_path / "port"),
-                                 obs_counters=False, **common)) as pt:
+                                 obs_counters=False, obs_goodput=False,
+                                 **common)) as pt:
             assert pt.steps_per_epoch == 4
             pt.fit()
     finally:
@@ -478,19 +480,12 @@ def test_resume_without_checkpoint_starts_fresh(tmp_path):
 # ------------------------------------------------------------ the CLI
 
 # JAX flags the port does not have yet, by ROADMAP.md item: the
-# observability planes that read traces and fleets (item 7c).
+# observability planes that read beyond one run (item 7c, second half).
 MISSING_FLAGS = {
-    # item 7c, observability
-    "--obs-calib", "--obs-calib-interval",
-    "--obs-critpath", "--obs-critpath-shift-windows", "--obs-mem",
-    "--obs-mem-interval", "--obs-recompile-warmup",
-    "--obs-mem-leak-windows", "--obs-hbm-headroom-frac", "--obs-goodput",
-    "--obs-goodput-interval", "--obs-goodput-collapse-windows",
-    "--obs-linkmap", "--obs-link-degraded-x",
-    "--obs-link-degraded-windows", "--obs-forecast",
-    "--obs-forecast-targets", "--obs-forecast-drift-x",
-    "--registry", "--profile-dir", "--profile-steps",
-    # item 7c, eviction (it reads the goodput)
+    # item 7c, the forecast plane and the run registry
+    "--obs-forecast", "--obs-forecast-targets", "--obs-forecast-drift-x",
+    "--registry",
+    # item 7c, eviction (it reads the fleet's goodput)
     "--evict-after-windows",
 }
 
@@ -516,8 +511,8 @@ def test_cli_flags_and_defaults_match_the_jax_cli():
     assert missing == MISSING_FLAGS
     for flag in set(port) & set(jax):
         assert port[flag].default == jax[flag].default, flag
-    # 54 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
-    assert len({a.dest for a in port.values()}) == 54
+    # 71 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
+    assert len({a.dest for a in port.values()}) == 71
     assert len({a.dest for a in jax.values()}) == 74
     for flag in ("--out-dir", "--log-interval", "--resume",
                  "--allow-ckpt-mismatch", "--dtype", "--synth-hard",
@@ -528,7 +523,16 @@ def test_cli_flags_and_defaults_match_the_jax_cli():
                  "--obs-layers", "--no-obs-layers", "--obs-audit-interval",
                  "--obs-watchdog", "--obs-events", "--no-obs-events",
                  "--obs-halt-on", "--obs-timeline", "--obs-export-port",
-                 "--recover-policy"):
+                 "--recover-policy", "--profile-dir", "--profile-steps",
+                 "--obs-goodput", "--no-obs-goodput",
+                 "--obs-goodput-interval", "--obs-goodput-collapse-windows",
+                 "--obs-calib", "--no-obs-calib", "--obs-calib-interval",
+                 "--obs-critpath", "--no-obs-critpath",
+                 "--obs-critpath-shift-windows", "--obs-linkmap",
+                 "--no-obs-linkmap", "--obs-link-degraded-x",
+                 "--obs-link-degraded-windows", "--obs-mem", "--no-obs-mem",
+                 "--obs-mem-interval", "--obs-recompile-warmup",
+                 "--obs-mem-leak-windows", "--obs-hbm-headroom-frac"):
         assert flag in port
 
 
@@ -565,9 +569,10 @@ def test_cli_resumes_from_out_dir(tmp_path, capsys):
     assert out["step"] == 4 and len(out["losses"]) == 2
     kinds = [r["kind"] for r in _records(tmp_path / "metrics.jsonl")]
     # The counters are on by default, as in the JAX CLI: an "obs" record
-    # a step, and the span means with each "train" record.
+    # a step, and the span means with each "train" record; so is the
+    # goodput ledger, whose summary closes each run.
     assert kinds == ["manifest", "obs", "train", "spans", "obs", "train",
-                     "spans", "eval"] * 2
+                     "spans", "eval", "goodput"] * 2
 
 
 # ------------------------------------------------------- JAX checkpoints

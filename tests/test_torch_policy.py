@@ -156,8 +156,8 @@ def test_skip_restores_the_state_bitwise(tmp_path):
     recs = _records(tmp_path / "metrics.jsonl")
     (skip,) = [r for r in recs if r.get("action") == "skip"]
     assert skip["rule"] == "nan_loss" and skip["step"] == 1
-    assert recs[-1]["action"] == "summary"
-    assert recs[-1]["n_recoveries"] == 1
+    summary = [r for r in recs if r.get("action") == "summary"]
+    assert summary[-1]["n_recoveries"] == 1
 
 
 def test_skip_at_p2_restores_every_rank_bitwise():
@@ -217,7 +217,11 @@ def test_cli_skip_exits_0_with_one_skip(tmp_path, capsys):
     (event,) = [r for r in recs if r["kind"] == "event"
                 and r["rule"] == "nan_loss"]
     assert event["claimed"] is True and event["step"] == 3
-    assert recs[-1]["final_status"] == "completed"
+    # The JAX trainer's last records: the summary, then the goodput
+    # ledger's (it saw the skipped dispatch as wasted).
+    assert recs[-2]["final_status"] == "completed"
+    assert recs[-1]["kind"] == "goodput" and recs[-1]["final"] == 1
+    assert recs[-1]["n_wasted_steps"] == 1 and recs[-1]["wasted_s"] > 0
 
 
 def test_skip_budget_exhaustion_halts(tmp_path):
@@ -231,8 +235,9 @@ def test_skip_budget_exhaustion_halts(tmp_path):
     recs = _records(out / "metrics.jsonl")
     skips = [r for r in recs if r.get("action") == "skip"]
     assert [r["consecutive"] for r in skips] == [1, 2]
-    assert recs[-1]["action"] == "summary"
-    assert recs[-1]["final_status"] == "halted"
+    assert recs[-2]["action"] == "summary"
+    assert recs[-2]["final_status"] == "halted"
+    assert recs[-1]["kind"] == "goodput" and recs[-1]["final"] == 1
 
 
 def test_halt_exits_44_at_the_nan_step(tmp_path):
@@ -245,7 +250,8 @@ def test_halt_exits_44_at_the_nan_step(tmp_path):
     events = [r for r in recs if r["kind"] == "event"]
     assert events[0]["rule"] == "nan_loss" and events[0]["step"] == 2
     assert max(r["step"] for r in recs if r["kind"] == "obs") == 2
-    assert recs[-1]["final_status"] == "halted"
+    assert recs[-2]["final_status"] == "halted"
+    assert recs[-1]["kind"] == "goodput"
 
 
 def test_policy_without_the_monitor_is_refused():

@@ -384,3 +384,20 @@ def skip_runs(device, cfg_kwargs, chaos_kwargs):
                 "step": chaos.step,
                 "recoveries": chaos.recovery.n_recoveries,
                 "port": chaos.exporter.port}
+
+
+def trace_plane_run(device, cfg_kwargs, out_dir, steps):
+    """`steps` steps of a trainer from `cfg_kwargs` with its metrics in
+    `out_dir` (the trace planes profile its dispatches); this rank's
+    records and the calibrator's samples (wire bytes, comm ms)."""
+    import json
+    import os
+
+    cfg = dict(cfg_kwargs, device=str(device), out_dir=out_dir)
+    with Trainer(TrainConfig(**cfg)) as t:
+        t.train(steps)
+        samples = [(b, ms) for _, b, ms in t.calib.samples]
+    name = f"metrics.rank{dist.get_rank()}.jsonl"
+    with open(os.path.join(out_dir, name)) as fh:
+        records = [json.loads(line) for line in fh]
+    return {"records": records, "samples": samples}

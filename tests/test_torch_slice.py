@@ -138,13 +138,20 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import gtopkssgd_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 59, names\n"
+        "assert len(names) >= 66, names\n"
         "assert {'gtopkssgd_tpu_torch.benchmark',\n"
         "        'gtopkssgd_tpu_torch.exit_codes',\n"
+        "        'gtopkssgd_tpu_torch.obs.calib',\n"
         "        'gtopkssgd_tpu_torch.obs.counters',\n"
+        "        'gtopkssgd_tpu_torch.obs.critpath',\n"
         "        'gtopkssgd_tpu_torch.obs.events',\n"
         "        'gtopkssgd_tpu_torch.obs.exporter',\n"
+        "        'gtopkssgd_tpu_torch.obs.goodput',\n"
+        "        'gtopkssgd_tpu_torch.obs.ledger',\n"
+        "        'gtopkssgd_tpu_torch.obs.linkmap',\n"
+        "        'gtopkssgd_tpu_torch.obs.memwatch',\n"
         "        'gtopkssgd_tpu_torch.obs.timeline',\n"
+        "        'gtopkssgd_tpu_torch.obs.trace_attr',\n"
         "        'gtopkssgd_tpu_torch.obs.tracing',\n"
         "        'gtopkssgd_tpu_torch.obs.watchdog',\n"
         "        'gtopkssgd_tpu_torch.obs_probe',\n"
