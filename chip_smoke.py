@@ -291,7 +291,39 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    One line an arm: the attributed ms of each class, the overlap share,
    the critical path, the goodput fractions. No event of the rules these
    planes feed.
-15. A ``kernels`` JSON line, then the last line
+15. The planes that read beyond one run (``planes_phase``), batch 32 a
+   rank, density 0.001, P = 2 (gloo on the one card, NCCL with two):
+   (a) ResNet-50 ``twostage``, 8 steps, ``--obs-calib --obs-critpath
+       --obs-linkmap --obs-calib-interval 2 --obs-forecast --registry R``,
+       run twice, into A and into B: both exit 0; one durable "forecast"
+       record a capture on each rank, with a finite ``hindcast_err_x``,
+       a recommendation at 32, 256 and 1024 and the fit it priced with
+       (a committed fit, a calib_fit file or the run's own refit, never
+       a default); R/runs.jsonl two lines of one ``config_hash``;
+       ``report history R`` prints both; ``report regress B --registry
+       R`` (and against R as A left it) exits 0 or 1, never 2, printing
+       every ``REGRESS_CHECKS`` field both lines hold; 8 stage-1 launches
+       a rank.
+   (b) ResNet-20 ``pallas``, 12 steps, ``--elastic --evict-after-windows
+       1 --obs-goodput-interval 2 --inject slow_rank:1:2@1-12`` into C
+       (in a process of its own, beside (a)): both ranks exit 46 at the
+       same step with one durable "resize" record (reason "evict",
+       ``evicted_ranks`` [1]) and ``elastic.json`` at P = 1; ``report
+       goodput C --advise`` names rank 1 and ``report fleet C`` prints
+       the straggler rows; a relaunch at ``--nworkers 1 --elastic
+       --resume`` in a fresh dir seeded with C's ``ckpt/`` and
+       ``elastic.json`` exits 0 and keeps the ``lineage_id``; one
+       abs-mode multisection launch a step a rank.
+   (c) Every ``report`` subcommand over A and C: the summary, ``gate``
+       (against a baseline it writes from A with ``--write``), ``attr``,
+       ``events``, ``recovery``, ``timeline``, ``critpath``, ``ledger``,
+       ``linkmap``, ``forecast``, ``compile``, ``mem`` and ``plan`` exit
+       0, but for the cases ``NOTHING_TO_SHOW`` names (exit 1: C has no
+       captures).
+   One line an arm: the hindcast error, the P = 256 recommendation, the
+   crossover P, the registry line's steps/s and goodput, the eviction's
+   step and goodput fractions; the card's name and power limit.
+16. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -2940,6 +2972,285 @@ def trace_phase(k2: float = None) -> dict:
     return total
 
 
+PLANES_BASE = ["--batch-size", "32", "--compression", "gtopk", "--density",
+               "0.001", "--eval-batches", "1", "--seed", "42", "--prefetch",
+               "0", "--log-interval", "1", "--nworkers", "2"]
+FORECAST_RUN = ["--dnn", "resnet50", "--topk-method", "twostage",
+                "--num-iters", "8", "--obs-calib", "--obs-critpath",
+                "--obs-linkmap", "--obs-calib-interval", "2",
+                "--obs-forecast"]
+EVICT_RUN = ["--dnn", "resnet20", "--topk-method", "pallas", "--elastic",
+             "--evict-after-windows", "1", "--obs-goodput-interval", "2"]
+EVICT_STEPS = 12
+# Rank 1 sleeps 2 s before each step. The goodput fractions count the
+# start-up (about 16 s a rank on the card): at 0.3 s a step rank 1 stood
+# out by more than advise's margin only at the last check, step 12; at
+# 2 s the check at step 4-6 evicts it, even with 15a's runs beside it.
+EVICT_INJECT = ["--inject", "slow_rank:1:2@1-12"]
+FORECAST_TARGETS = (32, 256, 1024)
+# The fits a forecast may price with: the committed ones, the run's own
+# refit, a calib_fit file.
+MEASURED_FITS = ("comm_fit.json", "comm_fit_nccl.json", "calib")
+# (subcommand, run) of 15c that exit 1 by the JAX grammar: nothing to
+# show, C having run no capture.
+NOTHING_TO_SHOW = (("attr", "C"), ("critpath", "C"), ("linkmap", "C"),
+                   ("forecast", "C"))
+RANKS_TAG = "SMOKE_RANKS "
+
+
+def planes_rank(device, argv) -> dict:
+    """One rank of phase 15: the command line's own rank body
+    (``dist_trainer._rank_run``) on the config it parses from `argv`; its
+    exit code, step and kernel launches."""
+    import torch.distributed as dist
+
+    from gtopkssgd_tpu_torch import dist_trainer
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+
+    args = dist_trainer.build_argparser().parse_args(argv)
+    cuda_topk.reset_launches()
+    out = dist_trainer._rank_run(device, dist_trainer.config_from_args(args),
+                                 args.num_iters, args.preempt_save)
+    return {"rc": out["rc"], "step": out["step"], "rank": dist.get_rank(),
+            "launches": dict(cuda_topk.launches)}
+
+
+def planes_spawn(argv) -> list:
+    """Phase 15's P = 2 run of `argv` (``planes_rank`` on each rank)."""
+    import torch
+
+    from gtopkssgd_tpu_torch.parallel.dist import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    return spawn(planes_rank, 2, list(argv), backend=backend,
+                 device="cuda", timeout=600)
+
+
+def spawn_main(argv) -> int:
+    """A phase 15 run in a process of its own (two run side by side):
+    prints its ranks' results on a tagged line."""
+    print(RANKS_TAG + json.dumps(planes_spawn(argv)))
+    return 0
+
+
+def _spawned(argv):
+    """Start ``spawn_main(argv)`` in a subprocess."""
+    return _python("import sys, json, chip_smoke as s; "
+                   "sys.exit(s.spawn_main(json.loads(sys.argv[1])))",
+                   json.dumps(list(argv)))
+
+
+def _ranks(proc, what: str) -> list:
+    """The ranks' results a ``_spawned`` process printed."""
+    rc, out = _wait(proc, what, timeout=600)
+    tagged = [line for line in out.splitlines()
+              if line.startswith(RANKS_TAG)]
+    check(rc == 0 and tagged, f"{what}: process rc {rc}")
+    return json.loads(tagged[-1][len(RANKS_TAG):])
+
+
+def _report(argv) -> tuple:
+    """(exit code, stdout) of ``obs.report.main(argv)`` in this process."""
+    import contextlib
+    import io
+
+    from gtopkssgd_tpu_torch.obs import report
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main(list(argv))
+    return rc, buf.getvalue()
+
+
+def _card_line() -> str:
+    from gtopkssgd_tpu_torch.profile_step import card_identity
+
+    return card_identity()
+
+
+def forecast_checks(run: str, recs: list) -> list:
+    """One durable "forecast" record a capture, each with a finite
+    hindcast, a recommendation at every target and a measured fit."""
+    fcs = [r for r in recs if r["kind"] == "forecast"]
+    caps = [r["step"] for r in recs if r["kind"] == "critpath"]
+    check(fcs and [r["step"] for r in fcs] == caps,
+          f"{run}: forecast records at {[r['step'] for r in fcs]}, "
+          f"captures at {caps}")
+    for r in fcs:
+        src = str(r.get("fit_source"))
+        check(math.isfinite(r["hindcast_err_x"])
+              and all(f"rec_p{p}" in r for p in FORECAST_TARGETS)
+              and (src in MEASURED_FITS or src.startswith("calib_fit_")),
+              f"{run} step {r['step']}: forecast {r}")
+    return fcs
+
+
+def planes_phase() -> dict:
+    """Phase 15, on the card: the fleet merge, the report, the registry,
+    the forecast and the eviction (see the module docstring). Returns the
+    launches of its runs."""
+    import os
+    import shutil
+    import tempfile
+
+    from gtopkssgd_tpu_torch.obs import registry
+
+    total = {name: 0 for name in REPLACES}
+    t0 = time.perf_counter()
+    card = _card_line()
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        d = {x: os.path.join(tmp, x) for x in
+             ("A", "B", "C", "D", "R", "R_A")}
+        # (a) The forecast and the registry: A and B side by side, each a
+        # process spawning its two ranks, one registry; (b) the eviction
+        # beside them.
+        fc_argv = PLANES_BASE + FORECAST_RUN + ["--registry", d["R"]]
+        procs = {run: _spawned(fc_argv + ["--out-dir", d[run]])
+                 for run in ("A", "B")}
+        evict = _spawned(PLANES_BASE + EVICT_RUN + EVICT_INJECT + [
+            "--num-iters", str(EVICT_STEPS), "--out-dir", d["C"]])
+        for run, proc in procs.items():
+            for out in _ranks(proc, f"15a {run}"):
+                check(out["rc"] == 0, f"15a {run}: rank rc {out['rc']}")
+                check_launches(out["launches"],
+                               {"fused_stage1_candidates": 8},
+                               f"phase 15a {run} resnet50 twostage P=2")
+                for name, n in out["launches"].items():
+                    total[name] += n
+        t_a = time.perf_counter() - t0
+        fcs = {}
+        for run in ("A", "B"):
+            for rank in (0, 1):
+                recs = _jsonl(os.path.join(d[run],
+                                           f"metrics.rank{rank}.jsonl"))
+                fcs[run, rank] = forecast_checks(f"15a {run} rank {rank}",
+                                                 recs)
+        drift = [r for run in ("A", "B") for rank in (0, 1)
+                 for r in _jsonl(os.path.join(d[run],
+                                              f"metrics.rank{rank}.jsonl"))
+                 if r["kind"] == "event" and r["rule"] == "forecast_drift"]
+        entries, bad = registry.load_registry(d["R"])
+        check(bad == 0 and len(entries) == 2
+              and len({e["config_hash"] for e in entries}) == 1,
+              f"15a: registry {entries}")
+        # The registry as A alone would have left it: its line (the
+        # manifest's time keys it).
+        t_man = _jsonl(os.path.join(d["A"], "metrics.rank0.jsonl"))[0]
+        registry.append_run(d["R_A"], next(
+            e for e in entries if e["time"] == t_man["time"]))
+        rc, out = _report(["history", d["R"]])
+        check(rc == 0 and out.count(entries[0]["config_hash"][:16]) == 2,
+              f"15a history: rc {rc}\n{out}")
+        verdicts = {}
+        for name in ("R", "R_A"):
+            rc, out = _report(["regress", d["B"], "--registry", d[name]])
+            both = [f for f, _, _ in registry.REGRESS_CHECKS
+                    if all(isinstance(e["stats"].get(f), (int, float))
+                           for e in entries)]
+            check(rc in (0, 1) and all(f in out for f in both),
+                  f"15a regress B --registry {name}: rc {rc}, fields "
+                  f"{both}\n{out}")
+            verdicts[name] = (rc, out.strip().splitlines()[-1])
+        last = fcs["A", 0][-1]
+        stats = registry.load_registry(d["R_A"])[0][0]["stats"]
+        print(f"planes 15a: hindcast_err_x {last['hindcast_err_x']} "
+              f"(pred {last['hindcast_pred_ms']} ms, meas "
+              f"{last['hindcast_meas_ms']} ms, fit {last['fit_source']}); "
+              f"P=256 {last['rec_p256']} step {last['step_ms_p256']} ms; "
+              f"crossover_p {last.get('crossover_p')}; forecast_drift "
+              f"events {len(drift)}; registry A steps_per_sec "
+              f"{stats.get('steps_per_sec')} goodput_frac "
+              f"{stats.get('goodput_frac')}; regress B vs R rc "
+              f"{verdicts['R'][0]}, vs R as A left it rc "
+              f"{verdicts['R_A'][0]} ({verdicts['R_A'][1]}); A and B "
+              f"side by side {t_a:.1f} s; {card}")
+
+        # (b) The eviction.
+        ranks = _ranks(evict, "15b eviction")
+        steps = {out["step"] for out in ranks}
+        fracs = {rank: [(r["step"], r["goodput_frac"]) for r in _jsonl(
+            os.path.join(d["C"], f"metrics.rank{rank}.jsonl"))
+            if r["kind"] == "goodput"] for rank in (0, 1)}
+        check([out["rc"] for out in ranks] == [46, 46] and len(steps) == 1,
+              f"15b: ranks {[(o['rc'], o['step']) for o in ranks]}, "
+              f"goodput (step, frac) by rank {fracs}")
+        (step,) = steps
+        for out in ranks:
+            check_launches(out["launches"],
+                           {"multisection_tau_lo[abs]": step},
+                           "phase 15b resnet20 pallas P=2")
+            for name, n in out["launches"].items():
+                total[name] += n
+        for rank in (0, 1):
+            recs = _jsonl(os.path.join(d["C"], f"metrics.rank{rank}.jsonl"))
+            resize = [r for r in recs if r["kind"] == "resize"]
+            check(len(resize) == 1 and resize[0]["reason"] == "evict"
+                  and resize[0]["evicted_ranks"] == [1]
+                  and resize[0]["new_p"] == 1,
+                  f"15b rank {rank}: resize records {resize}")
+        lineage = json.load(open(os.path.join(d["C"], "elastic.json")))
+        check(lineage["p"] == 1 and lineage["evicted_ranks"] == [1],
+              f"15b: elastic.json {lineage}")
+        os.makedirs(d["D"])
+        shutil.copytree(os.path.join(d["C"], "ckpt"),
+                        os.path.join(d["D"], "ckpt"))
+        shutil.copy2(os.path.join(d["C"], "elastic.json"), d["D"])
+        relaunch = _cli(
+            [a for a in PLANES_BASE if a not in ("--nworkers", "2")]
+            + EVICT_RUN + ["--nworkers", "1", "--resume", "--num-iters",
+                           "2", "--out-dir", d["D"]])
+        rc, out = _report(["goodput", d["C"], "--advise", "--json",
+                           os.path.join(tmp, "advise.json")])
+        hint = json.load(open(os.path.join(tmp, "advise.json")))["advise"]
+        check(rc == 0 and hint and hint["rank"] == 1,
+              f"15b goodput --advise: rc {rc}, {hint}\n{out}")
+        rc, out = _report(["fleet", d["C"]])
+        check(rc == 0 and "[straggler]" in out,
+              f"15b fleet: rc {rc}\n{out}")
+
+        # (c) Every subcommand over A and C; gate against a baseline each
+        # run's first gate writes (--write) from its own records.
+        base = os.path.join(tmp, "base.json")
+        with open(base, "w") as fh:
+            json.dump({"checks": [
+                {"kind": "obs", "field": "wire_bytes", "stat": "mean",
+                 "expect": 0.0, "rtol": 0.01},
+                {"kind": "train", "field": "loss", "stat": "last",
+                 "expect": 0.0, "rtol": 0.25}],
+                "manifest": {"compression": "gtopk"}}, fh)
+        codes = {}
+        for run in ("A", "C"):
+            _report(["gate", d[run], "--baseline", base, "--write",
+                     f"{base}.{run}"])
+            for sub in ("summary", "gate", "attr", "events", "recovery",
+                        "timeline", "critpath", "ledger", "linkmap",
+                        "forecast", "compile", "mem", "plan"):
+                argv = ([d[run]] if sub == "summary" else
+                        ["gate", d[run], "--baseline", f"{base}.{run}"]
+                        if sub == "gate" else [sub, d[run]])
+                rc, out = _report(argv)
+                want = 1 if (sub, run) in NOTHING_TO_SHOW else 0
+                check(rc == want, f"15c {sub} {run}: rc {rc}, expected "
+                                  f"{want}\n{out[-3000:]}")
+                codes[f"{sub}:{run}"] = rc
+        # The relaunch ran meanwhile.
+        _cli_wait(relaunch, "15b relaunch", 0, total)
+        man = _jsonl(os.path.join(d["D"], "metrics.jsonl"))[0]
+        check(man.get("lineage_id") == lineage["lineage_id"],
+              f"15b relaunch: lineage {man.get('lineage_id')} vs "
+              f"{lineage['lineage_id']}")
+        print(f"planes 15b: evicted rank {hint['rank']} at step {step} "
+              f"(the run's goodput_frac {hint['goodput_frac']} vs fleet "
+              f"median {hint['fleet_median_frac']}, dominant badput "
+              f"{hint['dominant_badput']}; (step, goodput_frac) by rank "
+              f"{fracs}); relaunch at P=1 rc 0, lineage "
+              f"{lineage['lineage_id']} kept; {card}")
+        print(f"planes 15c: report exit codes {codes} (1 = nothing to "
+              f"show: {NOTHING_TO_SHOW})")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3019,6 +3330,8 @@ def main() -> int:
         total[name] += count
     k2 = kernels[K2_N]["fused_stage1_candidates"]["ms"]
     for name, count in trace_phase(k2).items():
+        total[name] += count
+    for name, count in planes_phase().items():
         total[name] += count
 
     n0 = SIZES[0]

@@ -22,7 +22,9 @@
         [--no-obs-goodput] [--obs-goodput-interval N] [--obs-critpath] \\
         [--obs-calib [--obs-linkmap]] [--obs-calib-interval N] \\
         [--obs-mem [--obs-mem-interval N]] [--profile-dir DIR \\
-         [--profile-steps N]]
+         [--profile-steps N]] [--obs-forecast [--obs-forecast-targets L] \\
+         [--obs-forecast-drift-x X]] [--registry DIR] \\
+        [--evict-after-windows K]
 
 Runs on the CUDA card unless ``--device cpu``. ``--nworkers P`` above 1
 spawns P rank processes joined in one process group (0, the default:
@@ -64,9 +66,15 @@ steps and at the end. The trace planes are opt-in: every
 counters on) into the live comm-model fit ("calib", and
 ``calib_fit_{P}proc.json`` in the out dir) and with ``--obs-linkmap``
 into the link weather map ("linkmap"); ``--obs-mem`` writes "compile" and
-"mem" records. ``--profile-dir DIR`` writes a Chrome trace a rank,
-``DIR/rank{r}.trace.json``, of ``--profile-steps`` steps (whole
+"mem" records. With ``--obs-forecast`` each capture also writes a
+"forecast" record (the hindcast error and the forecast at
+``--obs-forecast-targets``). ``--profile-dir DIR`` writes a Chrome trace a
+rank, ``DIR/rank{r}.trace.json``, of ``--profile-steps`` steps (whole
 dispatches) after one warm-up dispatch, before the run's own steps.
+``--registry DIR`` appends the run's summary line to ``DIR/runs.jsonl`` as
+it exits. Under ``--elastic`` rank 0 merges the ranks' shards every
+``--evict-after-windows`` goodput windows and may evict a rank (exit 46).
+``python -m gtopkssgd_tpu_torch.obs.report`` reads all of it.
 
 Exit codes (``exit_codes.py``): 0 done; 43 stalled (the watchdog; at
 P > 1 one rank's ends the command, the others stopped); 44 an anomaly
@@ -360,6 +368,33 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--obs-link-degraded-windows", type=int, default=3,
                    help="consecutive degraded windows before "
                         "link_degraded fires")
+    p.add_argument("--obs-forecast",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="scale-out forecast (obs.forecast): at each "
+                        "calibration capture, hindcast this run's step "
+                        "time from its comm fit and measured budgets, and "
+                        "forecast step time and goodput at the P targets "
+                        "over the wire schedules and axis trees; one "
+                        "durable 'forecast' record a capture, feeding "
+                        "forecast_drift. Rides --obs-calib (and needs "
+                        "--obs-critpath's budgets); read with 'report "
+                        "forecast'")
+    p.add_argument("--obs-forecast-targets", default="32,256,1024",
+                   metavar="LIST",
+                   help="comma-separated modeled worker counts the "
+                        "forecast grid prices")
+    p.add_argument("--obs-forecast-drift-x", type=float, default=4.0,
+                   help="hindcast error factor beyond which a capture "
+                        "counts as drifted; 3 consecutive drifted "
+                        "captures fire forecast_drift (honors "
+                        "--obs-halt-on)")
+    p.add_argument("--registry", default=None, metavar="DIR",
+                   help="append this run's summary line (manifest subset, "
+                        "steps/sec, comm ratio, fitted alpha/beta, recall "
+                        "floor, wire bytes/step, goodput, forecast) to "
+                        "DIR/runs.jsonl on exit (obs.registry, rank 0); "
+                        "read with 'report history DIR' and 'report "
+                        "regress OUT_DIR --registry DIR'")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace (one "
                         "rank{r}.trace.json a rank; obs.trace_attr reads "
@@ -384,6 +419,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "exits 46; relaunch with --resume --elastic at the "
                         "new --nworkers and the residual is re-partitioned "
                         "(both sides of a resize need this flag)")
+    p.add_argument("--evict-after-windows", type=int, default=3,
+                   help="elastic: rank 0 checks the merged per-rank "
+                        "goodput/straggler view every this-many "
+                        "--obs-goodput-interval windows and evicts the "
+                        "rank eviction_decision names (exit 46 on every "
+                        "rank; 0 disables the check; an injected "
+                        "evict_rank:R@K still works)")
     p.add_argument("--min-fleet", type=int, default=1,
                    help="elastic: never resize below this many ranks (a "
                         "preemption that would falls back to exit 45)")
@@ -444,6 +486,11 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         obs_linkmap=args.obs_linkmap,
         obs_link_degraded_x=args.obs_link_degraded_x,
         obs_link_degraded_windows=args.obs_link_degraded_windows,
+        obs_forecast=args.obs_forecast,
+        obs_forecast_targets=args.obs_forecast_targets,
+        obs_forecast_drift_x=args.obs_forecast_drift_x,
+        registry=args.registry,
+        evict_after_windows=args.evict_after_windows,
         device=args.device)
 
 

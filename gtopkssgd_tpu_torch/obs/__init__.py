@@ -1,5 +1,5 @@
 """Observability of a training run, the port of ``gtopkssgd_tpu/obs``'s
-anomaly core, its host planes (ROADMAP item 7b) and the trace planes one
+anomaly core, its host planes (ROADMAP item 7b), the trace planes one
 rank runs live in its own train loop (item 7c, first half):
 
   counters.py    on-device training-health counters of the compression
@@ -30,9 +30,20 @@ rank runs live in its own train loop (item 7c, first half):
   linkmap.py     the per-(link class, peer) weather map.
   memwatch.py    the compile and memory watch on the CUDA caching
                  allocator.
+  forecast.py    the hindcast and the scale-out forecast, priced with the
+                 card's comm fits (a "forecast" record a capture).
 
-The planes that read beyond one run (fleet, forecast, registry, report)
-and eviction are not ported yet (ROADMAP item 7c, second half).
+and the planes that read beyond one run (item 7c, second half), offline
+over the record files:
+
+  fleet.py       the ranks' shards merged: cross-rank rows, the
+                 stragglers (``straggler_persistent``), the global
+                 critical path, the goodput by rank (the eviction check's
+                 view, ``resilience.elastic.eviction_decision``).
+  registry.py    one summary line a run in ``runs.jsonl``; ``history``
+                 and ``regress``.
+  report.py      ``python -m gtopkssgd_tpu_torch.obs.report``: the
+                 summary, ``gate``, and a view of each plane.
 """
 
 from gtopkssgd_tpu_torch.obs import counters

@@ -5,11 +5,16 @@ arXiv:1911.08772 ties top-k-with-error-feedback convergence to the
 residual dynamics, which the on-device counters (``obs.counters``) report
 every step. ``AnomalyMonitor`` reads that stream inside the train loop, at
 the cadence the trainer already reads the device (no extra device reads).
-Every rule of the JAX package is here; the trainer feeds ``observe`` (the
-first five rules). The other feeds (``observe_ranks``, ``_comm_model``,
-``_compile``, ``_memory``, ``_critpath``, ``_goodput``, ``_links``,
-``_forecast``) wait for the planes that produce them (fleet, calib,
-memwatch, critpath, goodput, linkmap, forecast):
+Every rule of the JAX package is here, and each has its feed: the
+trainer calls ``observe`` (the first five rules); the planes call the
+others -- ``observe_comm_model`` the calibrator (``obs.calib``),
+``observe_compile`` and ``observe_memory`` the memory watch
+(``obs.memwatch``), ``observe_critpath`` the trainer's "critpath" records
+and the fleet join (``obs.critpath``, ``obs.fleet``), ``observe_goodput``
+the goodput ledger (``obs.goodput``), ``observe_links`` the link map
+(``obs.linkmap``), ``observe_forecast`` the forecaster (``obs.forecast``)
+and ``observe_ranks`` the fleet merge (``obs.fleet``, offline in ``report
+fleet``):
 
   rule                  severity  fires when
   --------------------  --------  -------------------------------------

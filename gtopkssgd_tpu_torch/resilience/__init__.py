@@ -11,7 +11,9 @@
   elastic.py  ``--elastic``: a resize drains, saves, rewrites the
               ``elastic.json`` lineage and exits 46; the relaunch at the
               new P re-partitions the residual (grow: zero rows; shrink:
-              rows folded by addition, column sums kept).
+              rows folded by addition, column sums kept);
+              ``eviction_decision`` names a rank to evict from the merged
+              fleet view (``--evict-after-windows``).
   policy.py   ``--recover-policy``: anomaly rules (``obs.events``) mapped
               to skip, rollback or degrade; ``RecoveryManager`` claims an
               event before it halts and the trainer applies the action.
@@ -22,6 +24,7 @@ fallback) lives in ``utils/checkpoint.py``.
 
 from gtopkssgd_tpu_torch.resilience.elastic import (
     ResizeRestart,
+    eviction_decision,
     load_lineage,
     mint_lineage_id,
     repartition_buffer,
@@ -62,6 +65,7 @@ __all__ = [
     "ResizeRestart",
     "corrupt_checkpoint_dir",
     "describe_policy",
+    "eviction_decision",
     "load_lineage",
     "mint_lineage_id",
     "parse_inject",

@@ -1,12 +1,13 @@
 """Elastic fleet: resize the ranks without losing a step, the port of
-``gtopkssgd_tpu/resilience/elastic.py`` (the eviction decision aside: it
-reads the fleet's goodput, which the port does not measure yet).
+``gtopkssgd_tpu/resilience/elastic.py``.
 
 The resize protocol (``Trainer._resize_now`` and ``dist_trainer``):
 
   trigger   an agreed preemption under ``--elastic`` (to P - 1, unless
-            that is below ``--min-fleet``), or an injected
-            ``resize@K:NEWP`` / ``evict_rank:R@K``
+            that is below ``--min-fleet``), an injected
+            ``resize@K:NEWP`` / ``evict_rank:R@K``, or an eviction
+            (``eviction_decision`` on the merged fleet view, rank 0's
+            self-check every ``--evict-after-windows`` goodput windows)
   drain     acted on only at a dispatch boundary, where the state is whole
   save      every rank's checkpoint at the drained step; the sidecar
             records the world size, the residual's partition width
@@ -32,7 +33,7 @@ from __future__ import annotations
 import json
 import os
 import uuid
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -131,6 +132,43 @@ def source_rows(rank: int, old_p: int, new_p: int) -> List[int]:
     if rank >= old_p:
         return []
     return list(range(rank, old_p, new_p)) if new_p < old_p else [rank]
+
+
+# ------------------------------------------------------------- eviction
+
+def eviction_decision(merged: Mapping[str, Any], *, p: int,
+                      min_fleet: int = 1, margin: float = 0.1
+                      ) -> Optional[Dict[str, Any]]:
+    """Whether the merged fleet view (``obs.fleet.merge``'s dict) calls
+    for evicting a rank: ``obs.goodput.advise`` names the rank whose
+    goodput_frac sits furthest below the fleet median, by more than
+    `margin`; the straggler rows say whether that rank was also a
+    persistent straggler. None for a healthy fleet, one already at
+    `min_fleet`, or one rank. Otherwise {rank, new_p, reason: "evict",
+    source, goodput_frac, fleet_median_frac, dominant_badput,
+    persistent_straggler}."""
+    from gtopkssgd_tpu_torch.obs import goodput as _goodput
+
+    if p - 1 < max(1, min_fleet):
+        return None
+    by_rank = merged.get("goodput_by_rank") or {}
+    hint = _goodput.advise(by_rank, margin=margin)
+    if hint is None:
+        return None
+    rank = int(hint["rank"])
+    persistent = any(
+        row.get("slowest_rank") == rank and row.get("persistent")
+        for row in merged.get("stragglers") or [])
+    return {
+        "rank": rank,
+        "new_p": p - 1,
+        "reason": "evict",
+        "source": "goodput_advise",
+        "goodput_frac": hint.get("goodput_frac"),
+        "fleet_median_frac": hint.get("fleet_median_frac"),
+        "dominant_badput": hint.get("dominant_badput"),
+        "persistent_straggler": bool(persistent),
+    }
 
 
 def surviving_ranks(old_p: int, evicted: Sequence[int]) -> list:

@@ -111,8 +111,13 @@ Observability (``obs/``), the JAX trainer's anomaly core:
   attributed: an "attr" record, at P > 1 a "ledger" row, a "critpath"
   record, the calibrator's sample (``obs_calib``: P > 1, counters on;
   its ``calib_fit_{P}proc.json`` written on exit) and the link map's
-  (``obs_linkmap``). ``obs_mem``: "compile" and "mem" records
+  (``obs_linkmap``), and with ``obs_forecast`` (riding the calibrator)
+  one durable "forecast" record (``obs.forecast``: the hindcast and the
+  per-P forecast). ``obs_mem``: "compile" and "mem" records
   (``obs.memwatch``). Each feeds its monitor rule.
+* ``registry``: rank 0 appends the run's summary line to
+  ``registry/runs.jsonl`` as the run ends (``obs.registry``), whatever
+  its exit.
 
 Resilience (``resilience/``), the JAX trainer's:
 
@@ -129,7 +134,11 @@ Resilience (``resilience/``), the JAX trainer's:
   ``elastic.json`` and raises ``ResizeRestart`` (exit 46); a restore at
   another P re-partitions the residual (``utils.checkpoint``). The
   checkpoint's config hash then nulls the fleet size and the elastic
-  knobs, and the manifest carries the lineage id.
+  knobs, and the manifest carries the lineage id. Every
+  ``obs_goodput_interval * evict_after_windows`` steps rank 0 merges the
+  out dir's shards (``obs.fleet``) and may evict the rank
+  ``resilience.elastic.eviction_decision`` names; the decision rides the
+  same all-reduce as the stop, so every rank resizes at the same step.
 * ``recover_policy`` (``resilience.policy``; needs ``obs_events``): the
   monitor's events claimed by a ``RecoveryManager`` are acted on at the
   end of the dispatch: ``skip`` restores the snapshot taken before the
@@ -174,7 +183,14 @@ from gtopkssgd_tpu_torch.models import (
 )
 from gtopkssgd_tpu_torch.modes import DENSE_MODES, HIER_MODES
 from gtopkssgd_tpu_torch.obs import counters as obs_counters
-from gtopkssgd_tpu_torch.obs import critpath, ledger, trace_attr
+from gtopkssgd_tpu_torch.obs import (
+    critpath,
+    fleet,
+    ledger,
+    registry,
+    report,
+    trace_attr,
+)
 from gtopkssgd_tpu_torch.obs.calib import CommCalibrator
 from gtopkssgd_tpu_torch.obs.events import (
     AnomalyHalt,
@@ -182,6 +198,7 @@ from gtopkssgd_tpu_torch.obs.events import (
     Thresholds,
 )
 from gtopkssgd_tpu_torch.obs.exporter import MetricsExporter
+from gtopkssgd_tpu_torch.obs.forecast import StepForecaster
 from gtopkssgd_tpu_torch.obs.goodput import GoodputLedger
 from gtopkssgd_tpu_torch.obs.linkmap import LinkMap
 from gtopkssgd_tpu_torch.obs.memwatch import MemWatch, batch_shape_key
@@ -198,6 +215,7 @@ from gtopkssgd_tpu_torch.resilience import (
     Preempted,
     RecoveryManager,
     ResizeRestart,
+    eviction_decision,
     load_lineage,
     mint_lineage_id,
     parse_inject,
@@ -349,6 +367,16 @@ class TrainConfig:
                                    # this factor is a degraded window
     obs_link_degraded_windows: int = 3  # degraded windows before
                                    # link_degraded
+    obs_forecast: bool = False     # the scale-out forecast
+                                   # (obs/forecast.py) at the
+                                   # calibrator's captures: a "forecast"
+                                   # record a capture, forecast_drift
+    obs_forecast_targets: str = "32,256,1024"  # modeled worker counts
+    obs_forecast_drift_x: float = 4.0  # hindcast error beyond which a
+                                   # capture counts as drifted
+    registry: Optional[str] = None  # append the run's summary line to
+                                   # registry/runs.jsonl on exit
+                                   # (obs/registry.py; rank 0)
     resume: bool = False           # restore out_dir/ckpt at construction
     allow_ckpt_mismatch: bool = False  # restore past a config hash or
                                    # state digest that differs
@@ -366,6 +394,11 @@ class TrainConfig:
                                    # a resume at another P re-partitions
                                    # the residual
     min_fleet: int = 1             # elastic: never resize below this
+    evict_after_windows: int = 3   # elastic: rank 0 checks the merged
+                                   # fleet view every N goodput windows
+                                   # and evicts the rank
+                                   # resilience.elastic.eviction_decision
+                                   # names (0 = never)
     device: str = "cuda"
 
     def resolved(self) -> "TrainConfig":
@@ -392,6 +425,7 @@ class TrainConfig:
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch={self.steps_per_dispatch}"
                              " must be >= 1")
+        forecast_targets(self.obs_forecast_targets)  # likewise
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype {self.dtype!r}: one of {sorted(DTYPES)}")
         if self.prefetch < 0:
@@ -411,6 +445,17 @@ class TrainConfig:
         if cfg.clip_grad_norm is None:
             cfg.clip_grad_norm = clip
         return cfg
+
+
+def forecast_targets(spec: str) -> tuple:
+    """The worker counts of ``obs_forecast_targets`` ("32,256,1024"); the
+    JAX trainer's error for a malformed list."""
+    try:
+        return tuple(int(t) for t in str(spec).split(",") if t.strip())
+    except ValueError:
+        raise ValueError(
+            "--obs-forecast-targets must be a comma-separated list of "
+            f"worker counts, got {spec!r}") from None
 
 
 def dispatch_rule(cfg: TrainConfig) -> str:
@@ -575,7 +620,8 @@ class Trainer:
                 critpath_shift_windows=cfg.obs_critpath_shift_windows,
                 goodput_collapse_windows=cfg.obs_goodput_collapse_windows,
                 link_degraded_x=cfg.obs_link_degraded_x,
-                link_degraded_windows=cfg.obs_link_degraded_windows))
+                link_degraded_windows=cfg.obs_link_degraded_windows,
+                forecast_drift_x=cfg.obs_forecast_drift_x))
             if cfg.obs_events else None)
         if self.goodput is not None:
             self.goodput.metrics = self.metrics
@@ -622,9 +668,14 @@ class Trainer:
                      "resize_epoch": int(self.lineage.get("resize_epoch",
                                                           0))}
         backend = None if self.group is None else dist.get_backend(self.group)
+        # The manifest's config hash keys the registry's comparisons and
+        # the fleet merge: the out dir and the registry are where a run
+        # writes, not what it runs, so two runs of one config into two
+        # dirs share it.
         self.manifest = run_manifest(
-            self._identity(), device=self.device, backend=backend,
-            world_size=cfg.nworkers, num_params=self.num_params,
+            self._identity(out_dir=None, registry=None), device=self.device,
+            backend=backend, world_size=cfg.nworkers,
+            num_params=self.num_params,
             steps_per_epoch=self.steps_per_epoch,
             native_dataprep=native.available(), dispatch=self.dispatch,
             dtype=cfg.dtype, **extra)
@@ -647,14 +698,16 @@ class Trainer:
         # The checkpoint's config hash nulls what does not change the
         # experiment (the JAX trainer's nulled fields, and resume): the
         # injected faults, and under elastic the fleet size, the elastic
-        # knobs and the out dir, so both sides of a resize agree.
+        # knobs, the out dir and the registry, so both sides of a resize
+        # agree.
         self._ckpt = None
         if cfg.out_dir:
             nulled = dict(allow_ckpt_mismatch=False, resume=False,
                           inject=None)
             if cfg.elastic:
-                nulled.update(nworkers=0, elastic=False, min_fleet=1,
-                              out_dir=None)
+                nulled.update(nworkers=0, elastic=False,
+                              evict_after_windows=3, min_fleet=1,
+                              out_dir=None, registry=None)
             self._ckpt = CheckpointManager(
                 f"{cfg.out_dir}/ckpt",
                 config_hash=config_hash(self._identity(**nulled)),
@@ -700,7 +753,7 @@ class Trainer:
                 mem_interval=cfg.obs_mem_interval, device=self.device,
                 logger=self.logger)
             self.memwatch.attach(self._compile_cache_size)
-        self.calib = self.linkmap = None
+        self.calib = self.linkmap = self.forecaster = None
         if not (cfg.obs_calib and cfg.obs_counters and cfg.nworkers > 1):
             return
         d = self.plan_decision
@@ -722,6 +775,25 @@ class Trainer:
                 ici_size=cfg.hier_ici, alpha_ms=inputs.get("alpha_ms"),
                 beta_gbps=inputs.get("beta_gbps"),
                 ici_gbps=inputs.get("ici_gbps"),
+                metrics=self.metrics, monitor=self.monitor)
+        if cfg.obs_forecast:
+            # The forecast rides the same captures: the critpath budgets,
+            # the calibrator's refits and the link map's snapshots, from
+            # the inputs that priced the plan until the first refit.
+            bplan = self.bucket_plan
+            k = (bplan.k_total if bplan is not None
+                 else max(1, int(np.ceil(cfg.density * self.num_params))))
+            if cfg.compression in DENSE_MODES:
+                k = self.num_params
+            self.forecaster = StepForecaster(
+                {"mode": cfg.compression or "dense", "p": cfg.nworkers,
+                 "n": self.num_params, "k": k, "codec": cfg.wire_codec,
+                 "schedule": d.plan.schedule if d is not None else None,
+                 "bucketing": cfg.buckets or "concat",
+                 "buckets": bplan.pairs() if bplan is not None else None,
+                 "ici_size": cfg.hier_ici},
+                baseline=inputs,
+                targets=forecast_targets(cfg.obs_forecast_targets),
                 metrics=self.metrics, monitor=self.monitor)
 
     def _compile_cache_size(self) -> int:
@@ -909,9 +981,29 @@ class Trainer:
                 self.goodput.log_record(self.step, final=True)
             except Exception as e:
                 self.logger.warning("goodput summary failed: %s", e)
+        self._append_registry()
         if self.exporter is not None:
             self.exporter.close()
         self.metrics.close()
+
+    def _append_registry(self) -> None:
+        """Rank 0 appends the run's summary line (``obs.registry.
+        run_summary`` of the out dir's records) to ``registry/runs.jsonl``,
+        as the run ends: from ``__exit__``, which every exit of the
+        command line passes (0, and 44, 45 and 46 after their records),
+        and from the stall path (43). A failure is logged and never
+        changes the exit."""
+        cfg = self.cfg
+        if not (cfg.registry and cfg.out_dir and self.rank == 0):
+            return
+        try:
+            records, _ = report.load_records(cfg.out_dir)
+            entry = registry.run_summary(records)
+            if entry is not None:
+                path = registry.append_run(cfg.registry, entry)
+                self.logger.info("registry += %s", path)
+        except (OSError, ValueError) as e:
+            self.logger.warning("registry append failed: %s", e)
 
     def _next_host(self, k: int = 1) -> Dict[str, np.ndarray]:
         """The next host micro-batch of the stream. With an injector, the
@@ -1397,18 +1489,25 @@ class Trainer:
             self.metrics.log("critpath", flush=True, step=step, **cp)
             if self.goodput is not None:
                 self.goodput.note_stage_fracs(cp)
+            if self.forecaster is not None:
+                # Before the shift rule, which may halt.
+                self.forecaster.note_critpath(cp, spd=k)
             if self.monitor is not None:
                 self.monitor.observe_critpath(
                     step, crit_stage=cp.get("crit_stage"))
         if self.calib is not None:
             self._feed_calibrator(step, k, rec)
+        if self.forecaster is not None:
+            # One "forecast" record a capture (durable), then
+            # forecast_drift, which may halt.
+            self.forecaster.observe(step)
 
     def _feed_calibrator(self, step: int, k: int, rec: Dict) -> None:
         """One (wire bytes, comm ms a step) sample of the captured
         dispatch to the calibrator, then the link map: the counters'
         wire bytes of its last step, its attributed comm over `k`. An
         overlapped pipeline's sample is quarantined (its comm is partly
-        hidden)."""
+        hidden). A refit and a link snapshot go to the forecaster."""
         t_comm_us = rec.get("t_comm_us")
         tel = self.optimizer.state.get("telemetry")
         if (not isinstance(t_comm_us, (int, float)) or t_comm_us <= 0
@@ -1423,11 +1522,19 @@ class Trainer:
         overlapped = (self.bucket_plan is not None
                       and self.bucket_plan.pipeline == "overlap")
         t_comm_ms = float(t_comm_us) / 1e3 / k
-        self.calib.observe(step, wire_bytes=wire, t_comm_ms=t_comm_ms,
-                           overlapped=overlapped)
+        calib_rec = self.calib.observe(step, wire_bytes=wire,
+                                       t_comm_ms=t_comm_ms,
+                                       overlapped=overlapped)
+        lm_rec = None
         if self.linkmap is not None and not overlapped:
-            self.linkmap.observe(step, t_comm_ms=t_comm_ms,
-                                 wire_bytes=wire)
+            lm_rec = self.linkmap.observe(step, t_comm_ms=t_comm_ms,
+                                          wire_bytes=wire)
+        if self.forecaster is not None:
+            # The forecast reprices from what this capture refreshed.
+            if calib_rec is not None:
+                self.forecaster.note_calib(calib_rec)
+            if lm_rec is not None:
+                self.forecaster.note_linkmap(lm_rec)
 
     def _log_obs(self, step: int, values: List[float], nf: int):
         """The "obs" record of `step` from the counters' host copy
@@ -1572,8 +1679,9 @@ class Trainer:
     def _on_stall(self, record: Dict[str, object]) -> None:
         """On the watchdog's thread, with the card presumed wedged: the
         "stall" record and the run's summary (final_status "stalled"),
-        fsynced, the timeline, then stderr and exit 43. Nothing here
-        touches the device, and ``os._exit`` skips every handler."""
+        fsynced, the registry line, the timeline, then stderr and exit
+        43. Nothing here touches the device, and ``os._exit`` skips every
+        handler."""
         step = record.get("step", record.get("last_completed_step"))
         step = int(step) if isinstance(step, (int, float)) else 0
         try:
@@ -1590,6 +1698,7 @@ class Trainer:
                               if self.recovery is not None else 0),
                 step=step)
             self.metrics.close()
+            self._append_registry()
         except Exception:
             pass
         if self.timeline is not None:
@@ -1606,8 +1715,10 @@ class Trainer:
     def _at_boundary(self, prev: int, new: int) -> None:
         """The dispatch of steps (prev, new] has run (a skip may have set
         the step back since): fire the injected preemption and resizes,
-        then act on an agreed stop (a resize to P - 1 under elastic, else
-        the emergency save)."""
+        then act on what the ranks agree on: an eviction (rank 0's
+        self-check, ``_eviction_check``) resizes to P - 1 without the
+        evicted rank; a stop resizes to P - 1 under elastic, else saves
+        and exits 45."""
         inj = self.injector
         if inj is not None:
             inj.maybe_preempt(prev, new, self.preempt)
@@ -1618,26 +1729,66 @@ class Trainer:
             if rank is not None:
                 self._injected_resize(self.cfg.nworkers - 1, reason="evict",
                                       evicted_ranks=(rank,))
-        if self._stop_requested():
+        stop, evict = self._stop_requested(self._eviction_check(prev, new))
+        if evict is not None:
+            self._resize_now(self.cfg.nworkers - 1, reason="evict",
+                             evicted_ranks=(evict,))
+        if stop:
             if self.cfg.elastic:
                 self._resize_now(self.cfg.nworkers - 1, reason="preempt")
             self._preempt_now()
 
-    def _stop_requested(self) -> bool:
-        """Whether a preemption was signalled, agreed on by every rank: at
-        P > 1 one all-reduce (max) of this rank's flag, made only when a
-        guard, an injector or elastic is there (all ranks have the same
-        configuration, so all make it or none does)."""
-        local = self.preempt is not None and self.preempt.triggered
-        if self.group is None or (self.preempt is None
-                                  and self.injector is None
-                                  and not self.cfg.elastic):
-            return local
-        nccl = dist.get_backend(self.group) == "nccl"
-        flag = torch.tensor([int(local)], dtype=torch.int32,
-                            device=self.device if nccl else "cpu")
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
-        return bool(flag.item())
+    def _eviction_check(self, prev: int, new: int) -> Optional[int]:
+        """Rank 0's eviction self-check (the JAX trainer's
+        ``_maybe_evict``), under elastic with an out dir, when the
+        dispatch (prev, new] crosses a multiple of ``obs_goodput_interval
+        * evict_after_windows``: the rank that
+        ``resilience.elastic.eviction_decision`` names on the merged
+        shards of the out dir, or None. The merge reads the records of
+        steps up to `prev` only: each rank wrote those before it joined
+        the previous boundary's all-reduce, so the decision does not
+        depend on how far a peer has got writing this dispatch's. A
+        failing merge never stops the run: no eviction."""
+        cfg = self.cfg
+        every = cfg.obs_goodput_interval * cfg.evict_after_windows
+        if not (cfg.elastic and cfg.out_dir and self.rank == 0
+                and cfg.evict_after_windows > 0
+                and cfg.obs_goodput_interval > 0 and new % every < new - prev):
+            return None
+        try:
+            merged = fleet.merge([cfg.out_dir], through_step=prev)
+            decision = eviction_decision(merged, p=cfg.nworkers,
+                                         min_fleet=cfg.min_fleet)
+        except Exception as e:
+            self.logger.debug("elastic: eviction check skipped (%s: %s)",
+                              type(e).__name__, e)
+            return None
+        if decision is None:
+            return None
+        self.logger.warning("elastic: eviction decision %s", decision)
+        return int(decision["rank"])
+
+    def _stop_requested(self, evict: Optional[int] = None):
+        """(stop, evicted rank) as every rank agrees on them: at P > 1 one
+        all-reduce (max) of one int, made only when a guard, an injector
+        or elastic is there (all ranks have the same configuration, so
+        all make it or none does). The int is 0, 1 for a preemption
+        signalled on this rank, or 2 + r for rank 0's eviction of rank r
+        (`evict`), which outranks a stop."""
+        local = int(self.preempt is not None and self.preempt.triggered)
+        if evict is not None:
+            local = 2 + int(evict)
+        if self.group is not None and (self.preempt is not None
+                                       or self.injector is not None
+                                       or self.cfg.elastic):
+            nccl = dist.get_backend(self.group) == "nccl"
+            flag = torch.tensor([local], dtype=torch.int32,
+                                device=self.device if nccl else "cpu")
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+            local = int(flag.item())
+        if local >= 2:
+            return False, local - 2
+        return bool(local), None
 
     def _injected_resize(self, new_p: int, *, reason: str,
                          evicted_ranks=()) -> None:

@@ -19,9 +19,10 @@ Tracer's window means, ``event`` an anomaly and ``stall`` the watchdog's
 diagnostic, ``goodput`` the goodput ledger's decomposition (on by
 default: every ``obs_goodput_interval`` steps and at the end); with the
 trace planes, ``attr``, ``critpath`` and ``ledger`` a captured dispatch,
-``calib`` and ``linkmap`` the comm model's refits and links, ``compile``
-and ``mem`` the compile and memory watch. An unregistered kind raises, so
-a typo fails loudly.
+``calib`` and ``linkmap`` the comm model's refits and links, ``forecast``
+the scale-out forecast (fsynced), ``compile`` and ``mem`` the compile
+and memory watch; ``fleet`` a merged cross-rank row (``obs.fleet``). An
+unregistered kind raises, so a typo fails loudly.
 ``sink`` is called with every record, file or no file (the exporter's
 ``observe``); its errors are swallowed, so export cannot stop a run.
 """
@@ -64,6 +65,10 @@ KINDS = frozenset({
     "mem",       # a live-memory window (obs/memwatch.py)
     "goodput",   # the cumulative goodput/badput decomposition
                  # (obs/goodput.py)
+    "fleet",     # a cross-rank merged row (obs/fleet.py row_record)
+    "forecast",  # the hindcast error and the per-P forecast of a capture
+                 # (obs/forecast.py); fsynced, before forecast_drift can
+                 # halt the run
 })
 
 _SHARD_RE = re.compile(r"^metrics\.rank(\d+)\.jsonl$")

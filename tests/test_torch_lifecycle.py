@@ -151,7 +151,8 @@ def test_trainer_records_match_the_jax_trainer(tmp_path):
         else:
             assert set(g) == set(w), g["kind"]
     man = got[0]
-    assert man["config_hash"] == config_hash(pt._identity())
+    assert man["config_hash"] == config_hash(
+        pt._identity(out_dir=None, registry=None))
     for key in ("dnn", "dataset", "compression", "density", "wire_codec",
                 "nworkers", "batch_size", "seed", "num_params",
                 "steps_per_epoch"):
@@ -479,15 +480,9 @@ def test_resume_without_checkpoint_starts_fresh(tmp_path):
 
 # ------------------------------------------------------------ the CLI
 
-# JAX flags the port does not have yet, by ROADMAP.md item: the
-# observability planes that read beyond one run (item 7c, second half).
-MISSING_FLAGS = {
-    # item 7c, the forecast plane and the run registry
-    "--obs-forecast", "--obs-forecast-targets", "--obs-forecast-drift-x",
-    "--registry",
-    # item 7c, eviction (it reads the fleet's goodput)
-    "--evict-after-windows",
-}
+# JAX flags the port does not have yet: none since the planes that read
+# beyond one run (ROADMAP item 7c, second half).
+MISSING_FLAGS = set()
 
 
 def _flags(parser):
@@ -511,9 +506,11 @@ def test_cli_flags_and_defaults_match_the_jax_cli():
     assert missing == MISSING_FLAGS
     for flag in set(port) & set(jax):
         assert port[flag].default == jax[flag].default, flag
-    # 71 of the JAX CLI's 74 (--help aside, a --no- twin counts as one).
-    assert len({a.dest for a in port.values()}) == 71
+    # All 74 of the JAX CLI's (--help aside, a --no- twin counts as one)
+    # and the port's own two.
+    assert len({a.dest for a in port.values()}) == 76
     assert len({a.dest for a in jax.values()}) == 74
+    assert len({port[f].dest for f in set(port) & set(jax)}) == 74
     for flag in ("--out-dir", "--log-interval", "--resume",
                  "--allow-ckpt-mismatch", "--dtype", "--synth-hard",
                  "--prefetch", "--steps-per-dispatch", "--decode-workers",
@@ -532,7 +529,10 @@ def test_cli_flags_and_defaults_match_the_jax_cli():
                  "--no-obs-linkmap", "--obs-link-degraded-x",
                  "--obs-link-degraded-windows", "--obs-mem", "--no-obs-mem",
                  "--obs-mem-interval", "--obs-recompile-warmup",
-                 "--obs-mem-leak-windows", "--obs-hbm-headroom-frac"):
+                 "--obs-mem-leak-windows", "--obs-hbm-headroom-frac",
+                 "--obs-forecast", "--no-obs-forecast",
+                 "--obs-forecast-targets", "--obs-forecast-drift-x",
+                 "--registry", "--evict-after-windows"):
         assert flag in port
 
 

@@ -401,3 +401,21 @@ def trace_plane_run(device, cfg_kwargs, out_dir, steps):
     with open(os.path.join(out_dir, name)) as fh:
         records = [json.loads(line) for line in fh]
     return {"records": records, "samples": samples}
+
+
+def eviction_run(device, cfg_kwargs, num_iters):
+    """Rank program: ``dist_trainer.run`` of `cfg_kwargs` (an elastic run
+    whose rank 0 may evict a rank) for `num_iters` steps; this rank's
+    exit code and step, and the "resize" records of its shard."""
+    import json
+    import os
+
+    from gtopkssgd_tpu_torch import dist_trainer
+
+    cfg = TrainConfig(**dict(cfg_kwargs, device=str(device)))
+    out = dist_trainer.run(cfg, num_iters)
+    name = f"metrics.rank{dist.get_rank()}.jsonl"
+    with open(os.path.join(cfg.out_dir, name)) as fh:
+        records = [json.loads(line) for line in fh]
+    return {"rc": out["rc"], "step": out["step"], "rank": dist.get_rank(),
+            "records": records}
