@@ -61,7 +61,10 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    ``merge_tree_ref`` on the CPU over the gathered local sets; the final
    parameters bitwise equal on every rank; the gradient bytes a rank
    sends per step against ``comm_bytes_per_step`` at P = 4, the tree's
-   rounds against ``tree_rounds`` at P = 3. See ``dist_phase``.
+   rounds against ``tree_rounds`` at P = 3. See ``dist_phase``. The
+   ResNet-20 runs of 5, 6c, 9c and 9d (10 steps each, ``RESNET20_DIST``)
+   run here together, the runs of one P in one spawn: three spawns (P =
+   4, 3 and 6), where one spawn a P a phase would start eight.
 6. The flat path's options and the wire codecs, ResNet-20 at full width,
    batch 32, density 0.001 (k = 273 of N = 272,474):
    (a) P = 1 ``twostage`` with momentum correction, clip 5.0 and 3 dense
@@ -323,7 +326,25 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    One line an arm: the hindcast error, the P = 256 recommendation, the
    crossover P, the registry line's steps/s and goodput, the eviction's
    step and goodput fractions; the card's name and power limit.
-16. A ``kernels`` JSON line, then the last line
+16. The experiment grid and graftlint (``experiments_phase``), each in a
+   process of its own, started together:
+   (a) ``python -m gtopkssgd_tpu_torch.experiments.run
+       imagenet_resnet50_gtopk --nworkers 1 --batch-size 32 --num-iters
+       3 --eval-batches 1`` (the north-star entry: ResNet-50, bfloat16,
+       gtopk at density 0.001, ``auto`` top-k, which is ``twostage`` at
+       25,557,032 elements): exit 0; its ``done:`` line with finite
+       losses and val_loss, 3 steps, bfloat16, gtopk and density 0.001
+       (the registry's config reached the trainer); 3 stage-1 launches
+       and no other (the process's launch counters).
+   (b) ``cifar10_resnet20_gtopk_recommended --nworkers 2 --batch-size 32
+       --num-iters 2``: two ranks over gloo sharing the card, momentum
+       correction on; exit 0, finite losses.
+   (c) ``python -m gtopkssgd_tpu_torch.analysis gtopkssgd_tpu_torch
+       chip_smoke.py`` from the checkout's root: exit 0 against the
+       port's baseline, without importing torch.
+   One line: 16a's median step and throughput, the card's name and
+   power limit; then the phase's seconds.
+17. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1336,6 +1357,10 @@ BALANCED_DIST = ("resnet20",
                  tuple(("pallas", "gtopk", p, codec,
                         {"comm_plan": "balanced"})
                        for p in (4, 3) for codec in ("fp32", "fp8:32")), 10)
+# Every ResNet-20 P > 1 run of DIST_STEPS steps (phases 5, 6c, 9c, 9d):
+# one dist_phase call, so the runs of one P share one spawn.
+RESNET20_DIST = DIST_RUNS + CODEC_RUNS + HIER_DIST[1] + BALANCED_DIST[1]
+assert HIER_DIST[2] == BALANCED_DIST[2] == DIST_STEPS
 
 
 def layerwise_phase() -> dict:
@@ -2058,6 +2083,7 @@ def _wait(proc, what: str, timeout: float = 600.0, quiet=()):
     if proc.returncode not in (0, 45, 46, *quiet):
         print(f"{what}: rc {proc.returncode}\n{texts[1][-4000:]}",
               file=sys.stderr)
+    proc.texts = texts
     return proc.returncode, texts[0]
 
 
@@ -3251,6 +3277,90 @@ def planes_phase() -> dict:
     return total
 
 
+# Phase 16: the experiment grid through the port's runner, and graftlint.
+EXPERIMENT_STEPS = 3
+EXPERIMENT_RUNS = (
+    ("16a", ["imagenet_resnet50_gtopk", "--nworkers", "1", "--batch-size",
+             "32", "--num-iters", str(EXPERIMENT_STEPS), "--eval-batches",
+             "1"]),
+    ("16b", ["cifar10_resnet20_gtopk_recommended", "--nworkers", "2",
+             "--batch-size", "32", "--num-iters", "2", "--eval-batches",
+             "1"]),
+)
+LINT_CODE = ("import sys\n"
+             "from gtopkssgd_tpu_torch.analysis.__main__ import main\n"
+             "rc = main(sys.argv[1:])\n"
+             "assert 'torch' not in sys.modules, 'graftlint imported torch'\n"
+             "sys.exit(rc)\n")
+
+
+def experiment_main(argv) -> int:
+    """Phase 16a and 16b in a fresh process: the port's experiment runner
+    (``experiments.run.main(argv)``); prints this process's launches on a
+    tagged line; returns the runner's code."""
+    from gtopkssgd_tpu_torch.experiments import run as runner
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+
+    cuda_topk.reset_launches()
+    rc = runner.main(list(argv))
+    print(LAUNCHES_TAG + json.dumps(dict(cuda_topk.launches)))
+    return rc
+
+
+def _logged(err: str, tag: str, what: str) -> dict:
+    """The JSON of the runner's one `tag` log line."""
+    key = f"gtopkssgd_tpu_torch.experiments INFO: {tag}: "
+    lines = [line for line in err.splitlines() if key in line]
+    check(len(lines) == 1, f"{what}: {len(lines)} '{tag}:' lines")
+    return json.loads(lines[0].split(key, 1)[1])
+
+
+def experiments_phase() -> dict:
+    """Phase 16, on the card: the experiment grid and graftlint (see the
+    module docstring). Returns the launches of 16a."""
+    t0 = time.perf_counter()
+    code = ("import sys, chip_smoke as s; "
+            "sys.exit(s.experiment_main(sys.argv[1:]))")
+    procs = [(tag, _python(code, *argv)) for tag, argv in EXPERIMENT_RUNS]
+    lint = _python(LINT_CODE, "gtopkssgd_tpu_torch", "chip_smoke.py")
+    rc, out = _wait(lint, "16c graftlint", timeout=300.0)
+    check(rc == 0, f"16c: graftlint rc {rc}\n{out[-2000:]}")
+    print(f"16c: {out.strip().splitlines()[-1]}")
+    done = {}
+    total = {name: 0 for name in REPLACES}
+    for tag, proc in procs:
+        rc, out = _wait(proc, tag, timeout=600.0)
+        check(rc == 0, f"{tag}: experiments.run rc {rc}")
+        cfg = _logged(proc.texts[1], "config", tag)
+        done[tag] = d = _logged(proc.texts[1], "done", tag)
+        check(all(math.isfinite(x) for x in d["losses"])
+              and math.isfinite(d["val_loss"]),
+              f"{tag}: losses {d['losses']}, val_loss {d['val_loss']}")
+        if tag == "16a":
+            check(d["step"] == EXPERIMENT_STEPS and d["nworkers"] == 1
+                  and d["dtype"] == "bfloat16" and d["dnn"] == "resnet50"
+                  and d["compression"] == "gtopk" and d["density"] == 0.001
+                  and d["topk_method"] == "auto", f"16a: done {d}")
+            tagged = [line for line in out.splitlines()
+                      if line.startswith(LAUNCHES_TAG)]
+            got = json.loads(tagged[-1][len(LAUNCHES_TAG):])
+            check_launches(got, {"fused_stage1_candidates":
+                                 EXPERIMENT_STEPS}, "16a")
+            for name, n in got.items():
+                total[name] += n
+        else:
+            check(d["nworkers"] == 2 and d["dist_backend"] == "gloo"
+                  and cfg["momentum_correction"] is True,
+                  f"16b: config {cfg}, done {d}")
+    a = done["16a"]
+    print(f"16a imagenet_resnet50_gtopk: median step "
+          f"{a['median_step_s'] * 1e3:.1f} ms, {a['throughput']:.1f} "
+          f"samples/s, losses {a['losses']}; 16b losses "
+          f"{done['16b']['losses']}; {_card_line()}")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3264,7 +3374,14 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run "
               "from the root of a checkout", file=sys.stderr)
         return 3
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"{what}: {now - t_lap:.1f} s")
+        t_lap = now
+
     card = card_identity()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3291,47 +3408,56 @@ def main() -> int:
 
     reference_phase()
 
-    for name, count in dist_phase(DIST_RUNS).items():
+    lap("phases 1-4")
+    for name, count in dist_phase(RESNET20_DIST).items():
         total[name] += count
+    lap("phases 5, 6c, 9c and 9d")
     for name, count in correction_phase().items():
         total[name] += count
     codec_phase()
-    for name, count in dist_phase(CODEC_RUNS).items():
-        total[name] += count
+    lap("phases 6a-6b")
     for name, count in model_phase(ZOO_RUNS, ZOO_DIST).items():
         total[name] += count
     reference_steps(ZOO_REFERENCE)
+    lap("phase 7")
     for name, count in model_phase(RECURRENT_RUNS, RECURRENT_DIST).items():
         total[name] += count
     reference_steps(RECURRENT_REFERENCE)
+    lap("phase 8")
     for name, count in layerwise_phase().items():
         total[name] += count
     reference_steps(LAYERWISE_REFERENCE)
-    for dnn, runs, steps in (LAYERWISE_DIST, HIER_DIST, BALANCED_DIST):
-        for name, count in dist_phase(runs, dnn, steps).items():
-            total[name] += count
+    dnn, runs, steps = LAYERWISE_DIST
+    for name, count in dist_phase(runs, dnn, steps).items():
+        total[name] += count
     planner_phase()
+    lap("phases 9a, 9b and 9e")
     select_phase()
     for name, count in pipeline_phase().items():
         total[name] += count
     auto_phase()
     harness_phase()
+    lap("phase 10")
     native_phase()
     resume_phase()
     for phase in (bf16_phase, dispatch_phase):
         for name, count in phase().items():
             total[name] += count
+    lap("phase 11")
     for name, count in jpeg_phase().items():
         total[name] += count
     topk_phase()
     for name, count in resilience_phase().items():
         total[name] += count
+    lap("phase 12")
     for name, count in obs_phase().items():
         total[name] += count
     k2 = kernels[K2_N]["fused_stage1_candidates"]["ms"]
     for name, count in trace_phase(k2).items():
         total[name] += count
     for name, count in planes_phase().items():
+        total[name] += count
+    for name, count in experiments_phase().items():
         total[name] += count
 
     n0 = SIZES[0]

@@ -68,7 +68,7 @@ from gtopkssgd_tpu_torch.parallel.collectives import (
     dense_allreduce,
     sparse_allreduce,
 )
-from gtopkssgd_tpu_torch.parallel.dist import spawn
+from gtopkssgd_tpu_torch.parallel.dist import shared_backend, spawn
 
 # Peak FLOP/s of one card by (name, dtype, TF32 on) for the MFU: NVIDIA's
 # data sheet for the H100 SXM (float32 outside the tensor cores; TF32
@@ -341,18 +341,13 @@ def _breakdown(device, cfg: BenchConfig, mode: Optional[str],
     return res
 
 
-def _backend(cfg: BenchConfig, p: int) -> str:
-    if torch.device(cfg.device).type != "cuda":
-        return "gloo"
-    return "nccl" if torch.cuda.device_count() >= p else "gloo"
-
-
 def _run(fn, cfg: BenchConfig, mode: Optional[str], density: float):
     p = cfg.world()
     if p <= 1:
         return fn(cfg.device, cfg, mode, density)
-    return spawn(fn, p, cfg, mode, density, backend=_backend(cfg, p),
-                 device=cfg.device, timeout=1200)[0]
+    return spawn(fn, p, cfg, mode, density,
+                 backend=shared_backend(p, cfg.device), device=cfg.device,
+                 timeout=1200)[0]
 
 
 def measure_throughput(cfg: BenchConfig, mode: Optional[str],

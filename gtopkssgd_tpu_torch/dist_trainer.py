@@ -556,6 +556,7 @@ def run(cfg: TrainConfig, num_iters: Optional[int],
         "rc": EXIT_OK,
         "dnn": trainer.cfg.dnn,
         "compression": trainer.cfg.compression,
+        "density": trainer.cfg.density,
         "topk_method": trainer.cfg.topk_method,
         "wire_codec": trainer.cfg.wire_codec,
         "comm_plan": (None if trainer.plan_decision is None

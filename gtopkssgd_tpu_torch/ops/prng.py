@@ -35,6 +35,8 @@ def _word(v, device=None) -> torch.Tensor:
     """A uint32 word as an int64 tensor (an int, or a tensor of any
     integer dtype whose bits are the word: int32 reads as unsigned)."""
     if not isinstance(v, torch.Tensor):  # a fill, not a host copy
+        # v is a Python int on this branch: int() reads no tensor.
+        # graftlint: disable=host-sync-in-jit
         return torch.full((), int(v) & MASK, dtype=torch.int64,
                           device=device)
     return v.to(torch.int64) & MASK

@@ -332,6 +332,8 @@ def get_codec(spec: Union[None, str, WireCodec]) -> WireCodec:
     if base == "fp32":
         return WireCodec()
     try:
+        # blk is the spec string's block field, not a tensor.
+        # graftlint: disable=host-sync-in-jit
         block = int(blk) if blk else DEFAULT_BLOCK
     except ValueError:
         raise ValueError(f"bad codec block size in {spec!r}") from None

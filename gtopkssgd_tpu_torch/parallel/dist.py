@@ -16,6 +16,8 @@
   the group's threads) and returns the function run after ``fn``;
   ``forward_signals`` passes a SIGTERM or SIGINT the parent receives on
   to every rank process while they run.
+* ``shared_backend(world_size, device)``: NCCL where every rank has a
+  card of its own, else gloo.
 * ``init_from_env(backend, device)`` joins the group of a job launched
   from outside (``--multihost``): rank, world size and local rank from
   ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, the rendezvous from
@@ -43,6 +45,15 @@ BACKENDS = ("nccl", "gloo")
 
 def default_backend(device: str) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def shared_backend(world_size: int, device: str) -> str:
+    """NCCL with one rank a card where there are `world_size` cards, else
+    gloo (the ranks share the cards, or run on the CPU)."""
+    if torch.device(device).type == "cuda" and (
+            torch.cuda.device_count() >= world_size):
+        return "nccl"
+    return "gloo"
 
 
 def rank_device(rank: int, world_size: int, backend: str,

@@ -230,12 +230,12 @@ def profile_rank(device, cfg: TrainConfig,
 def profile_ranks(cfg: TrainConfig,
                   steps: int = STEPS) -> List[Dict[str, object]]:
     """Every rank's report of `cfg` at ``cfg.nworkers`` ranks."""
-    from gtopkssgd_tpu_torch.parallel.dist import spawn
+    from gtopkssgd_tpu_torch.parallel.dist import shared_backend, spawn
 
     p = cfg.nworkers
-    backend = "nccl" if torch.cuda.device_count() >= p else "gloo"
     return spawn(profile_rank, p, cfg, steps,
-                 backend=backend, device="cuda", timeout=1200)
+                 backend=shared_backend(p, "cuda"), device="cuda",
+                 timeout=1200)
 
 
 def profile_selection(method: str, grad: torch.Tensor,

@@ -132,14 +132,23 @@ def test_dense_trainer_steps_and_schedule():
 
 def test_port_never_imports_jax_or_the_jax_package():
     """Import the port and every one of its modules in a clean process:
-    neither jax, orbax nor gtopkssgd_tpu may be loaded."""
+    neither jax, orbax, gtopkssgd_tpu nor the root experiments package
+    may be loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import gtopkssgd_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 70, names\n"
-        "assert {'gtopkssgd_tpu_torch.benchmark',\n"
+        "assert len(names) >= 78, names\n"
+        "assert {'gtopkssgd_tpu_torch.analysis',\n"
+        "        'gtopkssgd_tpu_torch.analysis.__main__',\n"
+        "        'gtopkssgd_tpu_torch.analysis.callgraph',\n"
+        "        'gtopkssgd_tpu_torch.analysis.engine',\n"
+        "        'gtopkssgd_tpu_torch.analysis.reporters',\n"
+        "        'gtopkssgd_tpu_torch.analysis.rules',\n"
+        "        'gtopkssgd_tpu_torch.benchmark',\n"
+        "        'gtopkssgd_tpu_torch.experiments',\n"
+        "        'gtopkssgd_tpu_torch.experiments.run',\n"
         "        'gtopkssgd_tpu_torch.exit_codes',\n"
         "        'gtopkssgd_tpu_torch.obs.calib',\n"
         "        'gtopkssgd_tpu_torch.obs.counters',\n"
@@ -173,8 +182,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'orbax',\n"
-        "             'gtopkssgd_tpu') or m.startswith(('jax.', 'orbax.',\n"
-        "             'gtopkssgd_tpu.')))\n"
+        "             'gtopkssgd_tpu', 'experiments') or m.startswith((\n"
+        "             'jax.', 'orbax.', 'gtopkssgd_tpu.', 'experiments.')))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
