@@ -344,7 +344,30 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
        port's baseline, without importing torch.
    One line: 16a's median step and throughput, the card's name and
    power limit; then the phase's seconds.
-17. A ``kernels`` JSON line, then the last line
+17. The reference's convergence gate and the real CIFAR-10 pickles on
+   the card (``gate_phase``, ``real_cifar_phase``):
+   (a) The problem of ``tests/test_convergence.py`` (and its port,
+       ``tests/test_torch_convergence.py``) free on the card from the
+       port's seeded init: ResNet-20, batch 8 a rank on row `rank` of the
+       fixed draw of ``np.random.default_rng(1)`` (X f32[4, 8, 32, 32,
+       3], Y i32[4, 8]), 40 steps, lr 0.05, momentum 0.9, BatchNorm
+       statistics and the loss averaged over the ranks. In this process
+       at P = 1: dense, gTop-k ``twostage`` (the stage-1 kernel once a
+       step) and ``pallas`` (the residual-mode multisection kernel once a
+       step). At P = 4, inside phase 5's spawn of four ranks: dense,
+       gTop-k ``auto``, ``allgather``, ``gtopk_hier`` with slices of 2,
+       ``approx`` (stage-1, once a step) and ``pallas`` (abs mode, once a
+       step). The reference's thresholds: dense's last loss below 0.35 x
+       its first, every sparse arm's below 0.5 x its first and the gTop-k
+       family's below dense's first; the launch counts exactly. One
+       ``convergence`` JSON line an arm: the first, step-20 and last
+       loss, last/first, the launches, the arm's seconds.
+   (b) Two ResNet-20 ``twostage`` steps at batch 8 through the trainer on
+       ``tests/fixtures/cifar`` (``--data-dir``): the first batch to reach
+       the card bitwise the CPU loader's, finite losses, two stage-1
+       launches.
+   The phase's seconds (17a at P = 4 within phase 5's lap).
+18. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -883,19 +906,24 @@ def dist_rank(device, method: str, compression: str, nworkers: int,
                 params_agree=all(torch.equal(x, params[0]) for x in params))
 
 
-def dist_ranks(device, runs, steps: int, dnn: str) -> list:
+def dist_ranks(device, runs, steps: int, dnn: str, gates=()) -> list:
     """``dist_rank`` for each (method, compression, P, codec, extras) of
-    `runs`, one after the other in this rank's process."""
-    return [dist_rank(device, method, compression, p, steps, codec, dnn,
-                      extra) for method, compression, p, codec, extra in runs]
+    `runs`, then ``gate_arm`` for each arm of `gates`, one after the other
+    in this rank's process."""
+    return ([dist_rank(device, method, compression, p, steps, codec, dnn,
+                       extra) for method, compression, p, codec, extra in runs]
+            + [gate_arm(device, compression, method, extra, GATE_P)
+               for _, compression, method, extra in gates])
 
 
-def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS) -> dict:
+def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS,
+               gates=()) -> dict:
     """The P > 1 `runs` of `steps` steps of `dnn` (see the module
     docstring, phases 5, 6c, 7d and 9b-9d), each (method, compression, P,
     codec[, TrainConfig extras]); the runs of one P share one spawn of P
-    ranks. Returns the launches per kernel, summed over every rank of
-    every run."""
+    ranks, and the convergence gate's arms `gates` (phase 17a) ride the
+    spawn of ``GATE_P`` ranks. Returns the launches per kernel, summed
+    over every rank of every run."""
     import torch
 
     from gtopkssgd_tpu_torch.parallel.dist import spawn
@@ -906,16 +934,23 @@ def dist_phase(runs, dnn: str = "resnet20", steps: int = DIST_STEPS) -> dict:
     for method, compression, p, codec, *more in runs:
         by_p.setdefault(p, []).append(
             (method, compression, p, codec, more[0] if more else {}))
+    check(not gates or GATE_P in by_p,
+          f"the gate's arms need a spawn of {GATE_P} ranks")
     for p, group in by_p.items():
         backend = "nccl" if cards >= p else "gloo"
+        arms = gates if p == GATE_P else ()
         t0 = time.perf_counter()
-        results = spawn(dist_ranks, p, group, steps, dnn, backend=backend,
-                        device="cuda", timeout=600)
-        print(f"dist {dnn} P={p}: {len(group)} run(s) in one spawn of {p} "
-              f"ranks, spawn to join {time.perf_counter() - t0:.1f} s")
+        results = spawn(dist_ranks, p, group, steps, dnn, arms,
+                        backend=backend, device="cuda", timeout=600)
+        print(f"dist {dnn} P={p}: {len(group) + len(arms)} run(s) in one "
+              f"spawn of {p} ranks, spawn to join "
+              f"{time.perf_counter() - t0:.1f} s")
         for i, run in enumerate(group):
             _dist_checks(run, [results[r][i] for r in range(p)], dnn,
                          steps, backend, min(cards, p), total)
+        if arms:
+            gate_checks(p, arms, [results[r][len(group):]
+                                  for r in range(p)], total)
     return total
 
 
@@ -3361,6 +3396,201 @@ def experiments_phase() -> dict:
     return total
 
 
+# Phase 17: the reference's convergence gate (tests/test_convergence.py,
+# its port tests/test_torch_convergence.py) free on the card, from the
+# port's seeded init: ResNet-20, batch 8 a rank on row `rank` of a fixed
+# (GATE_P, 8) draw, 40 steps, lr 0.05, momentum 0.9; arms (name,
+# compression, method, TrainConfig extras), dense first.
+GATE_P, GATE_BATCH, GATE_STEPS, GATE_DENSITY = 4, 8, 40, 0.01
+GATE_P1 = (("dense", "dense", "exact", {}),
+           ("gtopk twostage", "gtopk", "twostage", {}),
+           ("gtopk pallas", "gtopk", "pallas", {}))
+GATE_DIST = (("dense", "dense", "exact", {}),
+             ("gtopk", "gtopk", "auto", {}),
+             ("allgather", "allgather", "auto", {}),
+             ("gtopk_hier", "gtopk_hier", "auto", {"hier_ici": 2}),
+             ("approx", "gtopk", "approx", {}),
+             ("pallas", "gtopk", "pallas", {}))
+GATE_DENSE_X, GATE_SPARSE_X = 0.35, 0.5  # last < x * first
+GATE_FAMILY = ("gtopk", "gtopk_hier")  # also: last < dense's first
+REAL_CIFAR = "tests/fixtures/cifar"  # phase 17b, from the checkout's root
+
+
+def gate_inputs():
+    """The gate's fixed batch, the reference's draw: X f32[GATE_P, 8, 32,
+    32, 3] standard normal, Y i32[GATE_P, 8] in [0, 10), from
+    ``np.random.default_rng(1)``."""
+    import numpy as np
+
+    npr = np.random.default_rng(1)
+    x = npr.standard_normal((GATE_P, GATE_BATCH, 32, 32, 3)).astype(
+        np.float32)
+    y = npr.integers(0, 10, (GATE_P, GATE_BATCH)).astype(np.int32)
+    return x, y
+
+
+def gate_arm(device, compression: str, method: str, extra: dict,
+             nworkers: int = 1) -> dict:
+    """One arm of the gate on this rank (rank 0 alone at `nworkers` 1):
+    a fresh trainer trains free on row `rank` of ``gate_inputs``, the
+    train-mode forward's mean cross-entropy, backward and the optimizer's
+    step, then (P > 1) one all-reduce averages the BatchNorm statistics
+    and the loss. Returns the losses (the mean over the ranks), the
+    launches of the steps (counters zeroed just before them) and the
+    arm's seconds, set-up included."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    rank = dist.get_rank() if nworkers > 1 else 0
+    x, y = gate_inputs()
+    xb = torch.from_numpy(x[rank]).to(device)
+    yb = torch.from_numpy(y[rank]).long().to(device)
+    dense = compression == "dense"
+    cfg = TrainConfig(
+        dnn="resnet20", batch_size=GATE_BATCH, lr=0.05, momentum=0.9,
+        weight_decay=0.0, compression=compression,
+        density=1.0 if dense else GATE_DENSITY, topk_method=method,
+        device=str(device), nworkers=nworkers, prefetch=0,
+        obs_counters=False, obs_goodput=False, **extra)
+    with Trainer(cfg) as t:
+        opt = t.optimizer
+        cuda_topk.reset_launches()
+        losses = []
+        for _ in range(GATE_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(t.model(xb), yb)
+            loss.backward()
+            opt.step()
+            loss = loss.detach()
+            if t.group is not None:
+                loss, = t._average_over_ranks([loss])
+            losses.append(float(loss))
+        launches = dict(cuda_topk.launches)
+    return dict(losses=losses, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
+def gate_launches(method: str, p: int) -> dict:
+    """The launches an arm's `GATE_STEPS` steps must count on each rank:
+    the stage-1 kernel once a step under ``twostage`` and ``approx``, the
+    multisection kernel once a step under ``pallas`` (residual mode at P =
+    1, abs mode above), nothing else."""
+    name = {"twostage": "fused_stage1_candidates",
+            "approx": "fused_stage1_candidates",
+            "pallas": ("multisection_tau_lo[residual]" if p == 1
+                       else "multisection_tau_lo[abs]")}.get(method)
+    return {name: GATE_STEPS} if name else {}
+
+
+def gate_checks(p: int, arms, ranks, total: dict) -> None:
+    """The gate's thresholds and launch counts for `arms` at P = `p`
+    (`ranks`: per rank, ``gate_arm``'s result for each arm), one
+    ``convergence`` line an arm; adds the launches to `total`."""
+    dense_first = None
+    for i, (name, compression, method, _) in enumerate(arms):
+        run = f"gate P={p} {name}"
+        got = [r[i] for r in ranks]
+        want = gate_launches(method, p)
+        for r, rec in enumerate(got):
+            check_launches(rec["launches"], want, f"{run} rank {r}")
+            for kernel in REPLACES:
+                total[kernel] += rec["launches"][kernel]
+        losses = got[0]["losses"]
+        check(all(math.isfinite(v) for v in losses),
+              f"{run}: non-finite loss {losses}")
+        first, last = losses[0], losses[-1]
+        if compression == "dense":
+            dense_first = first
+            check(last < GATE_DENSE_X * first,
+                  f"{run}: last loss {last} >= {GATE_DENSE_X} x {first}")
+        else:
+            check(last < GATE_SPARSE_X * first,
+                  f"{run}: last loss {last} >= {GATE_SPARSE_X} x {first}")
+        if compression in GATE_FAMILY:
+            check(dense_first is not None and last < dense_first,
+                  f"{run}: last loss {last} >= dense's first {dense_first}")
+        print("convergence " + json.dumps({
+            "P": p, "arm": name, "compression": compression,
+            "method": method, "steps": len(losses), "loss_first": first,
+            "loss_step20": losses[20], "loss_last": last,
+            "last_over_first": last / first,
+            "launches": {k: v for k, v in got[0]["launches"].items() if v},
+            "seconds": max(rec["seconds"] for rec in got)}))
+
+
+def real_cifar_phase() -> dict:
+    """Phase 17b: two ResNet-20 ``twostage`` steps at batch 8 on the real
+    CIFAR-10 pickles of ``REAL_CIFAR``; the first batch to reach the card
+    bitwise the CPU loader's, finite losses, two stage-1 launches."""
+    import os
+
+    import numpy as np
+
+    from gtopkssgd_tpu_torch.data import get_dataset
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.trainer import TrainConfig, Trainer
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            REAL_CIFAR)
+    check(os.path.isdir(os.path.join(data_dir, "cifar-10-batches-py")),
+          f"real cifar: no pickles under {data_dir}")
+    seen = []
+    with Trainer(TrainConfig(
+            dnn="resnet20", batch_size=8, compression="gtopk",
+            density=0.001, topk_method="twostage", data_dir=data_dir,
+            device="cuda")) as t:
+        check(not t.train_data.synthetic, "real cifar: loaded synthetic")
+        prepare = t._prepare
+
+        def first_batch(batch):
+            if not seen:
+                seen.append({key: (v.device.type, v.cpu().numpy())
+                             for key, v in batch.items()})
+            return prepare(batch)
+
+        t._prepare = first_batch
+        cuda_topk.reset_launches()
+        losses = t.train(2)["losses"]
+        launches = dict(cuda_topk.launches)
+        seed = t.cfg.seed
+    want = next(iter(get_dataset("cifar10", split="train", batch_size=8,
+                                 data_dir=data_dir, seed=seed).epoch(0)))
+    got = seen[0]
+    check(set(got) == set(want), f"real cifar: batch keys {set(got)}")
+    for key, (where, v) in got.items():
+        check(where == "cuda", f"real cifar: {key} on {where}")
+        check(v.dtype == want[key].dtype and np.array_equal(v, want[key]),
+              f"real cifar: the card's first {key} batch differs from the "
+              "CPU loader's")
+    check(all(math.isfinite(v) for v in losses),
+          f"real cifar: non-finite loss {losses}")
+    check_launches(launches, {"fused_stage1_candidates": 2},
+                   "real cifar twostage, 2 steps")
+    print(f"real cifar: {len(t.train_data.images)} train images from "
+          f"{REAL_CIFAR}, the first batch on the card bitwise the CPU "
+          f"loader's (image {got['image'][1].shape} "
+          f"{got['image'][1].dtype}, label {got['label'][1].tolist()}), "
+          f"losses {losses}, launches {launches}")
+    return launches
+
+
+def gate_phase() -> dict:
+    """Phase 17 in this process: 17a's arms at P = 1 (the P = 4 arms ride
+    ``dist_phase``'s spawn), then 17b. Returns the launches per kernel."""
+    total = {name: 0 for name in REPLACES}
+    results = [gate_arm("cuda", compression, method, extra)
+               for _, compression, method, extra in GATE_P1]
+    gate_checks(1, GATE_P1, [results], total)
+    for name, count in real_cifar_phase().items():
+        total[name] += count
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3409,9 +3639,9 @@ def main() -> int:
     reference_phase()
 
     lap("phases 1-4")
-    for name, count in dist_phase(RESNET20_DIST).items():
+    for name, count in dist_phase(RESNET20_DIST, gates=GATE_DIST).items():
         total[name] += count
-    lap("phases 5, 6c, 9c and 9d")
+    lap("phases 5, 6c, 9c, 9d and 17a at P = 4")
     for name, count in correction_phase().items():
         total[name] += count
     codec_phase()
@@ -3459,6 +3689,10 @@ def main() -> int:
         total[name] += count
     for name, count in experiments_phase().items():
         total[name] += count
+    lap("phases 13-16")
+    for name, count in gate_phase().items():
+        total[name] += count
+    lap("phase 17 (17a at P = 1, 17b)")
 
     n0 = SIZES[0]
     line = []

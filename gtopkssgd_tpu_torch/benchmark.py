@@ -62,7 +62,7 @@ from gtopkssgd_tpu_torch.models import get_model
 from gtopkssgd_tpu_torch.modes import DENSE_MODES, HIER_MODES, LAYERWISE_MODES
 from gtopkssgd_tpu_torch.obs.memwatch import step_flops
 from gtopkssgd_tpu_torch.ops import scatter_add_dense
-from gtopkssgd_tpu_torch.optimizer import GTopKSGD
+from gtopkssgd_tpu_torch.optimizer import GTopKSGD, wire_k
 from gtopkssgd_tpu_torch.parallel.collectives import (
     comm_bytes_per_step,
     dense_allreduce,
@@ -222,10 +222,8 @@ def _throughput(device, cfg: BenchConfig, mode: Optional[str],
         bench.close()
     n = bench.layout.n
     opt = bench.opt
-    if mode in LAYERWISE_MODES:
-        k = opt.bucket_plan.k_total if opt.bucket_plan else sum(opt.leaf_ks)
-    else:
-        k = opt.compressor.k(n)
+    k = (opt.bucket_plan.k_total if opt.bucket_plan
+         else wire_k(mode, density, n, bench.layout.sizes))
     peak = _peak_flops(bench.device, cfg.dtype)
     achieved = flops / sec if flops else None
     buckets = opt.bucket_plan.pairs() if opt.bucket_plan else ((n, k),)
@@ -272,7 +270,8 @@ def _breakdown(device, cfg: BenchConfig, mode: Optional[str],
     bplan = opt.bucket_plan
     concat = mode in LAYERWISE_MODES and bplan is None
     if mode in LAYERWISE_MODES:
-        res.update(k_total=bplan.k_total if bplan else sum(opt.leaf_ks),
+        res.update(k_total=(bplan.k_total if bplan
+                            else wire_k(mode, density, n, lay.sizes)),
                    n=n)
     try:
         res["forward_backward"] = _timeit(bench.forward_backward, bench,

@@ -35,6 +35,10 @@ def get_dataset(name: str, *, split: str = "train", batch_size: int = 32,
                nworkers=nworkers, data_dir=data_dir, seed=seed, **kwargs)
 
 
+def available_datasets():
+    return sorted(_DATASETS)
+
+
 __all__ = ["AN4Dataset", "CIFAR10Dataset", "DataPartitioner",
-           "ImageNetDataset", "PTBDataset", "get_dataset",
-           "partition_indices"]
+           "ImageNetDataset", "PTBDataset", "available_datasets",
+           "get_dataset", "partition_indices"]

@@ -86,7 +86,11 @@ def get_model(dnn: str, space_to_depth: bool = False,
     return spec.build(space_to_depth=True, dtype=dtype), spec
 
 
+def available_models():
+    return sorted(_ZOO)
+
+
 __all__ = ["AlexNet", "BasicBlock", "BatchNorm", "BottleneckBlock", "DTYPES",
            "DeepSpeechAN4", "Dropout", "ModelSpec", "PTBLSTM",
-           "ResNetCIFAR", "ResNetImageNet", "VGG16", "get_model",
-           "model_spec", "seed_dropout"]
+           "ResNetCIFAR", "ResNetImageNet", "VGG16", "available_models",
+           "get_model", "model_spec", "seed_dropout"]

@@ -252,6 +252,39 @@ def _add_at(x: torch.Tensor, pos: torch.Tensor,
     return out[:n]
 
 
+def wire_k(compression: Optional[str], density: float, n: int,
+           leaf_sizes: Optional[Sequence[int]] = None) -> int:
+    """Elements a rank communicates a step: n for the dense modes, k =
+    ceil(rho * n) for the flat sparse modes, and under ``gtopk_layerwise``
+    the concatenation of the per-leaf selections, sum_l ceil(rho * n_l),
+    which the per-leaf ceil can push several times above ceil(rho * n) at
+    low densities. Layer-wise therefore needs ``leaf_sizes`` and raises
+    without them. A bucketed layer-wise wire ships its buckets' k
+    instead (``parallel.bucketing.BucketPlan.k_total``)."""
+    if compression in DENSE_MODES:
+        return n
+    if compression in LAYERWISE_MODES:
+        if not leaf_sizes:
+            raise ValueError(
+                "wire_k/effective_density for layerwise modes needs "
+                "leaf_sizes: per-leaf ceil rounding makes the communicated "
+                "set sum(ceil(rho*n_l)), not ceil(rho*N)")
+        return sum(k_for_density(int(s), density) for s in leaf_sizes)
+    return k_for_density(n, density)
+
+
+def effective_density(compression: Optional[str], density: float,
+                      leaf_sizes: Optional[Sequence[int]] = None) -> float:
+    """The density a rank communicates, ``wire_k / N`` (1.0 for the dense
+    modes); layer-wise needs ``leaf_sizes``, as in ``wire_k``."""
+    if compression in DENSE_MODES:
+        return 1.0
+    if compression in LAYERWISE_MODES:
+        n = sum(int(s) for s in leaf_sizes) if leaf_sizes else 0
+        return wire_k(compression, density, n, leaf_sizes) / n
+    return density
+
+
 class GTopKSGD(torch.optim.SGD):
     """SGD (momentum, weight decay, Nesterov) on the gTop-k-compressed
     gradient; the options of the JAX package's ``gtopk_sgd``.

@@ -11,6 +11,7 @@ import functools
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from gtopkssgd_tpu_torch import data, models
 from gtopkssgd_tpu_torch.convert import load_jax_state
@@ -419,3 +420,39 @@ def eviction_run(device, cfg_kwargs, num_iters):
         records = [json.loads(line) for line in fh]
     return {"rc": out["rc"], "step": out["step"], "rank": dist.get_rank(),
             "records": records}
+
+
+def convergence_arms(device, state, x, y, arms):
+    """The convergence gate's problem on this rank, for each {name:
+    (TrainConfig kwargs, steps)} of `arms`, one after another in one
+    world: a ResNet-20 trainer loaded with `state` (flax's params and
+    batch_stats as numpy trees, through ``load_jax_state``; no momentum,
+    a zero residual) trains free on row `rank` of the fixed batch (x
+    f32[P, B, 32, 32, 3], y i32[P, B]), as the reference's gate does: the
+    mean cross-entropy of the train-mode forward, backward, the
+    optimizer's step, then one all-reduce averages the BatchNorm
+    statistics and the loss over the ranks. The losses by arm name, each
+    the mean over the ranks at that step."""
+    rank, p = dist.get_rank(), dist.get_world_size()
+    xb = torch.from_numpy(x[rank]).to(device)
+    yb = torch.from_numpy(y[rank]).long().to(device)
+    out = {}
+    for name, (cfg_kwargs, steps) in arms.items():
+        cfg = TrainConfig(dnn="resnet20", device=str(device), nworkers=p,
+                          prefetch=0, obs_counters=False, obs_goodput=False,
+                          **cfg_kwargs)
+        with Trainer(cfg) as t:
+            opt = t.optimizer
+            load_jax_state(t, **state, momentum=None,
+                           residual=opt.state["residual"].cpu().numpy(),
+                           count=0)
+            losses = []
+            for _ in range(steps):
+                opt.zero_grad(set_to_none=True)
+                loss = F.cross_entropy(t.model(xb), yb)
+                loss.backward()
+                opt.step()
+                mean, = t._average_over_ranks([loss.detach()])
+                losses.append(float(mean))
+        out[name] = losses
+    return out

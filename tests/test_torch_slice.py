@@ -131,9 +131,9 @@ def test_dense_trainer_steps_and_schedule():
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    """Import the port and every one of its modules in a clean process:
-    neither jax, orbax, gtopkssgd_tpu nor the root experiments package
-    may be loaded."""
+    """Import the port and every one of its modules, then the tests' rank
+    programs, in a clean process: neither jax, orbax, gtopkssgd_tpu nor
+    the root experiments package may be loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import gtopkssgd_tpu_torch as pkg\n"
@@ -181,6 +181,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "        'gtopkssgd_tpu_torch.utils.prefetch'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_rank_programs\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'orbax',\n"
         "             'gtopkssgd_tpu', 'experiments') or m.startswith((\n"
         "             'jax.', 'orbax.', 'gtopkssgd_tpu.', 'experiments.')))\n"
