@@ -8,7 +8,9 @@ rank runs live in its own train loop (item 7c, first half):
                  age; the exact-top-k recall audit), computed inside the
                  optimizer's step and read once a dispatch.
   tracing.py     ``Tracer`` spans: host timing and a profiler/NVTX range
-                 under one name, flushed as "spans" records.
+                 under one name, flushed as "spans" records; device-clock
+                 marks that split the card's idle between dispatches
+                 into the host's staging and its tail.
   watchdog.py    ``StallWatchdog``: a monitor thread that exits 43 with a
                  "stall" record when a dispatch makes no progress.
   events.py      ``AnomalyMonitor``: rules over the loss, the counters and

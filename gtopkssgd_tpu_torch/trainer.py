@@ -45,7 +45,16 @@ copy to the device), "dispatch" holding each step's "forward_backward"
 and "optimizer" (compression, the gradient exchange and SGD), and
 "obs_read" (the one read of the counters); ``profile_step`` reads the
 ranges by name, and the span means go out as a "spans" record every
-``log_interval`` steps.
+``log_interval`` steps. On the card the tracer also marks the device's
+clock three times a dispatch: "data" as staging opens, "first" just
+before the first host-to-device copy, "end" after the last device work
+before the read. At the read, after its sync, the gap between the
+previous dispatch's "end" and this one's "first" is split into the
+device's idle while the host staged ("data") and while it finished the
+previous dispatch and returned to the caller ("tail"), seconds a step,
+into the record ``obs.tracing.idle`` (the last 512 dispatches, emptied
+when a ``Trainer`` is built) and the "spans" keys ``device_idle/data``
+and ``device_idle/tail``.
 
 The lifecycle and the host path (the JAX trainer's):
 
@@ -190,6 +199,7 @@ from gtopkssgd_tpu_torch.obs import (
     registry,
     report,
     trace_attr,
+    tracing,
 )
 from gtopkssgd_tpu_torch.obs.calib import CommCalibrator
 from gtopkssgd_tpu_torch.obs.events import (
@@ -608,7 +618,9 @@ class Trainer:
                          if cfg.obs_timeline and self.rank == 0 else None)
         self.tracer = Tracer(
             metrics=self.metrics,
-            sink=self.timeline.span_sink if self.timeline else None)
+            sink=self.timeline.span_sink if self.timeline else None,
+            device=self.device)
+        tracing.idle.clear()
         self.monitor = (AnomalyMonitor(
             metrics=self.metrics,
             rho=cfg.density if cfg.compression not in DENSE_MODES else None,
@@ -1028,12 +1040,17 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """The host arrays on the device as they are; on the card from
         pinned memory, without blocking (the caching host allocator
-        keeps a pinned block until its copy has run)."""
+        keeps a pinned block until its copy has run). The device-clock
+        mark "first" goes just before the first copy: in ``_stage``, the
+        dispatch's first device work."""
         out = {}
         for key, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+                t = t.pin_memory()
+                if not out:
+                    self.tracer.mark("first")
+                t = t.to(self.device, non_blocking=True)
             out[key] = t
         return out
 
@@ -1129,6 +1146,7 @@ class Trainer:
         stacked per field and copied to the device in one transfer each;
         returns per step its list of micro-batches (views)."""
         m = self.cfg.nsteps_update
+        self.tracer.mark("data")
         with self.tracer.span("data"):
             hosts = [self._next_host(k) for _ in range(k * m)]
             host = {key: np.stack([h[key] for h in hosts]) if len(hosts) > 1
@@ -1343,17 +1361,24 @@ class Trainer:
                            and step % cfg.obs_interval < k)
                 # One device-to-host copy a dispatch: the steps' scalars
                 # and, on an obs step, the counters.
+                # The device-clock mark "end" follows the dispatch's last
+                # device work before the read.
                 vals = torch.stack([torch.stack(o) for o in outs])
                 if obs_now:
                     with self.tracer.span("obs_read"):
-                        host = torch.cat([vals.reshape(-1),
-                                          opt.state["telemetry"]]).cpu()
+                        flat = torch.cat([vals.reshape(-1),
+                                          opt.state["telemetry"]])
+                        self.tracer.mark("end")
+                        host = flat.cpu()
                         scalars, max_age = self._log_obs(
                             step, host[k * nm:].tolist(), nf)
                 else:
+                    self.tracer.mark("end")
                     host = vals.reshape(-1).cpu()
                 if cuda:
                     torch.cuda.synchronize(self.device)
+                # The marks are complete: the gap before this dispatch.
+                self.tracer.idle_split(k)
                 dt = (time.perf_counter() - t0) / k
                 step_times.extend([dt] * k)
                 for name, col in zip(self._metric_names,

@@ -49,7 +49,6 @@ KINDS = frozenset({
     "obs",       # on-device counters (obs/counters.py)
     "layers",    # per-layer counters, one record a layer an obs step
     "spans",     # Tracer window means (obs/tracing.py flush)
-    "span",      # one Tracer span (record_each=True)
     "event",     # an anomaly event (obs/events.py)
     "stall",     # the stall watchdog's diagnostic (obs/watchdog.py)
     "attr",      # a captured dispatch's T_compute/T_select/T_comm split

@@ -365,8 +365,8 @@ def test_span_nesting_is_per_thread():
 
 def test_span_flush_logs_one_record_and_resets(tmp_path):
     with MetricsLogger(str(tmp_path)) as metrics:
-        tr = Tracer(metrics=metrics, record_each=True)
-        with tr.span("io", tag="x"):
+        tr = Tracer(metrics=metrics)
+        with tr.span("io"):
             pass
         summary = tr.flush(step=7)
         assert "io" in summary
@@ -375,8 +375,7 @@ def test_span_flush_logs_one_record_and_resets(tmp_path):
     recs = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
     spans = [r for r in recs if r["kind"] == "spans"]
     assert len(spans) == 1 and spans[0]["step"] == 7 and "io" in spans[0]
-    (one,) = [r for r in recs if r["kind"] == "span"]
-    assert one["path"] == "io" and one["tag"] == "x"
+    assert [r["kind"] for r in recs] == ["spans"]
 
 
 def test_span_opens_a_profiler_range_under_its_own_name():
@@ -398,13 +397,9 @@ def test_disabled_tracer_and_decorator():
         pass
     assert tr.stats.summary() == {}
     tr2 = Tracer()
-
-    @tr2.annotate()
-    def compute():
-        return 41 + 1
-
-    assert compute() == 42
-    assert "compute" in tr2.stats.summary()
+    with tr2.span("x"):
+        pass
+    assert set(tr2.stats.summary()) == {"x"}
 
 
 # ------------------------------------------------------------ watchdog
@@ -610,7 +605,7 @@ def test_monitor_halt_writes_the_record_first(tmp_path):
 def test_metrics_kinds_hold_the_obs_kinds():
     from gtopkssgd_tpu.utils.metrics import KINDS as JAX_KINDS
 
-    obs = {"obs", "layers", "spans", "span", "event", "stall"}
+    obs = {"obs", "layers", "spans", "event", "stall"}
     assert obs <= KINDS and obs <= JAX_KINDS
     assert KINDS <= JAX_KINDS
 
