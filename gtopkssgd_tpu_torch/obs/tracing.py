@@ -38,6 +38,13 @@ split goes, in seconds a step, to the module's bounded record ``idle``
 built) and to the window that ``flush()`` ships as the "spans" keys
 ``device_idle/data`` and ``device_idle/tail``. Device work between two
 dispatches (an evaluation) counts in the next gap's tail.
+
+Staging counts. The trainer notes each dispatch its prefetcher grouped
+(``note_stage``): its steps, whether it came staged in a ring slot
+(``utils.staging``) and the seconds the main thread waited on the
+prefetch worker for it. Where any dispatch of the window came from the
+ring, ``flush()`` ships the share that did (``staging/ring_share``) and
+the wait in seconds a step (``staging/wait``).
 """
 
 from __future__ import annotations
@@ -118,6 +125,7 @@ class Tracer:
         self._marks: Dict[str, torch.cuda.Event] = {}
         self._end: Optional[torch.cuda.Event] = None
         self._idle: List[Tuple[int, float, float]] = []  # since flush()
+        self._stage: List[Tuple[int, bool, float]] = []  # since flush()
 
     def _stack(self):
         stack = getattr(self._local, "stack", None)
@@ -160,6 +168,11 @@ class Tracer:
             self._idle.append(row)
         self._pool.extend(ev for ev in [prev] + marks if ev is not None)
 
+    def note_stage(self, steps: int, ring: bool, wait_s: float) -> None:
+        """A grouped dispatch of `steps` steps, staged from the ring or
+        not, for which the main thread waited `wait_s` seconds."""
+        self._stage.append((steps, ring, wait_s))
+
     @contextmanager
     def span(self, name: str, *, sync: bool = False):
         """Time a scope under ``name``, nested under the open spans.
@@ -193,20 +206,27 @@ class Tracer:
                     self.sink(path, t0, dur)
 
     def flush(self, step: Optional[int] = None) -> Dict[str, float]:
-        """Ship the accumulated mean seconds a path, and the window's
-        device idle a step ("device_idle/data", "device_idle/tail", where
-        ``idle_split`` recorded any), as ONE "spans" record and reset, so
-        each logging window reports its own means. Returns the summary
-        logged."""
+        """Ship the accumulated mean seconds a path, the window's device
+        idle a step ("device_idle/data", "device_idle/tail", where
+        ``idle_split`` recorded any) and its staging counts
+        ("staging/ring_share", "staging/wait", where a dispatch came from
+        the ring), as ONE "spans" record and reset, so each logging window
+        reports its own means. Returns the summary logged."""
         summary = self.stats.summary()
         if self._idle:
             steps = sum(r[0] for r in self._idle)
             for i, key in ((1, "device_idle/data"), (2, "device_idle/tail")):
                 summary[key] = sum(r[0] * r[i] for r in self._idle) / steps
+        if any(r[1] for r in self._stage):
+            summary["staging/ring_share"] = (
+                sum(r[1] for r in self._stage) / len(self._stage))
+            summary["staging/wait"] = (sum(r[2] for r in self._stage)
+                                       / sum(r[0] for r in self._stage))
         if summary and self.metrics is not None:
             rec = {} if step is None else {"step": step}
             rec.update({path: round(sec, 6) for path, sec in summary.items()})
             self.metrics.log("spans", **rec)
         self.stats.reset()
         self._idle.clear()
+        self._stage.clear()
         return summary

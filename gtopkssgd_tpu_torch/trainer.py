@@ -40,21 +40,24 @@ record as one ``plan {...}`` line: the buckets' resolved execution order
 
 A dispatch is ``obs.tracing.Tracer`` spans, each a profiler range
 (``torch.profiler.record_function``, and NVTX on the card) under its own
-name and a host timing under its nested path: "data" (host batches +
-copy to the device), "dispatch" holding each step's "forward_backward"
-and "optimizer" (compression, the gradient exchange and SGD), and
-"obs_read" (the one read of the counters); ``profile_step`` reads the
-ranges by name, and the span means go out as a "spans" record every
-``log_interval`` steps. On the card the tracer also marks the device's
-clock three times a dispatch: "data" as staging opens, "first" just
-before the first host-to-device copy, "end" after the last device work
-before the read. At the read, after its sync, the gap between the
-previous dispatch's "end" and this one's "first" is split into the
-device's idle while the host staged ("data") and while it finished the
-previous dispatch and returned to the caller ("tail"), seconds a step,
-into the record ``obs.tracing.idle`` (the last 512 dispatches, emptied
-when a ``Trainer`` is built) and the "spans" keys ``device_idle/data``
-and ``device_idle/tail``.
+name and a host timing under its nested path: "data" (the host batches
+and the issue of their copy to the device), "dispatch" holding each
+step's "forward_backward" and "optimizer" (compression, the gradient
+exchange and SGD), and "obs_read" (the one read of the counters);
+``profile_step`` reads the ranges by name, and the span means go out as
+a "spans" record every ``log_interval`` steps. On the card the tracer
+also marks the device's clock three times a dispatch: "data" as staging
+opens, "first" just before the first host-to-device copy, "end" after
+the last device work before the read. At the read, after its sync, the
+gap between the previous dispatch's "end" and this one's "first" is
+split into the device's idle while the host staged ("data") and while it
+finished the previous dispatch and returned to the caller ("tail"),
+seconds a step, into the record ``obs.tracing.idle`` (the last 512
+dispatches, emptied when a ``Trainer`` is built) and the "spans" keys
+``device_idle/data`` and ``device_idle/tail``. Where a dispatch came
+staged from the ring (below), the "spans" record also carries
+``staging/ring_share`` and ``staging/wait``, and ``stage_stats`` keeps
+the same counts since construction.
 
 The lifecycle and the host path (the JAX trainer's):
 
@@ -63,9 +66,17 @@ The lifecycle and the host path (the JAX trainer's):
   selection, the wire and the optimizer stay float32.
 * Host batches come from the stream ``_set_iters(epoch, skip_steps)``
   builds (epoch by epoch, fast-forwarded to a restored step mid-epoch
-  too), assembled ``prefetch`` batches ahead on a background thread
-  (``utils.prefetch``; numpy only there), and cross to the card from
-  pinned memory without blocking.
+  too). With ``prefetch`` > 0 a background thread (``utils.prefetch``)
+  takes one dispatch's K x ``nsteps_update`` micro-batches at a time, in
+  order, at least ``prefetch`` ahead. On the card, with no injector, it
+  copies them once into a reused ring of pinned host buffers, one slot a
+  dispatch (``utils.staging``), and the main thread only issues the
+  slot's copies to the card without blocking, and hands it back with an
+  event the thread waits for before it writes the slot again. It falls
+  back to the plain micro-batches, which the main thread stacks and
+  pins, where the fields change shape or dtype (AN4's lengths), with an
+  injector (its reshape acts at the consumer), on the CPU and with
+  ``prefetch=0``: the same stream either way.
 * ``out_dir``: JSON-lines metrics (``utils.metrics``; one file a rank at
   P > 1), the run manifest first (``utils.manifest``: the config hash,
   torch and CUDA, the card and its power limit, the backend, the world
@@ -77,7 +88,8 @@ The lifecycle and the host path (the JAX trainer's):
   it against the config, and fast-forwards the data stream; ``fit()``
   resumes from the restored epoch and saves after each epoch.
 * ``steps_per_dispatch`` K > 1: each dispatch stages K steps' host
-  batches, copies them to the card in one transfer per field, runs the K
+  batches (grouped and copied into a ring slot on the prefetch thread,
+  above), copies them to the card in one transfer per field, runs the K
   steps and syncs once; ``train(n)`` needs n to be a multiple of K, and
   the steps are those of K = 1, step for step. How a dispatch runs the
   steps (``dispatch``) is decided at construction by a stated rule
@@ -162,6 +174,7 @@ Resilience (``resilience/``), the JAX trainer's:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -169,6 +182,7 @@ import logging
 import math
 import shutil
 import tempfile
+import threading
 import time
 import weakref
 from typing import Dict, List, Optional
@@ -240,6 +254,11 @@ from gtopkssgd_tpu_torch.utils.checkpoint import (
 from gtopkssgd_tpu_torch.utils.manifest import config_hash, run_manifest
 from gtopkssgd_tpu_torch.utils.metrics import MetricsLogger
 from gtopkssgd_tpu_torch.utils.prefetch import Prefetcher
+from gtopkssgd_tpu_torch.utils.staging import (
+    Slot,
+    StagingRing,
+    group_producer,
+)
 
 _WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD),
                "imagenet": (IMAGENET_MEAN, IMAGENET_STD)}
@@ -724,6 +743,23 @@ class Trainer:
                 f"{cfg.out_dir}/ckpt",
                 config_hash=config_hash(self._identity(**nulled)),
                 rank=self.rank, group=self.group, logger=self.logger)
+        # Staging: a prefetcher hands over one dispatch's micro-batches at
+        # a time (``_group``), queued ``_group_depth`` dispatches ahead:
+        # the micro-batches it keeps ready, as before, rounded up to
+        # whole dispatches. On the card, with no injector (whose reshape
+        # changes shapes at the consumer), they arrive stacked in a slot
+        # of the ring, which outlives each prefetcher; one slot more than
+        # the queue holds is the one the worker fills.
+        self._group = cfg.steps_per_dispatch * cfg.nsteps_update
+        self._group_depth = -(-max(cfg.prefetch, self._group) // self._group)
+        self._ring = (StagingRing(self._group_depth + 1, self.device)
+                      if self.device.type == "cuda" and cfg.prefetch > 0
+                      and self.injector is None else None)
+        #: Dispatches staged, those from the ring, and the seconds the
+        #: main thread waited on the prefetch worker for them.
+        self.stage_stats = {"dispatches": 0, "ring": 0, "wait_s": 0.0}
+        #: Micro-batches of a group that ``_next_host`` took apart.
+        self._pending: collections.deque = collections.deque()
         self._prefetch = None
         self._set_iters(start_epoch=0)
         if cfg.resume:
@@ -922,6 +958,7 @@ class Trainer:
         function of the seed, the rank, e and b, so the stream is the one
         an uninterrupted run reads."""
         self._close_prefetch()
+        self._pending.clear()
         data = self.train_data
 
         def stream():
@@ -935,20 +972,21 @@ class Trainer:
             next(it)
         self._iter = it
         if self.cfg.prefetch > 0:
-            # The closure holds the iterator, not the trainer. A dispatch
-            # takes K steps' batches at once: the thread keeps at least
-            # that many ready, assembling the next dispatch's while the
-            # card runs this one.
-            cfg = self.cfg
-            depth = max(cfg.prefetch, cfg.steps_per_dispatch
-                        * cfg.nsteps_update)
-            self._prefetch = Prefetcher(lambda: next(it), depth=depth)
-            self._finalizer = weakref.finalize(self, self._prefetch.close)
+            # The closures hold the iterator and the ring, not the
+            # trainer. The thread assembles the next dispatch while the
+            # card runs this one; the stop flag ends its wait on a slot.
+            stop = threading.Event()
+            if self._ring is not None:
+                self._ring.reset()
+            self._prefetch = Prefetcher(
+                group_producer(it.__next__, self._group, self._ring, stop),
+                depth=self._group_depth)
+            self._finalizer = weakref.finalize(self, _stop_prefetch,
+                                               self._prefetch, stop)
 
     def _close_prefetch(self) -> None:
         if getattr(self, "_prefetch", None) is not None:
-            self._finalizer.detach()
-            self._prefetch.close()
+            self._finalizer()
             self._prefetch = None
 
     def close(self) -> None:
@@ -1017,24 +1055,37 @@ class Trainer:
         except (OSError, ValueError) as e:
             self.logger.warning("registry append failed: %s", e)
 
-    def _next_host(self, k: int = 1) -> Dict[str, np.ndarray]:
-        """The next host micro-batch of the stream. With an injector, the
-        fetch for the dispatch of steps (step, step + k] runs under
-        ``retry_call``, which absorbs a loader fault (injected or not)."""
-        if self._iter is None:
-            raise RuntimeError("Trainer is closed; build a new Trainer "
-                               "(restore() reopens it from a checkpoint)")
-
+    def _fetch(self, k: int, source):
+        """``next(source)``. With an injector, the fetch for the dispatch
+        of steps (step, step + k] runs under ``retry_call``, which absorbs
+        a loader fault (injected or not)."""
         def fetch():
             if self.injector is not None:
                 self.injector.check_loader(self.step, self.step + k)
-            return next(self._prefetch) if self._prefetch is not None \
-                else next(self._iter)
+            return next(source)
 
         if self.injector is None:
             return fetch()
         return retry_call(fetch, retries=2, delay=0.05, logger=self.logger,
                           desc="host batch fetch")
+
+    def _next_host(self, k: int = 1) -> Dict[str, np.ndarray]:
+        """The next host micro-batch of the stream: from the prefetcher,
+        one of its group taken apart (a slot's rows copied out, the slot
+        handed back at once), else from the stream itself."""
+        if self._iter is None:
+            raise RuntimeError("Trainer is closed; build a new Trainer "
+                               "(restore() reopens it from a checkpoint)")
+        if self._prefetch is None:
+            return self._fetch(k, self._iter)
+        if not self._pending:
+            group = self._fetch(k, self._prefetch)
+            if isinstance(group, Slot):
+                hosts = group.hosts()
+                self._ring.release(group)
+                group = hosts
+            self._pending.extend(group)
+        return self._pending.popleft()
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
@@ -1144,19 +1195,60 @@ class Trainer:
     def _stage(self, k: int) -> List[List[Dict[str, torch.Tensor]]]:
         """The next `k` steps' micro-batches, staged: the host batches
         stacked per field and copied to the device in one transfer each;
-        returns per step its list of micro-batches (views)."""
+        returns per step its list of micro-batches (views). A dispatch
+        the prefetcher grouped comes as one group: a ring slot the worker
+        filled, whose copies go out from it as they are, or the plain
+        micro-batches, stacked here."""
         m = self.cfg.nsteps_update
         self.tracer.mark("data")
         with self.tracer.span("data"):
-            hosts = [self._next_host(k) for _ in range(k * m)]
-            host = {key: np.stack([h[key] for h in hosts]) if len(hosts) > 1
-                    else hosts[0][key][None] for key in hosts[0]}
-            if self.injector is not None:
-                host = self.injector.reshape_batch(
-                    host, self.step, self.step + k, axis=1)
-            stacked = self._to_device(host)
+            grouped = (self._prefetch is not None and not self._pending
+                       and k * m == self._group)
+            if grouped:
+                t0 = time.perf_counter()
+                group = self._fetch(k, self._prefetch)
+                self._note_stage(k, isinstance(group, Slot),
+                                 time.perf_counter() - t0)
+            else:
+                group = [self._next_host(k) for _ in range(k * m)]
+            if isinstance(group, Slot):
+                stacked = self._slot_to_device(group)
+            else:
+                host = {key: np.stack([h[key] for h in group])
+                        if len(group) > 1 else group[0][key][None]
+                        for key in group[0]}
+                if self.injector is not None:
+                    host = self.injector.reshape_batch(
+                        host, self.step, self.step + k, axis=1)
+                stacked = self._to_device(host)
         return [[{key: v[i * m + j] for key, v in stacked.items()}
                  for j in range(m)] for i in range(k)]
+
+    def _slot_to_device(self, slot: Slot) -> Dict[str, torch.Tensor]:
+        """A ring slot's fields copied to the device without blocking
+        (mark "first" before the first), and the slot handed back with
+        an event after the last copy, which the worker waits for before
+        it writes the slot again."""
+        out = {}
+        for key, t in slot.fields.items():
+            if not out:
+                self.tracer.mark("first")
+            out[key] = t.to(self.device, non_blocking=True, copy=True)
+        if self.device.type == "cuda":
+            if slot.event is None:
+                slot.event = torch.cuda.Event()
+            slot.event.record(torch.cuda.current_stream(self.device))
+        self._ring.release(slot)
+        return out
+
+    def _note_stage(self, steps: int, ring: bool, wait_s: float) -> None:
+        """Count a grouped dispatch in ``stage_stats`` and the tracer's
+        window."""
+        stats = self.stage_stats
+        stats["dispatches"] += 1
+        stats["ring"] += int(ring)
+        stats["wait_s"] += wait_s
+        self.tracer.note_stage(steps, ring, wait_s)
 
     def _eager_until(self) -> int:
         """The count below which a graph dispatch runs its steps eagerly:
@@ -1232,7 +1324,10 @@ class Trainer:
                  lr: Optional[float], audit: bool = False) -> None:
         """Capture one step in a new CUDA graph, the variant `audit` (the
         count's step decides it; see ``_graph_step``), with host syncs
-        made errors while it records."""
+        made errors while it records. The capture checks this thread
+        only: the prefetch thread may poll a ring slot's event meanwhile
+        (``utils.staging``), which a capture checking every thread would
+        take for an unsafe call and fail on."""
         opt = self.optimizer
         if self.goodput is not None:
             # The steps this dispatch ran so far are step time; the
@@ -1248,7 +1343,7 @@ class Trainer:
         if self.dropout_generator is not None:
             graph.register_generator_state(self.dropout_generator)
         before = dict(cuda_topk.launches)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2115,6 +2210,12 @@ class Trainer:
         # The restore and the stream's fast-forward are checkpoint cost.
         self._mark("ckpt")
         return True
+
+
+def _stop_prefetch(prefetcher: Prefetcher, stop: threading.Event) -> None:
+    """End a prefetcher's wait on a ring slot, then close it."""
+    stop.set()
+    prefetcher.close()
 
 
 def _copy_all(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:

@@ -5,8 +5,9 @@ while the device runs the step.
 
 * Order: one worker pulls from the underlying iterator in order, so the
   stream is the synchronous stream.
-* The worker touches numpy only; the copy to the device stays on the
-  consumer thread.
+* The worker runs `produce` only. The trainer's copies a dispatch's
+  batches into reused pinned host tensors (``utils.staging``) and issues
+  no device work: the copy to the device stays on the consumer thread.
 * A worker's exception is re-raised at the consumer's next ``__next__``,
   and every call after it raises too.
 """
