@@ -9,7 +9,9 @@ first step and after the third, each step's loss, and after the first
 step the residual and the SGD velocity, from which it works out the
 first gradient as the optimizer got it (residual + velocity - wd * p0,
 the residual plus the update the step applied) and the kept entries
-(residual 0, update not 0). The reference follows the same three steps.
+(residual 0, update not 0); a step that keeps no residual (the dense
+exchange's) reads as one whose residual is zero. The reference follows
+the same three steps.
 
 The numbers (``compare``), each against its limit in
 ``workloads/<cell>.json``:
@@ -18,8 +20,12 @@ The numbers (``compare``), each against its limit in
 * ``grad_leaf``: by the worst leaf, the gap between the two first
   gradients' norms over the reference's norm of that leaf or of the
   median leaf, whichever is larger;
-* ``change_leaf``: the same of the parameters' change over the three
-  steps;
+* ``grad_err``: the norm of the difference of the two first gradients
+  over the reference's norm, over the whole model: a gap of norms moves
+  little when every entry carries rounding error alike, so where nothing
+  is selected this is the number a lower precision fails;
+* ``change_leaf``: the same as ``grad_leaf`` of the parameters' change
+  over the three steps;
 * ``change_all``: the gap between the two changes' norms over the whole
   model, over the reference's;
 * ``select_miss``: the entries kept by one side and not the other, over
@@ -28,10 +34,10 @@ The numbers (``compare``), each against its limit in
   from the reference's (an exact comparison).
 
 Leaves whose reference gradient stays under a thousandth of the median
-leaf's (``grad_leaf``: at the first step; ``change_leaf``: at every step)
-are left out: their values move by round-off alone. At P workers the
-gradient, the kept entries and ``select_miss`` are each rank's own and
-the worst rank counts.
+leaf's (``grad_leaf``, ``grad_err``: at the first step; ``change_leaf``:
+at every step) are left out: their values move by round-off alone. At P
+workers the gradient, the kept entries and ``select_miss`` are each
+rank's own and the worst rank counts.
 """
 
 from __future__ import annotations
@@ -66,10 +72,13 @@ class ProgramRecord:
 
     def after_first(self) -> None:
         opt, lay = self.trainer.optimizer, self.trainer.layout
-        residual = opt.state["residual"]
         vel = lay.ravel([opt.state.get(p, {}).get("momentum_buffer")
                          for p in lay.params])
         update = vel - self.wd * self._p0_dev
+        residual = opt.state.get("residual")
+        if residual is None or residual.numel() == 0:
+            # A dense step selects nothing and keeps no residual.
+            residual = torch.zeros_like(update)
         self.h1 = (residual + update).cpu()
         self.keep1 = ((residual == 0) & (update != 0)).cpu()
         del self._p0_dev
@@ -118,6 +127,10 @@ def compare(prog: ProgramRecord, ref: Dict, rank: int,
     hr = _norms(ref["h1"][rank].to(dev), leaves).cpu()
     gg = _gaps(hc, hr, quiet1)
     out["grad_leaf"] = float(gg.max())
+    q1 = torch.where(quiet1, 1.0, 0.0).double()
+    he = _norms((prog.h1 - ref["h1"][rank]).to(dev), leaves).cpu()
+    out["grad_err"] = float((he.square() * q1).sum().sqrt()
+                            / (hr.square() * q1).sum().sqrt())
     chg_c = (prog.p3 - prog.p0).to(dev)
     chg_r = (ref["p3"] - ref["p0"]).to(dev)
     dc, dr = _norms(chg_c, leaves).cpu(), _norms(chg_r, leaves).cpu()

@@ -37,11 +37,10 @@ def forbidden_modules() -> list:
 
 
 def _pool(cell: spec.Cell, seed: int, rank: int):
+    """Rank `rank`'s pool of host batches, by the configuration's kind."""
     c, t = cell.config, cell.traffic
-    return source.make_pool(seed, rank, int(t["pool_batches"]),
-                            int(t["train_config"]["batch_size"]),
-                            int(c["image_size"]), int(c["channels"]),
-                            int(c["num_classes"]))
+    return spec.kind(c).pool(c, seed, rank, int(t["pool_batches"]),
+                             int(t["train_config"]["batch_size"]))
 
 
 def rank_main(device, cell_name: str, seed: int, seconds: float,
@@ -67,16 +66,16 @@ def rank_main(device, cell_name: str, seed: int, seconds: float,
     if cap is not None:
         cap.start()
     losses = first_steps(trainer, rec)
-    nodes = None
+    nodes, ranges = None, trace.cell_ranges(cell)
     if cap is not None:
         cap.stop()
-        nodes = trace.graph_nodes(cap.events())
+        nodes = trace.graph_nodes(cap.events(), ranges)
     rec.after_last(losses[:CHECK_STEPS])
     mend()
     out: Dict = {"rank": rank}
     if window:
         out.update(_window(trainer, cell, dev, seconds, traced, proc_start,
-                           collectives, nodes))
+                           collectives, nodes, ranges))
     trainer.close()
     del trainer
     gc.collect()
@@ -127,7 +126,7 @@ def judge(cell: spec.Cell, seed: int, rec: check.ProgramRecord, rank: int,
 
 
 def _window(trainer, cell: spec.Cell, dev, seconds: float, traced: bool,
-            proc_start: float, collectives, nodes=None) -> Dict:
+            proc_start: float, collectives, nodes, ranges) -> Dict:
     t = cell.traffic
     k = trainer.cfg.steps_per_dispatch
     times = []
@@ -170,7 +169,7 @@ def _window(trainer, cell: spec.Cell, dev, seconds: float, traced: bool,
            / (n * k)}
     if not traced:
         return out
-    summary = trace.summarize(cap.events(), k, nodes)
+    summary = trace.summarize(cap.events(), k, nodes, ranges)
     c, batch = cell.config, int(t["train_config"]["batch_size"])
     card = torch.cuda.get_device_name(dev) if cuda else "cpu"
     n_params = int(c["num_params"])
@@ -178,7 +177,8 @@ def _window(trainer, cell: spec.Cell, dev, seconds: float, traced: bool,
     ctx = SimpleNamespace(
         trace=summary, cell=cell, config=c, traffic=t, card=card,
         chips=cell.chips, n=n_params,
-        k=yardstick.k_for_density(n_params, t["train_config"]["density"]),
+        k=yardstick.k_for_density(n_params,
+                                  t["train_config"].get("density", 1.0)),
         flops_per_step=yardstick.step_flops(c, batch),
         peak_flops=yardstick.peak_flops(card, c["dtype"]),
         peak_bytes=yardstick.peak_bytes(card),

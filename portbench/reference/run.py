@@ -9,6 +9,11 @@ the update it applied), with each leaf's gradient norm at every step,
 summed over the workers. Matrix products and convolutions run in float32
 with TF32 off (``precision="float32"``), or with operands rounded to fp8
 for the precision control (``precision="fp8"``).
+
+The model is the configuration's kind (``portbench/kinds/``); the
+exchange is the module of ``portbench.reference`` named by the traffic's
+``compression`` (``gtopk.py``, ``dense.py``), whose ``step`` turns the
+workers' gradients and residuals into the update; SGD is ``gtopk.sgd``.
 """
 
 from __future__ import annotations
@@ -17,8 +22,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from portbench import spec
 from portbench.reference import gtopk, lowp, models
 
 
@@ -34,19 +39,27 @@ def _set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
+def exchange(traffic: Dict):
+    """The reference's exchange for the traffic's ``compression`` (None
+    is the port's dense default)."""
+    name = traffic["train_config"].get("compression") or "dense"
+    return spec.module("portbench.reference", name)
+
+
 def reference_steps(config: Dict, traffic: Dict, seed: int, workers: int,
                     batches: List[List[Dict[str, np.ndarray]]], steps: int,
                     device, precision: str = "float32") -> Dict:
-    """`batches[r][s]`: worker r's host batch of step s (uint8 images,
-    int labels)."""
+    """`batches[r][s]`: worker r's host batch of step s, as the kind's
+    ``pool`` makes it."""
     _set_tf32(False)
     tc = traffic["train_config"]
-    density = float(tc["density"])
+    density = float(tc.get("density", 1.0))
     lr = float(np.float32(config["lr"]))
     momentum, wd = float(config["momentum"]), float(config["weight_decay"])
-    quant = lowp.QUANT[precision] or (lambda t: t)
+    quant = lowp.QUANT[precision] or models.identity
+    step = exchange(traffic).step
     host = models.init(config, seed)
-    order = models.flat_order(host)
+    order = models.flat_order(host, config)
     leaves = models.leaves(host, order)
     flat = models.ravel(host, order).to(device)
     n = flat.shape[0]
@@ -68,21 +81,18 @@ def reference_steps(config: Dict, traffic: Dict, seed: int, workers: int,
             params = models.unravel(flat, template, order)
             params = {key: t.detach().clone().requires_grad_(True)
                       for key, t in params.items()}
-            b = batches[r][s]
-            x = models.normalise(torch.from_numpy(b["image"]).to(device))
-            y = torch.from_numpy(b["label"]).to(device).long()
-            logits = models.forward(config, params, x, quant=quant,
-                                    gen=gens[r])
-            loss = F.cross_entropy(logits, y)
+            b = {key: torch.from_numpy(v).to(device)
+                 for key, v in batches[r][s].items()}
+            loss = models.loss(config, params, b, quant, gens[r])
             loss.backward()
             grads.append(models.ravel({key: t.grad for key, t in
                                        params.items()}, order))
             losses.append(loss.detach())
-            del params, logits, loss
+            del params, b, loss
         rec["losses"].append(float(torch.stack(losses).mean()))
         gsum = torch.stack([_leaf_norms(g, leaves) for g in grads]).sum(0)
         rec["grad_norms"].append(gsum.cpu())
-        update, residuals, kept = gtopk.step(grads, residuals, k)
+        update, residuals, kept = step(grads, residuals, k)
         if s == 0:
             rec["h1"] = [(e + update).cpu() for e in residuals]
             rec["keep1"] = [m.cpu() for m in kept]

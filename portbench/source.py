@@ -1,12 +1,13 @@
 """The batch source the window feeds the trainer from.
 
-The harness makes a pool of host batches from the seed at set-up: uint8
-NHWC images and int32 labels at the configuration's shapes, ``count``
-distinct batches a rank, rank r's drawn from (seed, r). ``PoolSource``
-hands them to the port's ``Trainer`` through the interface its stream
-reads, a dataset's ``epoch(e)``: every epoch yields the pool in order,
-so no two consecutive steps share a batch while the pool holds two or
-more. The trainer's own synthetic ImageNet draws a numpy generator for
+The harness makes a pool of host batches from the seed at set-up, by the
+configuration's kind (``pool`` of ``portbench/kinds/<kind>.py``: for the
+image kinds, uint8 NHWC images and int32 labels at the configuration's
+shapes), ``count`` distinct batches a rank, rank r's drawn from (seed,
+r). ``PoolSource`` hands them to the port's ``Trainer`` through the
+interface its stream reads, a dataset's ``epoch(e)``: every epoch yields
+the pool in order, so no two consecutive steps share a batch while the
+pool holds two or more. The trainer's own synthetic ImageNet draws a numpy generator for
 each image on the host, which no user runs and which would pace every
 ImageNet-shaped cell; this adapter is the one place the harness reaches
 past ``TrainConfig``.
@@ -23,22 +24,6 @@ from __future__ import annotations
 from typing import Dict, Iterator, List
 
 import numpy as np
-
-# A stream key of the pool's draws, apart from any other use of the seed.
-POOL_STREAM = 0x9001
-
-
-def make_pool(seed: int, rank: int, count: int, batch: int,
-              image_size: int, channels: int, num_classes: int
-              ) -> List[Dict[str, np.ndarray]]:
-    """`count` batches of `batch` images and labels, a pure function of
-    (seed, rank), drawn in one call each."""
-    rng = np.random.default_rng(
-        np.random.SeedSequence([int(seed), int(rank), POOL_STREAM]))
-    images = rng.integers(0, 256, (count, batch, image_size, image_size,
-                                   channels), dtype=np.uint8)
-    labels = rng.integers(0, num_classes, (count, batch), dtype=np.int32)
-    return [{"image": images[i], "label": labels[i]} for i in range(count)]
 
 
 class PoolSource:

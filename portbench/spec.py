@@ -1,12 +1,16 @@
-"""Finding a cell's files by the names in ``BENCHMARK.json``.
+"""Finding a cell's files, kinds and metrics by the names in
+``BENCHMARK.json``.
 
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix. Each lives in a file of its own, found by name:
 ``configs/<config>.json``, ``traffic/<traffic>.json`` and
-``workloads/<cell>.json`` (the cell's correctness limits). A per-layer
-metric is the module ``portbench.metrics.<name>``, whose ``read(ctx)``
-returns the metric's value or None where it finds nothing to read. No
-list of cells, configurations or metrics lives in code.
+``workloads/<cell>.json`` (the cell's correctness limits). A
+configuration's model kind is the module ``portbench.kinds.<kind>``,
+found by its ``arch["kind"]`` (``portbench/kinds/__init__.py`` says what
+a kind gives). A per-layer metric is the module
+``portbench.metrics.<name>``, whose ``read(ctx)`` returns the metric's
+value or None where it finds nothing to read. No list of cells,
+configurations, kinds or metrics lives in code.
 """
 
 from __future__ import annotations
@@ -15,11 +19,13 @@ import importlib
 import json
 import os
 import re
+from types import ModuleType
 from typing import Any, Callable, Dict, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+MODULE = re.compile(r"^[A-Za-z0-9_]+(\.[A-Za-z0-9_]+)*$")
 
 
 def load_json(path: str) -> Any:
@@ -36,6 +42,14 @@ def _named(kind: str, name: str, root: str) -> Dict[str, Any]:
     if not NAME.match(name):
         raise ValueError(f"bad {kind} name {name!r}")
     return load_json(os.path.join(root, "portbench", kind, name + ".json"))
+
+
+def module(package: str, name: str) -> ModuleType:
+    """The module ``<package>.<name>``; `name` is a name as
+    ``BENCHMARK.json`` allows one, whose dots name subpackages."""
+    if not (NAME.match(name) and MODULE.match(name)):
+        raise ValueError(f"bad module name {name!r} in {package}")
+    return importlib.import_module(f"{package}.{name}")
 
 
 class Cell:
@@ -60,20 +74,30 @@ class Cell:
 
     def train_config(self, seed: int, device: str) -> Dict[str, Any]:
         """The ``TrainConfig`` fields of this cell: the configuration's
-        model and job, the traffic's batch and exchange, the seed, the
-        device and one rank a chip; the trainer's defaults for the
-        rest."""
+        model and job, with its own ``train_config`` fields (a model's
+        sequence length, say), then the traffic's batch and exchange, the
+        seed, the device and one rank a chip; the trainer's defaults for
+        the rest."""
         c, t = self.config, self.traffic
         kw = dict(dnn=c["dnn"], dataset=c["dataset"], dtype=c["dtype"],
                   lr=c["lr"], momentum=c["momentum"],
                   weight_decay=c["weight_decay"])
+        kw.update(c.get("train_config", {}))
         kw.update(t["train_config"])
         kw.update(nworkers=self.chips, seed=seed, device=device)
         return kw
 
 
-def reader(metric: str) -> Callable[[Any], Optional[float]]:
-    """The per-layer metric's reader, ``portbench.metrics.<metric>.read``."""
-    if not NAME.match(metric):
-        raise ValueError(f"bad metric name {metric!r}")
-    return importlib.import_module(f"portbench.metrics.{metric}").read
+def kind(config: Dict[str, Any]) -> ModuleType:
+    """The configuration's model kind, ``portbench.kinds.<arch.kind>``."""
+    return module("portbench.kinds", config["arch"]["kind"])
+
+
+def metric(name: str) -> ModuleType:
+    """The per-layer metric's module, ``portbench.metrics.<name>``."""
+    return module("portbench.metrics", name)
+
+
+def reader(name: str) -> Callable[[Any], Optional[float]]:
+    """The per-layer metric's reader, ``portbench.metrics.<name>.read``."""
+    return metric(name).read

@@ -40,16 +40,26 @@ def _imports(path):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    ref = os.path.join(spec.HERE, "reference")
-    for f in os.listdir(ref):
-        if f.endswith(".py"):
-            for mod in _imports(os.path.join(ref, f)):
-                top = mod.split(".")[0]
-                assert top in ("__future__", "math", "typing", "numpy",
-                               "torch", "portbench"), (f, mod)
-                if top == "portbench":
-                    assert mod.startswith("portbench.reference"), (f, mod)
+    """The reference, the model kinds and the frozen arithmetic they
+    use import plain PyTorch and NumPy and the harness's own plain
+    modules, nothing of the port."""
+    plain = ("portbench.reference", "portbench.kinds", "portbench.spec",
+             "portbench.yardstick")
+    files = [os.path.join(spec.HERE, "spec.py"),
+             os.path.join(spec.HERE, "yardstick.py")]
+    for sub in ("reference", "kinds"):
+        d = os.path.join(spec.HERE, sub)
+        files += [os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".py")]
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top in ("__future__", "math", "typing", "types", "re",
+                           "os", "json", "importlib", "numpy", "torch",
+                           "portbench"), (path, mod)
+            if top == "portbench":
+                assert mod.startswith(plain), (path, mod)

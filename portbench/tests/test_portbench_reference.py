@@ -4,6 +4,7 @@ the CPU at a tiny size, float32 on both sides."""
 from __future__ import annotations
 
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ def test_init_and_flat_order_are_the_ports(config):
     model.reset_parameters(torch.Generator().manual_seed(5))
     lay = flat_layout(model)
     ref = models.init(cfg, 5)
-    order = models.flat_order(ref)
+    order = models.flat_order(ref, cfg)
     assert [name for name, _, _ in models.leaves(ref, order)] == \
         layer_names(model)
     assert sum(p.numel() for p in ref.values()) == cfg["num_params"]
@@ -98,3 +99,23 @@ def test_compare_reads_a_frozen_leaf_as_one():
     got = check.compare(c, ref, 0)
     assert got["change_leaf"] == 1.0 and got["grad_leaf"] == 0.0
     assert got["select_miss"] == 0.0 and got["loss"] == 0.0
+    assert got["grad_err"] == 0.0
+
+
+def test_grad_err_is_the_first_gradients_relative_error():
+    """Leaf b's first gradient has a sign flipped: its norm is the
+    reference's, so grad_leaf reads 0, and grad_err reads the norm of
+    the difference over the reference's."""
+    leaves = [("a", 0, 2), ("b", 2, 2)]
+    ref = {"leaves": leaves, "losses": [1.0] * 3,
+           "grad_norms": [torch.ones(2, dtype=torch.float64)] * 3,
+           "h1": [torch.tensor([3.0, 0.0, 0.0, 4.0])],
+           "keep1": [torch.ones(4, dtype=torch.bool)],
+           "p0": torch.zeros(4), "p3": torch.ones(4)}
+    c = SimpleNamespace(leaves=leaves, losses=[1.0] * 3,
+                        h1=torch.tensor([3.0, 0.0, 0.0, -4.0]),
+                        keep1=torch.ones(4, dtype=torch.bool),
+                        p0=torch.zeros(4), p3=torch.ones(4))
+    got = check.compare(c, ref, 0)
+    assert got["grad_leaf"] == 0.0
+    assert got["grad_err"] == pytest.approx(8.0 / 5.0)

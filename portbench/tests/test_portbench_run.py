@@ -49,7 +49,7 @@ def _ev(cat, name, ts, dur, corr=None, tid=1):
     return e
 
 
-def test_trace_attribution():
+def _two_steps():
     """Two steps of 100 us: forward_backward launches a 30 us kernel from
     the trainer's thread and a 10 us one from another thread; select a 5
     us one inside optimizer."""
@@ -69,7 +69,11 @@ def test_trace_attribution():
                 _ev("kernel", "conv", t + 13, 30, 3 * s),
                 _ev("kernel", "conv_bwd", t + 45, 10, 3 * s + 1),
                 _ev("kernel", "stage1", t + 70, 5, 3 * s + 2)]
-    got = trace.summarize(evs)
+    return evs
+
+
+def test_trace_attribution():
+    got = trace.summarize(_two_steps())
     assert got["steps"] == 2
     assert got["device_ms"]["forward_backward"] == pytest.approx(0.040)
     assert got["device_ms"]["optimizer"] == pytest.approx(0.005)
@@ -81,6 +85,20 @@ def test_trace_attribution():
         pytest.approx(200e-6 - 90e-6)
     assert got["busy_s"] == pytest.approx(90e-6)
     assert got["window_s"] == pytest.approx(200e-6)
+
+
+def test_todays_cells_read_todays_ranges():
+    """No metric of today's cells declares a range, so each cell's trace
+    is read by the ranges it was read by before metrics could add any,
+    and its summary is the same."""
+    evs = _two_steps()
+    for w in spec.benchmark()["workloads"]:
+        ranges = trace.cell_ranges(spec.Cell(w["name"]))
+        assert ranges == ("data", "dispatch", "forward_backward",
+                          "optimizer", "select", "exchange", "obs_read",
+                          trace.STEP_RANGE)
+        assert trace.summarize(evs, 2, None, ranges) == \
+            trace.summarize(evs, 2)
 
 
 def test_graph_replays_take_the_capture_ranges():
@@ -132,7 +150,8 @@ def test_correct_at_p4_without_the_exchange(tiny_root):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["resnet50.gtopk.b32.p1",
-                                  "alexnet.gtopk.b64.p1"])
+                                  "alexnet.gtopk.b64.p1",
+                                  "alexnet.dense.b64.p1"])
 def test_the_precision_control_fails_on_the_card(card, name):
     """The reference with its operands in fp8, in the program's place, at
     the cell's own size: not correct on three seeds."""

@@ -124,15 +124,15 @@ def test_a_cell_config_and_metric_are_added_as_files(tmp_path, monkeypatch):
                            "alexnet-throwaway.json"), "w") as fh:
         json.dump(cfg, fh)
     with open(os.path.join(root, "portbench", "traffic",
-                           "dense.b64.p1.json"), "w") as fh:
-        json.dump({"name": "dense.b64.p1", "why": "t",
+                           "throwaway.b64.p1.json"), "w") as fh:
+        json.dump({"name": "throwaway.b64.p1", "why": "t",
                    "train_config": {"batch_size": 64,
                                     "compression": "dense"},
                    "pool_batches": 8, "warmup_steps": 40,
                    "capture_seconds": 1.0}, fh)
     with open(os.path.join(root, "portbench", "workloads",
-                           "alexnet.dense.b64.p1.json"), "w") as fh:
-        json.dump({"name": "alexnet.dense.b64.p1",
+                           "alexnet.throwaway.b64.p1.json"), "w") as fh:
+        json.dump({"name": "alexnet.throwaway.b64.p1",
                    "limits": {"loss": 0.01}}, fh)
     metric_dir = tmp_path / "metrics"
     metric_dir.mkdir()
@@ -147,21 +147,21 @@ def test_a_cell_config_and_metric_are_added_as_files(tmp_path, monkeypatch):
                              "file": "portbench/configs/"
                                      "alexnet-throwaway.json",
                              "reduced": [], "why": "t"})
-    bench["workloads"].append({"name": "alexnet.dense.b64.p1",
+    bench["workloads"].append({"name": "alexnet.throwaway.b64.p1",
                                "config": "alexnet-throwaway",
-                               "traffic": "dense.b64.p1", "chips": 1,
+                               "traffic": "throwaway.b64.p1", "chips": 1,
                                "why": "t"})
     bench["per_layer"].append({"name": "throwaway_ms", "unit": "ms",
                                "better": "lower", "source": "device_trace",
                                "layer": "model", "moves": "samples_per_s",
-                               "workloads": ["alexnet.dense.b64.p1"]})
+                               "workloads": ["alexnet.throwaway.b64.p1"]})
     # The new entries go into a copy; the copy of the repository's
     # files is compared below.
     new_root = tmp_path / "new"
     shutil.copytree(os.path.join(root, "portbench"),
                     new_root / "portbench")
     (new_root / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = spec.Cell("alexnet.dense.b64.p1", str(new_root))
+    cell = spec.Cell("alexnet.throwaway.b64.p1", str(new_root))
     assert cell.config["name"] == "alexnet-throwaway"
     assert cell.train_config(1, "cpu")["compression"] == "dense"
     assert [m["name"] for m in cell.per_layer] == ["throwaway_ms"]

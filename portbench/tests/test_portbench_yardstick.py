@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from portbench import spec, yardstick
+from portbench.kinds import alexnet, resnet
 
 
 def test_conv_macs():
@@ -18,7 +19,7 @@ def test_small_resnet():
     # 1x1 4->16, projection 1x1 64->16, all at 8x8; head 16*10.
     stem = 16 * 16 * 64 * 3 * 49
     block = 64 * (4 * 64 + 4 * 4 * 9 + 16 * 4 + 16 * 64)
-    assert yardstick.resnet_forward_macs(32, [1], [16], 10) == (
+    assert resnet.resnet_forward_macs(32, [1], [16], 10) == (
         stem + block + 160)
 
 
@@ -27,7 +28,7 @@ def test_small_alexnet():
     # of 5, 2 classes.
     conv = 16 * 16 * 8 * 3 * 9
     dense = 8 * 7 * 7 * 5 + 5 * 2
-    assert yardstick.alexnet_forward_macs(
+    assert alexnet.alexnet_forward_macs(
         16, [[3, 8, 3, 1, 1]], [0], [5], 2) == conv + dense
 
 

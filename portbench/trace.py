@@ -14,6 +14,10 @@ while the trainer's thread waits inside "forward_backward", and no other
 thread of the port launches device work. Nested ranges count for each
 range that holds them ("optimizer" holds "select" and "exchange").
 
+The ranges read are ``RANGES``, the port's and the harness's, and those
+that the cell's per-layer metrics declare (``cell_ranges``): a metric
+that reads a new range of the program names it in its own module.
+
 A traced run profiles one stretch of the window with host and device
 activity (``summarize``): its dispatches are the harness's own ranges
 "portbench_step", one a ``Trainer.train(K)`` call of K steps, each
@@ -44,9 +48,11 @@ import json
 import os
 import shutil
 import tempfile
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from portbench import spec
 
 STEP_RANGE = "portbench_step"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -56,7 +62,9 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 NODE_CALLS = ("Launch", "Memcpy", "Memset")
 GRAPH_LAUNCH = "GraphLaunch"
 HOST_RANGE_CAT = "user_annotation"
-# The ranges the port opens (trainer.py, optimizer.py) and the harness's.
+# The ranges the port opens (trainer.py, optimizer.py) and the harness's,
+# read in every cell; a per-layer metric adds those it declares
+# (``cell_ranges``).
 RANGES = ("data", "dispatch", "forward_backward", "optimizer", "select",
           "exchange", "obs_read", STEP_RANGE)
 TOP = 10
@@ -133,9 +141,22 @@ class _Ranges:
         return None
 
 
-def _parse(events: List[dict]):
+def cell_ranges(cell) -> Tuple[str, ...]:
+    """The ranges a cell's trace is read by: ``RANGES`` and those that
+    the cell's per-layer metrics declare (a module-level ``RANGES`` tuple
+    of the metric's module), in that order."""
+    names = list(RANGES)
+    for m in cell.per_layer:
+        for name in getattr(spec.metric(m["name"]), "RANGES", ()):
+            if name not in names:
+                names.append(name)
+    return tuple(names)
+
+
+def _parse(events: List[dict], ranges_read: Sequence[str] = RANGES):
     """(host ranges by name, launch calls by correlation id as (ts, name),
-    device operations) of a trace's complete events."""
+    device operations) of a trace's complete events; host ranges of the
+    names in `ranges_read` only."""
     ranges: Dict[str, List[Tuple[float, float]]] = collections.defaultdict(
         list)
     launch: Dict[int, Tuple[float, str]] = {}
@@ -143,7 +164,7 @@ def _parse(events: List[dict]):
     for e in events:
         cat = e.get("cat")
         ts, dur = float(e.get("ts", 0.0)), float(e.get("dur", 0.0))
-        if cat == HOST_RANGE_CAT and e.get("name") in RANGES:
+        if cat == HOST_RANGE_CAT and e.get("name") in ranges_read:
             ranges[e["name"]].append((ts, ts + dur))
         elif cat in LAUNCH_CATS:
             corr = (e.get("args") or {}).get("correlation")
@@ -159,10 +180,11 @@ def _holding(spans: Dict[str, "_Ranges"], t: float) -> frozenset:
                      if r.holding(t) is not None)
 
 
-def graph_nodes(events: List[dict]) -> Optional[List[frozenset]]:
+def graph_nodes(events: List[dict], ranges_read: Sequence[str] = RANGES
+                ) -> Optional[List[frozenset]]:
     """The ranges that held each node of the CUDA graph captured in a
     profiled stretch, in capture order; None where it holds no capture."""
-    ranges, launch, device = _parse(events)
+    ranges, launch, device = _parse(events, ranges_read)
     ran = {int((e.get("args") or {}).get("correlation", -1))
            for e in device}
     spans = {name: _Ranges(v) for name, v in ranges.items()}
@@ -173,13 +195,15 @@ def graph_nodes(events: List[dict]) -> Optional[List[frozenset]]:
 
 
 def summarize(events: List[dict], per_range: int = 1,
-              nodes: Optional[List[frozenset]] = None) -> Dict:
+              nodes: Optional[List[frozenset]] = None,
+              ranges_read: Sequence[str] = RANGES) -> Dict:
     """What the per-layer readers read from a profiled stretch: ``steps``
     captured (`per_range` a harness range, the dispatch's K), device ms a
-    step and host ms a step by range, ``busy_s`` (the union of the device
-    work inside the stretch) and ``window_s`` (the stretch), and the
-    ``breakdown``; `nodes` attributes graph replays (``graph_nodes``)."""
-    ranges, launch, device = _parse(events)
+    step and host ms a step by range of `ranges_read`, ``busy_s`` (the
+    union of the device work inside the stretch) and ``window_s`` (the
+    stretch), and the ``breakdown``; `nodes` attributes graph replays
+    (``graph_nodes``, read with the same ranges)."""
+    ranges, launch, device = _parse(events, ranges_read)
     steps = ranges.get(STEP_RANGE, [])
     if not steps or not device:
         return {"steps": 0}

@@ -7,7 +7,10 @@ to the port cannot move the yardstick.
   ``torch.utils.flop_counter`` over a step (``obs/memwatch.py``
   ``step_flops``); here they are counted from the shapes alone:
   convolutions and matrix products, 2 FLOPs a multiply-add, forward once
-  and backward twice.
+  and backward twice. Each kind of model counts its own forward pass
+  in its module of ``portbench/kinds/`` (``forward_macs``: ResNet's in
+  ``kinds/resnet.py``, AlexNet's in ``kinds/alexnet.py``), from the
+  shared ``conv_macs`` below.
 * Peaks: ``gtopkssgd_tpu_torch/benchmark.py`` ``PEAK_FLOPS`` (NVIDIA's
   H100 SXM data sheet, dense rates); the HBM rate is the sheet's
   3.35 TB/s, the bound ``PERF.md``'s kernel table divides bytes by.
@@ -17,6 +20,8 @@ from __future__ import annotations
 
 import math
 from typing import Dict, List, Optional, Tuple
+
+from portbench import spec
 
 # (card name substring, dtype) -> dense peak FLOP/s; first match wins, so
 # the PCIe part is listed before the SXM part.
@@ -46,74 +51,23 @@ def peak_bytes(card: str) -> Optional[float]:
     return None
 
 
-def _out(side: int, k: int, s: int, p: int) -> int:
+def out_side(side: int, k: int, s: int, p: int) -> int:
+    """The output side of a square window: kernel k, stride s, padding
+    p."""
     return (side + 2 * p - k) // s + 1
 
 
 def conv_macs(side: int, cin: int, cout: int, k: int, s: int, p: int
               ) -> Tuple[int, int]:
     """(multiply-adds, output side) of a square convolution."""
-    o = _out(side, k, s, p)
+    o = out_side(side, k, s, p)
     return o * o * cout * cin * k * k, o
-
-
-def resnet_forward_macs(image_size: int, stage_sizes, widths,
-                        num_classes: int, channels: int = 3) -> int:
-    """ResNet v1 with bottleneck blocks, the stride on the 3x3 conv:
-    7x7/2 stem, 3x3/2 max pool (padding 1), a 1x1 projection where the
-    shape changes, global average pool, dense head."""
-    macs, side = conv_macs(image_size, channels, 64, 7, 2, 3)
-    side = _out(side, 3, 2, 1)
-    cin = 64
-    for stage, (size, width) in enumerate(zip(stage_sizes, widths)):
-        inner = width // 4
-        for block in range(size):
-            stride = 2 if stage > 0 and block == 0 else 1
-            m, _ = conv_macs(side, cin, inner, 1, 1, 0)
-            macs += m
-            m, out = conv_macs(side, inner, inner, 3, stride, 1)
-            macs += m
-            m, _ = conv_macs(out, inner, width, 1, 1, 0)
-            macs += m
-            if cin != width or stride != 1:
-                m, _ = conv_macs(side, cin, width, 1, stride, 0)
-                macs += m
-            side, cin = out, width
-    return macs + cin * num_classes
-
-
-def alexnet_forward_macs(image_size: int, convs, pool_after,
-                         fcs, num_classes: int) -> int:
-    """Single-tower AlexNet: `convs` as (in, out, kernel, stride,
-    padding), a 3x3/2 VALID max pool after the convs in `pool_after`,
-    then dense layers of widths `fcs` and the head."""
-    macs, side = 0, image_size
-    for i, (cin, cout, k, s, p) in enumerate(convs):
-        m, side = conv_macs(side, cin, cout, k, s, p)
-        macs += m
-        if i in pool_after:
-            side = _out(side, 3, 2, 0)
-    width = convs[-1][1] * side * side
-    for f in list(fcs) + [num_classes]:
-        macs += width * f
-        width = f
-    return macs
 
 
 def forward_macs(config: Dict) -> int:
     """Multiply-adds of one sample's forward pass, from the
-    configuration's shapes."""
-    arch = config["arch"]
-    if arch["kind"] == "resnet":
-        return resnet_forward_macs(config["image_size"],
-                                   arch["stage_sizes"], arch["widths"],
-                                   config["num_classes"],
-                                   config["channels"])
-    if arch["kind"] == "alexnet":
-        return alexnet_forward_macs(config["image_size"], arch["convs"],
-                                    arch["pool_after"], arch["fcs"],
-                                    config["num_classes"])
-    raise ValueError(f"no FLOP count for arch {arch['kind']!r}")
+    configuration's shapes: its kind's count (``portbench/kinds/``)."""
+    return spec.kind(config).forward_macs(config)
 
 
 def step_flops(config: Dict, batch: int) -> float:
