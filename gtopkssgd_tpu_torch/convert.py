@@ -23,7 +23,10 @@ fix the flat gradient order, for every model of the zoo.
   level (``BasicBlock_10`` before ``BasicBlock_2``, ``BatchNorm_0`` before
   ``Conv_0``; ``bias`` before ``kernel`` and ``scale``), each kernel in the
   reference's layout. The two-stage top-k buckets are positions in that
-  flat vector, so this order decides what is selected.
+  flat vector, so this order decides what is selected. A model with no
+  flax twin (``own_layout``: the zoo's DeepSeek-V3) is laid out in the
+  port's own layout instead: its module paths split at dots, sorted, each
+  leaf as it is (``own_path``).
 
 The port's module names map onto flax's auto-generated ones:
 
@@ -248,16 +251,30 @@ def _port_names(paths) -> Dict[Path, str]:
     return names
 
 
+def own_path(name: str) -> Path:
+    """'layers.3.attn.q_proj.weight' -> ('layers', '3', 'attn', 'q_proj',
+    'weight'): a parameter's path in the port's own layout."""
+    return tuple(name.split("."))
+
+
+def _paths(model: nn.Module) -> List[Tuple[Path, torch.Tensor]]:
+    """(path, parameter) of every leaf, sorted by path: flax's paths, or
+    the port's own for a model that declares ``own_layout``."""
+    key = own_path if getattr(model, "own_layout", False) else flax_path
+    return sorted(((key(name), p) for name, p in model.named_parameters()),
+                  key=lambda item: item[0])
+
+
 def layer_names(model: nn.Module) -> List[str]:
-    """Each leaf of ``flat_layout(model)``, in its order, by its flax key
-    path joined with '/': the JAX counters' layer names."""
-    return ["/".join(path) for path in sorted(
-        flax_path(name) for name, _ in model.named_parameters())]
+    """Each leaf of ``flat_layout(model)``, in its order, by its key path
+    joined with '/': the JAX counters' layer names."""
+    return ["/".join(path) for path, _ in _paths(model)]
 
 
 def flat_layout(model: nn.Module) -> FlatLayout:
-    """The model's parameters in ``ravel_pytree`` order and layout."""
-    named = sorted((flax_path(name), p)
-                   for name, p in model.named_parameters())
+    """The model's parameters in ``ravel_pytree`` order and layout; a
+    model of ``own_layout`` with every leaf as it is."""
+    if getattr(model, "own_layout", False):
+        return FlatLayout.identity(p for _, p in _paths(model))
     return FlatLayout([(p, _perm(path, p.dim(), _TO_REF))
-                       for path, p in named])
+                       for path, p in _paths(model)])

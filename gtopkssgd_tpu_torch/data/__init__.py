@@ -1,6 +1,8 @@
 """Data pipelines by the reference's ``--dataset`` flag string: CIFAR-10
 (real pickles or the synthetic stand-in), ImageNet (the synthetic
-stand-in), PTB and AN4 (real files or synthetic stand-ins)."""
+stand-in), PTB and AN4 (real files or synthetic stand-ins), and the
+language models' seeded token sequences (``tokens``, which the JAX
+package does not have)."""
 
 from __future__ import annotations
 
@@ -14,9 +16,12 @@ from gtopkssgd_tpu_torch.data.partition import (
     partition_indices,
 )
 from gtopkssgd_tpu_torch.data.ptb import PTBDataset
+from gtopkssgd_tpu_torch.data.tokens import TokenDataset
 
 _DATASETS = {"cifar10": CIFAR10Dataset, "imagenet": ImageNetDataset,
-             "ptb": PTBDataset, "an4": AN4Dataset}
+             "ptb": PTBDataset, "an4": AN4Dataset, "tokens": TokenDataset}
+#: The datasets the JAX package does not have.
+PORT_ONLY = ("tokens",)
 
 
 def get_dataset(name: str, *, split: str = "train", batch_size: int = 32,
@@ -24,7 +29,8 @@ def get_dataset(name: str, *, split: str = "train", batch_size: int = 32,
                 data_dir: Optional[str] = None, seed: int = 0,
                 **kwargs: Any):
     """A dataset by name; `kwargs` go to its constructor (``bptt`` for
-    ptb, ``max_frames`` and ``max_label_len`` for an4)."""
+    ptb, ``max_frames`` and ``max_label_len`` for an4, ``seq_len`` and
+    ``vocab_size`` for tokens)."""
     try:
         cls = _DATASETS[name]
     except KeyError:
@@ -40,5 +46,6 @@ def available_datasets():
 
 
 __all__ = ["AN4Dataset", "CIFAR10Dataset", "DataPartitioner",
-           "ImageNetDataset", "PTBDataset", "available_datasets",
+           "ImageNetDataset", "PORT_ONLY", "PTBDataset", "TokenDataset",
+           "available_datasets",
            "get_dataset", "partition_indices"]

@@ -167,6 +167,16 @@ def seed_dropout(model: nn.Module, seed: int):
     return gen
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """LeCun normal in place: a normal of variance 1/fan_in truncated at
+    two standard deviations (flax's), drawn from `generator`."""
+    # Truncation at +-2 std shrinks the variance by 0.7737.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
 def flax_init(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initializers, drawn from `generator`: LeCun-normal
     (truncated normal, variance 1/fan_in) for conv and dense kernels,
@@ -177,11 +187,7 @@ def flax_init(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(mod, LSTM):
             mod.reset_parameters(generator)
         elif isinstance(mod, (nn.Conv2d, nn.Linear)):
-            fan_in = mod.weight[0].numel()
-            # Truncation at +-2 std shrinks the variance by 0.7737.
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                  2 * std, generator=generator)
+            lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
         elif isinstance(mod, BatchNorm):

@@ -39,6 +39,26 @@ built) and to the window that ``flush()`` ships as the "spans" keys
 ``device_idle/data`` and ``device_idle/tail``. Device work between two
 dispatches (an evaluation) counts in the next gap's tail.
 
+Model ranges. A model opens profiler ranges of its own parts with
+``device_range(name)`` (a ``record_function`` and, on a card, an NVTX
+range). A range opened in forward does not hold the backward's launches,
+which autograd makes later, on a thread of its own; ``range_block(name,
+fn, *inputs)`` runs ``fn`` in the range and opens the same range in
+backward: an identity ``autograd.Function`` on ``fn``'s outputs opens it
+when their gradients arrive, one on its inputs closes it when theirs
+leave, so the backward of everything between runs inside it.
+
+Routing counts. A sparse-expert model's step reports its (token, held
+expert) pairs, its held experts' largest load over their mean and the
+pairs it dropped; the trainer reads them in the dispatch's one copy to
+the host and notes each step (``note_routing``): into the module's
+bounded record ``routing`` (the last ``IDLE_RECORD`` steps, emptied when
+a ``Trainer`` is built, each row marked with whether a profiler was
+recording when its dispatch was read, so that a reader of a profiled
+stretch takes that stretch's steps) and into the window that ``flush()``
+ships as the "spans" keys ``routing/pairs`` (mean a step),
+``routing/load_ratio`` (largest) and ``routing/dropped`` (sum).
+
 Staging counts. The trainer notes each dispatch its prefetcher grouped
 (``note_stage``): its steps, whether it came staged in a ring slot
 (``utils.staging``) and the seconds the main thread waited on the
@@ -62,6 +82,88 @@ IDLE_RECORD = 512
 #: The last IDLE_RECORD dispatches' device idle split, (steps,
 #: idle_data_s, idle_tail_s) each, seconds a step.
 idle: Deque[Tuple[int, float, float]] = collections.deque(maxlen=IDLE_RECORD)
+#: The last IDLE_RECORD steps' routing counts of a sparse-expert model,
+#: (pairs, load_ratio, dropped, profiled) each.
+routing: Deque[Tuple[float, float, float, bool]] = collections.deque(
+    maxlen=IDLE_RECORD)
+
+
+@contextmanager
+def device_range(name: str):
+    """A profiler range `name` around a model's part (and an NVTX range on
+    a card), on the thread that runs it."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+_open_ranges = threading.local()
+
+
+def _range_push(name: str) -> None:
+    rf = record_function(name)
+    rf.__enter__()
+    if torch.cuda.is_available():
+        torch.cuda.nvtx.range_push(name)
+    stack = getattr(_open_ranges, "stack", None)
+    if stack is None:
+        stack = _open_ranges.stack = []
+    stack.append(rf)
+
+
+def _range_pop() -> None:
+    stack = getattr(_open_ranges, "stack", None)
+    if not stack:
+        return
+    if torch.cuda.is_available():
+        torch.cuda.nvtx.range_pop()
+    stack.pop().__exit__(None, None, None)
+
+
+class _Edge(torch.autograd.Function):
+    """Identity on its tensors; its backward opens (``opens``) or closes
+    the range `name` on the thread that runs the backward."""
+
+    @staticmethod
+    def forward(ctx, name, opens, *xs):
+        ctx.name, ctx.opens = name, opens
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.opens:
+            _range_push(ctx.name)
+        else:
+            _range_pop()
+        return (None, None) + grads
+
+
+def _edge(name: str, opens: bool, xs: tuple) -> tuple:
+    """`xs` with the floating tensors that need a gradient passed through
+    one ``_Edge``; the rest as they are."""
+    mark = [isinstance(x, torch.Tensor) and x.requires_grad for x in xs]
+    if not any(mark) or not torch.is_grad_enabled():
+        return xs
+    through = iter(_Edge.apply(name, opens,
+                               *[x for x, m in zip(xs, mark) if m]))
+    return tuple(next(through) if m else x for x, m in zip(xs, mark))
+
+
+def range_block(name: str, fn, *inputs):
+    """``fn(*inputs)`` inside the range `name`, forward and backward
+    (module docstring); returns what ``fn`` returns."""
+    inputs = _edge(name, False, inputs)
+    with device_range(name):
+        out = fn(*inputs)
+    single = not isinstance(out, tuple)
+    out = _edge(name, True, (out,) if single else out)
+    return out[0] if single else out
 
 
 def split_gap(end_prev: Optional[float], data: float, first: float,
@@ -118,7 +220,6 @@ class Tracer:
         self.enabled = enabled
         self.sink = sink
         self._local = threading.local()
-        self._nvtx = torch.cuda.is_available()  # NVTX needs a card
         self._device = (device if device is not None
                         and device.type == "cuda" else None)
         self._pool: List[torch.cuda.Event] = []
@@ -126,6 +227,7 @@ class Tracer:
         self._end: Optional[torch.cuda.Event] = None
         self._idle: List[Tuple[int, float, float]] = []  # since flush()
         self._stage: List[Tuple[int, bool, float]] = []  # since flush()
+        self._routing: List[Tuple[float, float, float]] = []  # since flush()
 
     def _stack(self):
         stack = getattr(self._local, "stack", None)
@@ -173,6 +275,14 @@ class Tracer:
         not, for which the main thread waited `wait_s` seconds."""
         self._stage.append((steps, ring, wait_s))
 
+    def note_routing(self, pairs: float, load_ratio: float,
+                     dropped: float) -> None:
+        """One step's routing counts (module docstring), into ``routing``
+        and the flush window."""
+        row = (pairs, load_ratio, dropped)
+        routing.append(row + (torch.autograd._profiler_enabled(),))
+        self._routing.append(row)
+
     @contextmanager
     def span(self, name: str, *, sync: bool = False):
         """Time a scope under ``name``, nested under the open spans.
@@ -185,32 +295,28 @@ class Tracer:
         stack = self._stack()
         stack.append(name)
         path = "/".join(stack)
-        nvtx = self._nvtx
         t0 = time.perf_counter()
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
         try:
-            with record_function(name):
-                yield
+            with device_range(name):
+                try:
+                    yield
+                finally:
+                    if sync and torch.cuda.is_available():
+                        torch.cuda.synchronize()
         finally:
-            try:
-                if sync and torch.cuda.is_available():
-                    torch.cuda.synchronize()
-            finally:
-                if nvtx:
-                    torch.cuda.nvtx.range_pop()
-                dur = time.perf_counter() - t0
-                stack.pop()
-                self.stats.add(path, dur)
-                if self.sink is not None:
-                    self.sink(path, t0, dur)
+            dur = time.perf_counter() - t0
+            stack.pop()
+            self.stats.add(path, dur)
+            if self.sink is not None:
+                self.sink(path, t0, dur)
 
     def flush(self, step: Optional[int] = None) -> Dict[str, float]:
         """Ship the accumulated mean seconds a path, the window's device
         idle a step ("device_idle/data", "device_idle/tail", where
         ``idle_split`` recorded any) and its staging counts
         ("staging/ring_share", "staging/wait", where a dispatch came from
-        the ring), as ONE "spans" record and reset, so each logging window
+        the ring) and its routing counts (where any step noted some), as
+        ONE "spans" record and reset, so each logging window
         reports its own means. Returns the summary logged."""
         summary = self.stats.summary()
         if self._idle:
@@ -222,6 +328,11 @@ class Tracer:
                 sum(r[1] for r in self._stage) / len(self._stage))
             summary["staging/wait"] = (sum(r[2] for r in self._stage)
                                        / sum(r[0] for r in self._stage))
+        if self._routing:
+            rows = self._routing
+            summary["routing/pairs"] = sum(r[0] for r in rows) / len(rows)
+            summary["routing/load_ratio"] = max(r[1] for r in rows)
+            summary["routing/dropped"] = sum(r[2] for r in rows)
         if summary and self.metrics is not None:
             rec = {} if step is None else {"step": step}
             rec.update({path: round(sec, 6) for path, sec in summary.items()})
@@ -229,4 +340,5 @@ class Tracer:
         self.stats.reset()
         self._idle.clear()
         self._stage.clear()
+        self._routing.clear()
         return summary

@@ -19,6 +19,18 @@ for convolutions, matrix products and cuDNN's LSTM, as the JAX model
 computes in float32. Dropout draws its masks from a generator on the
 device, seeded from the seed and the rank.
 
+The language models (``ModelSpec.lm``, ``kind`` "lm"): the model is
+built from ``model_config``, the published keys and the cut (a JSON
+file's path, or a dict), and reads seeded token sequences (the
+``tokens`` dataset at the configuration's ``seq_len`` and
+``vocab_size``); the loss is the mean next-token cross-entropy over the
+B x S tokens plus the model's sequence balance loss. After each step the
+model moves its experts' selection biases (``update_routing``, inside the
+step, so a graph holds it) and the step also reports its routing counts
+(``pair_count``, ``load_ratio``, ``drop_count``), read in the dispatch's
+one copy to the host and noted in the tracer (``obs.tracing.routing``,
+the "spans" keys ``routing/*``).
+
 The recurrent models (``ModelSpec.recurrent``): the PTB LSTM's loss is
 the mean cross-entropy over the B x T tokens of a window, and its carry
 (one (c, h) pair per layer, ``self.carry``) crosses consecutive windows,
@@ -180,12 +192,13 @@ import dataclasses
 import json
 import logging
 import math
+import os
 import shutil
 import tempfile
 import threading
 import time
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -260,6 +273,8 @@ from gtopkssgd_tpu_torch.utils.staging import (
     group_producer,
 )
 
+#: A language model's routing counts a step (``DeepSeekV3.update_routing``).
+ROUTING_NAMES = ("pair_count", "load_ratio", "drop_count")
 _WIRE_STATS = {"cifar10": (CIFAR_MEAN, CIFAR_STD),
                "imagenet": (IMAGENET_MEAN, IMAGENET_STD)}
 # The compressions and selection methods whose P = 1 step holds no host
@@ -278,6 +293,7 @@ def dataset_defaults(dataset: str, dnn: str):
         "imagenet": (0.01 if dnn == "alexnet" else 0.1, 1e-4, None),
         "ptb": (1.0, 0.0, 0.25),
         "an4": (3e-4, 0.0, 400.0),
+        "tokens": (0.01, 1e-4, 1.0),
     }.get(dataset, (0.1, 0.0, None))
 
 
@@ -287,6 +303,13 @@ class TrainConfig:
 
     dnn: str = "resnet20"
     dataset: Optional[str] = None  # default: the model's canonical dataset
+    model_config: Optional[Union[str, dict]] = None  # a language model's
+                                   # published keys and cut: a JSON file's
+                                   # path, or the dict
+    cuda_allocator: Optional[str] = None  # the process's CUDA caching
+                                   # allocator settings (the syntax of
+                                   # PYTORCH_CUDA_ALLOC_CONF), set once
+                                   # before the model reaches the card
     batch_size: int = 32           # per worker
     lr: Optional[float] = None     # default per dataset
     momentum: float = 0.9
@@ -476,6 +499,15 @@ class TrainConfig:
         return cfg
 
 
+def load_model_config(spec: Optional[Union[str, dict]]) -> Optional[dict]:
+    """``model_config`` as a dict: a JSON file read from its path, a dict
+    as it is, None as None."""
+    if spec is None or isinstance(spec, dict):
+        return spec
+    with open(os.fspath(spec)) as fh:
+        return json.load(fh)
+
+
 def forecast_targets(spec: str) -> tuple:
     """The worker counts of ``obs_forecast_targets`` ("32,256,1024"); the
     JAX trainer's error for a malformed list."""
@@ -549,6 +581,13 @@ class Trainer:
             data_kw["synth_hard"] = True
         if cfg.dataset == "imagenet" and cfg.decode_workers > 0:
             data_kw["decode_workers"] = cfg.decode_workers
+        model_config = load_model_config(cfg.model_config)
+        if cfg.dataset == "tokens":
+            if model_config is None:
+                raise ValueError("the tokens dataset takes its seq_len and "
+                                 "vocab_size from model_config")
+            data_kw.update(seq_len=model_config["seq_len"],
+                           vocab_size=model_config["vocab_size"])
 
         def dataset(**kw):
             return retry_call(lambda: get_dataset(cfg.dataset, **kw),
@@ -561,9 +600,14 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.model, self.spec = get_model(
-            cfg.dnn, space_to_depth=cfg.space_to_depth, dtype=cfg.dtype)
-        self.kind = cfg.dataset if self.spec.recurrent else "vision"
+            cfg.dnn, space_to_depth=cfg.space_to_depth, dtype=cfg.dtype,
+            config=model_config)
+        self.kind = ("lm" if self.spec.lm else cfg.dataset
+                     if self.spec.recurrent else "vision")
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        if cfg.cuda_allocator and self.device.type == "cuda":
+            # Process-wide, and left set for what the process runs later.
+            torch.cuda.memory._set_allocator_settings(cfg.cuda_allocator)
         self.model.to(self.device).train()
         if (self.device.type == "cuda" and cfg.compression not in DENSE_MODES
                 and cfg.topk_method in KERNEL_METHODS):
@@ -605,9 +649,12 @@ class Trainer:
         self.carry = None
         self.reset_carry()
         self.step = 0
-        #: What a step reports, in ``_train_step``'s order.
-        self._metric_names = (["loss", "top1", "top5"]
-                              if self.kind == "vision" else ["loss"])
+        #: What a step reports, in ``_train_step``'s order: the loss and
+        #: the forward's metrics, then a language model's routing counts.
+        self._forward_names = (["top1", "top5"] if self.kind == "vision"
+                               else [])
+        self._metric_names = (["loss"] + self._forward_names + (
+            list(ROUTING_NAMES) if self.kind == "lm" else []))
         #: "graph" or "staged" (``dispatch_rule``).
         self.dispatch = dispatch_rule(cfg)
         #: Graph bookkeeping: captures made, replays run, and per kernel
@@ -640,6 +687,7 @@ class Trainer:
             sink=self.timeline.span_sink if self.timeline else None,
             device=self.device)
         tracing.idle.clear()
+        tracing.routing.clear()
         self.monitor = (AnomalyMonitor(
             metrics=self.metrics,
             rho=cfg.density if cfg.compression not in DENSE_MODES else None,
@@ -1114,7 +1162,7 @@ class Trainer:
             out["image"] = (out["image"].float() / 255.0
                             - self._mean) / self._std
             out["label"] = out["label"].long()
-        elif self.kind == "ptb":
+        elif self.kind in ("ptb", "lm"):
             out = {key: v.long() for key, v in out.items()}
         return out
 
@@ -1127,6 +1175,11 @@ class Trainer:
         """(mean loss, per-batch metrics, logits) of `batch`; the PTB model
         reads ``self.carry`` and leaves its new carry there, detached."""
         model = self.model
+        if self.kind == "lm":
+            logits, aux = model(batch["tokens"])
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   batch["targets"].reshape(-1))
+            return loss + aux, {}, logits
         if self.kind == "ptb":
             logits, carry = model(batch["tokens"], self.carry)
             self.carry = tuple((c.detach(), h.detach()) for c, h in carry)
@@ -1176,10 +1229,10 @@ class Trainer:
         sums = None
         for raw in batches:
             with self.tracer.span("forward_backward"):
-                loss, metrics, _ = self._forward(self._prepare(raw))
+                loss, metrics = self._forward(self._prepare(raw))[:2]
                 loss.backward()
             values = [loss.detach()] + [metrics[key]
-                                        for key in self._metric_names[1:]]
+                                        for key in self._forward_names]
             sums = values if sums is None else [
                 a + b for a, b in zip(sums, values)]
         with self.tracer.span("optimizer"):
@@ -1190,6 +1243,10 @@ class Trainer:
         scalars = [v / cfg.nsteps_update for v in sums]
         if self.group is not None:
             scalars = self._average_over_ranks(scalars)
+        if self.kind == "lm":
+            # After the ranks averaged the loads: the bias update and the
+            # routing counts.
+            scalars += list(self.model.update_routing())
         return scalars
 
     def _stage(self, k: int) -> List[List[Dict[str, torch.Tensor]]]:
@@ -1339,6 +1396,9 @@ class Trainer:
         inputs = [{key: v.clone() for key, v in b.items()} for b in batches]
         residual, carry = opt.state["residual"], self.carry
         count = opt.state["count"]
+        # The graph allocates from a pool of its own: hand the blocks the
+        # eager steps left cached back to the card first.
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         if self.dropout_generator is not None:
             graph.register_generator_state(self.dropout_generator)
@@ -1476,9 +1536,12 @@ class Trainer:
                 self.tracer.idle_split(k)
                 dt = (time.perf_counter() - t0) / k
                 step_times.extend([dt] * k)
-                for name, col in zip(self._metric_names,
-                                     host[:k * nm].view(k, nm).T.tolist()):
+                rows = host[:k * nm].view(k, nm)
+                for name, col in zip(self._metric_names, rows.T.tolist()):
                     cols[name].extend(col)
+                if self.kind == "lm":
+                    for row in rows[:, -len(ROUTING_NAMES):].tolist():
+                        self.tracer.note_routing(*row)
                 samples += k * cfg.batch_size * cfg.nsteps_update
                 observed = False
                 if obs_now and self.monitor is not None:
@@ -2019,7 +2082,7 @@ class Trainer:
             nb = min(nb, cfg.eval_batches)
         if nb == 0:
             return {"val_loss": float("nan")}
-        cols = {"vision": 4, "ptb": 2, "an4": 6}[self.kind]
+        cols = {"vision": 4, "ptb": 2, "an4": 6, "lm": 2}[self.kind]
         table = torch.zeros(nb, cols, dtype=torch.float64)
         if self.kind == "ptb":
             mine = range(nb) if self.rank == 0 else range(0)
@@ -2058,7 +2121,7 @@ class Trainer:
             out["val_top5"] = float(np.average(t[:, 2], weights=size))
         elif self.kind == "ptb":
             out["val_ppl"] = float(np.exp(min(out["val_loss"], 20.0)))
-        else:
+        elif self.kind == "an4":
             ce, chars, we, words = t[:, 1:5].sum(0)
             if chars > 0:
                 out["val_cer"] = float(ce / chars)

@@ -17,7 +17,7 @@ from gtopkssgd_tpu_torch.experiments import run as port_run
 from gtopkssgd_tpu_torch.parallel import dist as port_dist
 
 NAMES = list(experiments.EXPERIMENTS)
-PORT_ONLY = {"device", "resume"}
+PORT_ONLY = {"device", "resume", "model_config", "cuda_allocator"}
 OVERRIDES = ["--nworkers", "4", "--batch-size", "4", "--max-epochs", "3",
              "--eval-batches", "1", "--log-interval", "5"]
 

@@ -16,7 +16,9 @@ from gtopkssgd_tpu.models import available_models as jax_models
 from gtopkssgd_tpu.optimizer import effective_density as jax_density
 from gtopkssgd_tpu.optimizer import wire_k as jax_wire_k
 from gtopkssgd_tpu_torch import benchmark
+from gtopkssgd_tpu_torch.data import PORT_ONLY as PORT_DATASETS
 from gtopkssgd_tpu_torch.data import available_datasets, get_dataset
+from gtopkssgd_tpu_torch.models import PORT_ONLY as PORT_MODELS
 from gtopkssgd_tpu_torch.models import available_models, get_model
 from gtopkssgd_tpu_torch.optimizer import effective_density, wire_k
 from gtopkssgd_tpu_torch.select_probe import layout_sizes
@@ -25,7 +27,9 @@ N = {"resnet20": 272_474, "resnet50": 25_557_032}
 
 
 def test_model_registry_lists_the_jax_zoo():
-    assert available_models() == jax_models()
+    """The JAX zoo, and the language models only the port has."""
+    assert available_models() == sorted(jax_models() + list(PORT_MODELS))
+    assert not set(PORT_MODELS) & set(jax_models())
     assert {"vgg16", "resnet20", "resnet50", "alexnet", "lstm",
             "lstman4"} <= set(available_models())
     with pytest.raises(ValueError):
@@ -33,7 +37,10 @@ def test_model_registry_lists_the_jax_zoo():
 
 
 def test_dataset_registry_lists_the_jax_datasets():
-    assert available_datasets() == jax_datasets()
+    """The JAX datasets, and the token sequences only the port has."""
+    assert available_datasets() == sorted(jax_datasets()
+                                          + list(PORT_DATASETS))
+    assert not set(PORT_DATASETS) & set(jax_datasets())
     assert {"cifar10", "imagenet", "ptb", "an4"} <= set(available_datasets())
     with pytest.raises(ValueError):
         get_dataset("mnist")
