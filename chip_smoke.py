@@ -399,6 +399,8 @@ REPLACES = {
     "fused_multi_threshold_count": "gtopkssgd_tpu/ops/pallas_topk.py:320",
     "multisection_tau_lo[abs]": "gtopkssgd_tpu/ops/pallas_topk.py:96",
     "multisection_tau_lo[residual]": "gtopkssgd_tpu/ops/pallas_topk.py:320",
+    # No Pallas kernel: XLA fuses the JAX step's expressions after tau.
+    "threshold_apply": "none (XLA fuses gtopkssgd_tpu/compression.py:148)",
 }
 
 
@@ -406,6 +408,13 @@ def check_launches(got: dict, want: dict, run: str) -> None:
     """Every wrapper's count as `want` says, and 0 for the others."""
     full = {name: want.get(name, 0) for name in got}
     check(got == full, f"{run}: launches {got}, expected {full}")
+
+
+def p1_launches(kernel, count: int) -> dict:
+    """The launches of `count` selections of a P = 1 sparse step (one a
+    unit a step) whose tau comes from `kernel` (None: a plain-PyTorch
+    method): the kernel's and the threshold apply's, once each."""
+    return {"threshold_apply": count, **({kernel: count} if kernel else {})}
 
 
 class SmokeFailure(Exception):
@@ -479,6 +488,7 @@ def kernel_phase(n: int):
     q = torch.quantile(sample, torch.tensor(
         [0.05, 0.3, 0.5, 0.7, 0.9, 0.99, 0.999], device="cuda"))
     thr = torch.cat([q, mag[:1]]).contiguous()  # one threshold == a datum
+    tau = topk.select_tau(g, k, "auto", residual=r)  # the step's own tau
     nb = max(1, -(-n // cuda_topk.BLOCK))
     L = nb * groups * cuda_topk.LANES
     tile = (nb, groups, cuda_topk.BLOCK_ROWS // groups, cuda_topk.LANES)
@@ -533,6 +543,18 @@ def kernel_phase(n: int):
                 mag, k, cuda_topk.multi_threshold_count)[0],
             lib=lambda: torch.topk(acc.abs(), k),
             bytes=4 * n + 260, ops=34 * n),
+        # Read g and r; write residual, update, keep (1 B) and acc: 21 B
+        # an element, 17 without acc. Operations: the add, abs, two
+        # compares, the select, the subtraction and the minimum. No one
+        # PyTorch call computes it (the twin is ten).
+        "threshold_apply": dict(
+            run=lambda: cuda_topk.threshold_apply(g, r, tau, True),
+            ref=lambda: cuda_topk.threshold_apply_ref(g, r, tau, True),
+            bytes=21 * n + 8, ops=7 * n),
+        "threshold_apply[no acc]": dict(
+            run=lambda: cuda_topk.threshold_apply(g, r, tau, False),
+            ref=lambda: cuda_topk.threshold_apply_ref(g, r, tau, False),
+            bytes=17 * n + 8, ops=7 * n),
     }
     out = {}
     for name, c in cases.items():
@@ -555,7 +577,7 @@ def kernel_phase(n: int):
         rec = dict(n=n, groups=groups if "stage1" in name else None,
                    max_abs_err=err, ms=device_ms(c["run"]),
                    plain_ms=device_ms(c["ref"]), bound_ms=bnd, bound_by=by,
-                   library_ms=device_ms(c["lib"]))
+                   library_ms=device_ms(c["lib"]) if "lib" in c else None)
         extra = ""
         if "old" in c:
             lo_old = c["old"]()
@@ -564,9 +586,11 @@ def kernel_phase(n: int):
                   f"path's {float(lo_old)!r}")
             rec["replaced_ms"] = device_ms(c["old"])
             extra = f" replaced_ms={rec['replaced_ms']:.5f} (== its lo)"
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.5f}")
         print(f"kernel {name:32s} n={n:>10,d} match=bitwise "
               f"ms={rec['ms']:.5f} plain_ms={rec['plain_ms']:.5f} "
-              f"library_ms={rec['library_ms']:.5f} "
+              f"library_ms={lib} "
               f"bound_ms={rec['bound_ms']:.5f} ({by}){extra}")
         out[name] = rec
     bad = stage1_mismatch(g, None, groups)
@@ -584,8 +608,9 @@ def leaf_sizes() -> list:
 
 
 def leaf_phase() -> None:
-    """K2 and the multisection kernel (abs and residual mode) against
-    their twins, bitwise and untimed, at every size of ``leaf_sizes``,
+    """K2, the multisection kernel (abs and residual mode) and the
+    threshold apply against their twins, bitwise and untimed, at every
+    size of ``leaf_sizes``,
     with the k and groups the per-leaf selection gives them, on a leaf at
     an odd offset into its buffer (as a layout's leaf views are)."""
     import torch
@@ -598,6 +623,7 @@ def leaf_phase() -> None:
         g, r = buf[1:n + 1], 0.3 * buf[n + 1:]
         k = topk.k_for_density(n, 0.001)
         groups = topk._twostage_pallas_groups(n, k)
+        tau = topk.select_tau(g, k, "auto", residual=r)
         pairs = (
             (cuda_topk.fused_stage1_candidates(g, None, r, groups=groups),
              cuda_topk.fused_stage1_candidates_ref(g, None, r,
@@ -605,10 +631,12 @@ def leaf_phase() -> None:
             (cuda_topk.multisection_tau_lo(g, k, r),
              cuda_topk.multisection_tau_lo_ref(g, k, r)),
             (cuda_topk.multisection_tau_lo(g + r, k),
-             cuda_topk.multisection_tau_lo_ref(g + r, k)))
+             cuda_topk.multisection_tau_lo_ref(g + r, k)),
+            (cuda_topk.threshold_apply(g, r, tau, True),
+             cuda_topk.threshold_apply_ref(g, r, tau, True)))
         for name, (got, want) in zip(
                 ("fused_stage1_candidates", "multisection_tau_lo[residual]",
-                 "multisection_tau_lo[abs]"), pairs):
+                 "multisection_tau_lo[abs]", "threshold_apply"), pairs):
             for a, b in zip(got, want):
                 if a is None or b is None:
                     check(a is None and b is None, f"{name} n={n}: outputs")
@@ -616,7 +644,8 @@ def leaf_phase() -> None:
                 check(a.dtype == b.dtype and torch.equal(a, b),
                       f"{name} leaf n={n} k={k}: kernel != twin")
         print(f"kernel leaf n={n:>9,d} k={k} groups={groups}: stage-1, "
-              "multisection abs and residual match=bitwise (not timed)")
+              "multisection abs and residual, threshold apply "
+              "match=bitwise (not timed)")
 
 
 def stage1_edge_phase() -> int:
@@ -636,6 +665,23 @@ def stage1_edge_phase() -> int:
               ": match=bitwise, residual on and off, counts off and on")
         cases += 1
     cases += multisection_nan_phase()
+    cases += apply_edge_phase()
+    return cases
+
+
+def apply_edge_phase() -> int:
+    """The threshold apply against its twin, bitwise (NaNs as bits), acc
+    asked for and not, on every ``stage1_design.apply_cases`` case; returns
+    the number of cases."""
+    from gtopkssgd_tpu_torch.stage1_design import apply_cases, apply_mismatch
+
+    cases = 0
+    for label, src, res_in, tau in apply_cases("cuda"):
+        bad = apply_mismatch(src, res_in, tau)
+        check(bad is None, f"threshold_apply {label}: {bad}")
+        print(f"kernel threshold_apply edge {label}: match=bitwise, acc on "
+              "and off")
+        cases += 1
     return cases
 
 
@@ -1108,7 +1154,8 @@ def correction_phase() -> dict:
     launches = dict(cuda_topk.launches)
     check(all(math.isfinite(v) for v in losses),
           f"{run}: non-finite loss {losses}")
-    check_launches(launches, {"fused_stage1_candidates": steps - warmup},
+    check_launches(launches,
+                   p1_launches("fused_stage1_candidates", steps - warmup),
                    f"{run}, {steps} steps")
     print(f"options {run}: {steps} steps, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, launches {launches}; warm-up steps dense "
@@ -1127,7 +1174,8 @@ def correction_phase() -> dict:
     run = "P=1 gtopk/pallas correction"
     check(all(math.isfinite(v) for v in losses),
           f"{run}: non-finite loss {losses}")
-    check_launches(launches, {"multisection_tau_lo[residual]": 5},
+    check_launches(launches,
+                   p1_launches("multisection_tau_lo[residual]", 5),
                    f"{run}, 5 steps")
     print(f"options {run}: 5 steps, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, launches {launches}")
@@ -1290,7 +1338,7 @@ def model_phase(runs, dist) -> dict:
     for dnn, dnn_runs in runs:
         for method, compression, steps in dnn_runs:
             launches, trainer = train_run(method, compression, steps, dnn)
-            check_launches(launches, {want[method]: steps}
+            check_launches(launches, p1_launches(want[method], steps)
                            if compression == "gtopk" else {},
                            f"{dnn} P=1 {compression}/{method}, {steps} "
                            "steps")
@@ -1411,7 +1459,7 @@ def layerwise_phase() -> dict:
                                       "resnet50")
         leaves = len(trainer.layout.sizes)
         check(leaves == 161, f"resnet50 has {leaves} leaves, not 161")
-        check_launches(launches, {want[method]: steps * leaves},
+        check_launches(launches, p1_launches(want[method], steps * leaves),
                        f"resnet50 P=1 gtopk_layerwise/{method}, {steps} "
                        "steps")
         for name in REPLACES:
@@ -1877,7 +1925,8 @@ def bf16_phase() -> dict:
                     stats = t.train(steps)
                     launches = dict(cuda_topk.launches)
                     check_launches(launches,
-                                   {"fused_stage1_candidates": steps},
+                                   p1_launches("fused_stage1_candidates",
+                                               steps),
                                    f"{dnn} {dtype}")
                     for name in REPLACES:
                         total[name] += launches[name]
@@ -1993,8 +2042,8 @@ def dispatch_phase() -> dict:
                   f"{graph['ms']:.3f} ms at K={DISPATCH_K}")
             check(same, f"{run}: graph != eager (max diff {diff})")
             for res in (eager, graph):
-                check_launches(res["launches"], {kernel: DISPATCH_STEPS},
-                               f"{run}")
+                check_launches(res["launches"],
+                               p1_launches(kernel, DISPATCH_STEPS), f"{run}")
                 for name in REPLACES:
                     total[name] += res["launches"][name]
     finally:
@@ -2154,7 +2203,7 @@ def jpeg_phase() -> dict:
         check(all(math.isfinite(v) for v in r["losses"] + [r["val_loss"]]),
               f"jpeg workers={w}: losses {r['losses']}")
         check_launches(r["launches"],
-                       {"fused_stage1_candidates": JPEG_STEPS},
+                       p1_launches("fused_stage1_candidates", JPEG_STEPS),
                        f"jpeg workers={w}")
         for name in REPLACES:
             total[name] += r["launches"][name]
@@ -2608,7 +2657,8 @@ def obs_phase() -> dict:
         try:
             launches, eager, eager_ms, names = obs_eager(
                 "resnet50", "twostage", d["eager"])
-            check_launches(launches, {"fused_stage1_candidates": OBS_STEPS},
+            check_launches(launches,
+                           p1_launches("fused_stage1_candidates", OBS_STEPS),
                            "phase 13a resnet50 twostage eager")
             with Trainer(TrainConfig(dnn="resnet50", topk_method="twostage",
                                      out_dir=d["graph"], device="cuda",
@@ -2626,7 +2676,8 @@ def obs_phase() -> dict:
                       "plain step's)")
         finally:
             deterministic(False)
-        check_launches(counted, {"fused_stage1_candidates": OBS_STEPS},
+        check_launches(counted,
+                       p1_launches("fused_stage1_candidates", OBS_STEPS),
                        "phase 13a resnet50 twostage graph")
         graph = [json.loads(line) for line in
                  open(os.path.join(d["graph"], "metrics.jsonl"))]
@@ -2651,7 +2702,8 @@ def obs_phase() -> dict:
         # ResNet-20 pallas: the multisection kernel under the counters.
         launches, _, ms, _ = obs_eager("resnet20", "pallas", d["pallas"])
         check_launches(launches,
-                       {"multisection_tau_lo[residual]": OBS_STEPS},
+                       p1_launches("multisection_tau_lo[residual]",
+                                   OBS_STEPS),
                        "phase 13a resnet20 pallas eager")
         for name, n in launches.items():
             total[name] += n
@@ -2883,7 +2935,8 @@ def trace_phase(k2: float = None) -> dict:
                 **TRACE_BASE)) as t:
             t.train(TRACE_STEPS)
         launches = dict(cuda_topk.launches)
-        check_launches(launches, {"fused_stage1_candidates": TRACE_STEPS},
+        check_launches(launches,
+                       p1_launches("fused_stage1_candidates", TRACE_STEPS),
                        "phase 14a resnet50 twostage eager")
         for name, n in launches.items():
             total[name] += n
@@ -2927,7 +2980,8 @@ def trace_phase(k2: float = None) -> dict:
                 **TRACE_BASE)) as t:
             t.train(4)
         launches = dict(cuda_topk.launches)
-        check_launches(launches, {"multisection_tau_lo[residual]": 4},
+        check_launches(launches,
+                       p1_launches("multisection_tau_lo[residual]", 4),
                        "phase 14a resnet20 pallas")
         for name, n in launches.items():
             total[name] += n
@@ -2961,7 +3015,8 @@ def trace_phase(k2: float = None) -> dict:
                        for name, n in cuda_topk.launches.items()}
             check(g.dispatch == "graph" and gs["captures"] >= 1,
                   f"14b: dispatch {g.dispatch}, captures {gs['captures']}")
-        check_launches(counted, {"fused_stage1_candidates": TRACE_STEPS},
+        check_launches(counted,
+                       p1_launches("fused_stage1_candidates", TRACE_STEPS),
                        "phase 14b resnet50 twostage graph")
         for name, n in counted.items():
             total[name] += n
@@ -3379,8 +3434,8 @@ def experiments_phase() -> dict:
             tagged = [line for line in out.splitlines()
                       if line.startswith(LAUNCHES_TAG)]
             got = json.loads(tagged[-1][len(LAUNCHES_TAG):])
-            check_launches(got, {"fused_stage1_candidates":
-                                 EXPERIMENT_STEPS}, "16a")
+            check_launches(got, p1_launches("fused_stage1_candidates",
+                                            EXPERIMENT_STEPS), "16a")
             for name, n in got.items():
                 total[name] += n
         else:
@@ -3475,15 +3530,18 @@ def gate_arm(device, compression: str, method: str, extra: dict,
                 seconds=time.perf_counter() - t0)
 
 
-def gate_launches(method: str, p: int) -> dict:
+def gate_launches(compression: str, method: str, p: int) -> dict:
     """The launches an arm's `GATE_STEPS` steps must count on each rank:
     the stage-1 kernel once a step under ``twostage`` and ``approx``, the
     multisection kernel once a step under ``pallas`` (residual mode at P =
-    1, abs mode above), nothing else."""
+    1, abs mode above), and at P = 1 in a sparse mode the threshold apply
+    once a step; nothing else."""
     name = {"twostage": "fused_stage1_candidates",
             "approx": "fused_stage1_candidates",
             "pallas": ("multisection_tau_lo[residual]" if p == 1
                        else "multisection_tau_lo[abs]")}.get(method)
+    if p == 1 and compression != "dense":
+        return p1_launches(name, GATE_STEPS)
     return {name: GATE_STEPS} if name else {}
 
 
@@ -3495,7 +3553,7 @@ def gate_checks(p: int, arms, ranks, total: dict) -> None:
     for i, (name, compression, method, _) in enumerate(arms):
         run = f"gate P={p} {name}"
         got = [r[i] for r in ranks]
-        want = gate_launches(method, p)
+        want = gate_launches(compression, method, p)
         for r, rec in enumerate(got):
             check_launches(rec["launches"], want, f"{run} rank {r}")
             for kernel in REPLACES:
@@ -3569,7 +3627,7 @@ def real_cifar_phase() -> dict:
               "CPU loader's")
     check(all(math.isfinite(v) for v in losses),
           f"real cifar: non-finite loss {losses}")
-    check_launches(launches, {"fused_stage1_candidates": 2},
+    check_launches(launches, p1_launches("fused_stage1_candidates", 2),
                    "real cifar twostage, 2 steps")
     print(f"real cifar: {len(t.train_data.images)} train images from "
           f"{REAL_CIFAR}, the first batch on the card bitwise the CPU "
@@ -3629,9 +3687,9 @@ def main() -> int:
     runs = [train_run("twostage", "gtopk", 20)[0],
             train_run("pallas", "gtopk", 10)[0],
             train_run("exact", "dense", 10)[0]]
-    check_launches(runs[0], {"fused_stage1_candidates": 20},
+    check_launches(runs[0], p1_launches("fused_stage1_candidates", 20),
                    "P=1 twostage, 20 steps")
-    check_launches(runs[1], {"multisection_tau_lo[residual]": 10},
+    check_launches(runs[1], p1_launches("multisection_tau_lo[residual]", 10),
                    "P=1 pallas, 10 steps")
     check_launches(runs[2], {}, "P=1 dense, 10 steps")
     total = {name: sum(r[name] for r in runs) for name in REPLACES}

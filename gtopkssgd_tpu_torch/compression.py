@@ -8,8 +8,9 @@ saved in its state_dict). Per step:
     res''           = repair(res', vals, idx, gidx)       (error-feedback fix)
 
 or, where no index set is needed (one worker), the mask form
-``compress_by_threshold``. The functions return new tensors and leave
-their inputs alone.
+``compress_by_threshold``, and ``threshold_step``, which also gives the
+update, all after tau in one pass (``ops.cuda_topk.threshold_apply``).
+The functions return new tensors and leave their inputs alone.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from gtopkssgd_tpu_torch.ops import (
     select_tau,
     select_topk,
 )
+from gtopkssgd_tpu_torch.ops.cuda_topk import threshold_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,12 +90,21 @@ class TopKCompressor:
                              residual=residual)
         else:
             tau = select_tau(acc, self.k(n), self.method)
-        mag = acc.abs()
-        keep = (mag >= tau) & (mag > 0.0)
-        kept_tau = torch.where(keep, mag, torch.inf).min()
-        kept_tau = torch.where(torch.isfinite(kept_tau), kept_tau,
-                               torch.zeros_like(kept_tau))
-        return keep, torch.where(keep, torch.zeros_like(acc), acc), kept_tau
+        keep, residual_out, _, kept_tau, _ = threshold_apply(acc, None, tau)
+        return keep, residual_out, kept_tau
+
+    def threshold_step(
+        self, grad: torch.Tensor, residual: torch.Tensor, *,
+        want_acc: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+               Optional[torch.Tensor]]:
+        """(keep, residual, update, kept_tau, acc | None): the mask form of
+        ``compress_by_threshold`` over acc = grad + residual, tau from the
+        unfused operands, and the update acc - residual, all after tau in
+        one pass; acc itself only with `want_acc`."""
+        tau = select_tau(grad, self.k(grad.shape[0]), self.method,
+                         residual=residual)
+        return threshold_apply(grad, residual, tau, want_acc)
 
     def repair(
         self,

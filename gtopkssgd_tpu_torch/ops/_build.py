@@ -36,6 +36,8 @@ SIGNATURES = {
     "gtopk_multisection": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP],
     "gtopk_noop": [_VP],
     "gtopk_bytes_floor": [_VP, _VP, _LL, _VP, _VP, _LL, _VP],
+    "gtopk_threshold_apply": [_VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
+                              _VP],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Wrappers of the CUDA top-k kernels, each beside its plain PyTorch twin.
 
-Counterpart of ``gtopkssgd_tpu/ops/pallas_topk.py``. Four functions, three
+Counterpart of ``gtopkssgd_tpu/ops/pallas_topk.py``. Five functions, four
 kernels (``csrc/topk_kernels.cu``):
 
 * ``multi_threshold_count(mag, thr)`` -- ``counts[i] = #{j : mag[j] >=
@@ -17,6 +17,10 @@ kernels (``csrc/topk_kernels.cu``):
   and the narrowing between them, in one cooperative launch. The selection
   path calls this one; the two single-pass wrappers above stay as the
   one-for-one ports of the TPU functions.
+* ``threshold_apply(src, res_in, tau, want_acc)`` -- the P = 1 step after
+  tau in one pass: keep, residual, update, kept_tau (and acc) of acc =
+  src (+ res_in). It ports no TPU kernel (XLA fuses these expressions); in
+  plain PyTorch they are ten passes over the vector.
 
 ``launch_floor(device)`` launches an empty kernel through the same route:
 what a launch costs with no work in it.
@@ -69,6 +73,7 @@ launches: Dict[str, int] = {
     "fused_multi_threshold_count": 0,
     "multisection_tau_lo[abs]": 0,
     "multisection_tau_lo[residual]": 0,
+    "threshold_apply": 0,
 }
 
 
@@ -134,6 +139,27 @@ def multisection_tau_lo_ref(
     lo, thrs, counts = multisection_rounds(
         acc.abs(), k, multi_threshold_count_ref)
     return lo, torch.stack(thrs), torch.stack(counts)
+
+
+def threshold_apply_ref(
+    src: torch.Tensor, res_in: Optional[torch.Tensor], tau: torch.Tensor,
+    want_acc: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           Optional[torch.Tensor]]:
+    """(keep bool[N], residual f32[N], update f32[N], kept_tau f32[], acc
+    f32[N] | None) of acc = src (+ res_in): keep = |acc| >= tau and |acc|
+    > 0 (ties at tau pass, zeros never), residual = where(keep, 0, acc),
+    update = acc - residual, kept_tau the least kept |acc| (0 if none is
+    kept or it is inf); acc only with `want_acc`."""
+    acc = src if res_in is None else src + res_in
+    mag = acc.abs()
+    keep = (mag >= tau) & (mag > 0.0)
+    kept_tau = torch.where(keep, mag, torch.inf).min()
+    kept_tau = torch.where(torch.isfinite(kept_tau), kept_tau,
+                           torch.zeros_like(kept_tau))
+    residual = torch.where(keep, torch.zeros_like(acc), acc)
+    return keep, residual, acc - residual, kept_tau, (acc if want_acc
+                                                      else None)
 
 
 def fused_stage1_candidates_ref(
@@ -356,3 +382,45 @@ def multisection_tau_lo(
     mode = "abs" if residual is None else "residual"
     launches[f"multisection_tau_lo[{mode}]"] += 1
     return lo, thr, counts
+
+
+def threshold_apply(
+    src: torch.Tensor, res_in: Optional[torch.Tensor], tau: torch.Tensor,
+    want_acc: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           Optional[torch.Tensor]]:
+    """What `threshold_apply_ref` gives, bitwise, in one launch: src and
+    res_in read once; residual, update, keep and (with `want_acc`) acc
+    written once; tau (f32[], on the device) read by the kernel. No host
+    read, so a CUDA graph can capture it."""
+    if src.device.type == "cpu":
+        return threshold_apply_ref(src, res_in, tau, want_acc)
+    from gtopkssgd_tpu_torch.ops import _build
+
+    n = src.shape[0]
+    if n < 1:
+        raise ValueError("threshold_apply needs n >= 1")
+    _check("src", src, torch.float32, src.device)
+    if res_in is not None:
+        _check("res_in", res_in, torch.float32, src.device, n)
+    _check("tau", tau.reshape(1), torch.float32, src.device, 1)
+    lib = _build.load()
+    with torch.cuda.device(src.device):  # the launch uses the current context
+        keep = torch.empty(n, dtype=torch.bool, device=src.device)
+        residual = torch.empty(n, dtype=torch.float32, device=src.device)
+        update = torch.empty(n, dtype=torch.float32, device=src.device)
+        acc = (torch.empty(n, dtype=torch.float32, device=src.device)
+               if want_acc else None)
+        kept_tau = torch.full((), torch.inf, dtype=torch.float32,
+                              device=src.device)
+        rc = lib.gtopk_threshold_apply(
+            src.data_ptr(),
+            None if res_in is None else res_in.data_ptr(), n,
+            tau.data_ptr(), keep.data_ptr(), residual.data_ptr(),
+            update.data_ptr(), None if acc is None else acc.data_ptr(),
+            kept_tau.data_ptr(), _stream(src.device))
+    _raise_on(rc, "threshold_apply")
+    launches["threshold_apply"] += 1
+    # +inf (nothing kept, or only infinities) -> 0, the twin's isfinite
+    # rule in one launch: the word is never NaN or -inf.
+    return keep, residual, update, kept_tau.nan_to_num(posinf=0.0), acc

@@ -23,8 +23,9 @@ optimizer, its telemetry included. One step:
    residual (and u) pass through unchanged;
 4. sparse, at P = 1: acc = src + residual; keep = |acc| >= tau by the
    threshold-mask compressor (the selection reads src and residual
-   unfused); residual = where(keep, 0, acc); u = where(keep, 0, u); the
-   update is acc - residual. At P > 1: the local set (vals, idx) =
+   unfused); residual = where(keep, 0, acc); the update is acc - residual
+   (all after tau in one pass, ``TopKCompressor.threshold_step``); u =
+   where(keep, 0, u). At P > 1: the local set (vals, idx) =
    compress(acc) in index form; a lossy wire codec's round-trip error is
    folded into the residual and the roundtripped values ship (not in mode
    ``topk``); u is zeroed at the local picks; then ``gtopk`` and
@@ -784,17 +785,15 @@ class GTopKSGD(torch.optim.SGD):
         keep mask, or the local and global sets or the union."""
         if self.p > 1:
             return self._merge(self._select(src, res_in, u))
-        comp = self.compressor
         with record_function("select"):
-            acc = comp.accumulate(src, res_in)
-            keep, residual, tau = comp.compress_by_threshold(
-                acc, grad=src, residual=res_in)
+            keep, residual, update, tau, acc = self.compressor.threshold_step(
+                src, res_in, want_acc=self.telemetry)
             if u is not None:  # every local pick is delivered at P = 1
                 u = torch.where(keep, torch.zeros_like(u), u)
         info = {"keep": keep}
         if self.telemetry:
             info.update(acc=acc, tau=tau)
-        return acc - residual, residual, u, info
+        return update, residual, u, info
 
     def _select(self, src: torch.Tensor, res_in: torch.Tensor,
                 u: Optional[torch.Tensor]) -> dict:

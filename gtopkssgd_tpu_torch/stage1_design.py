@@ -26,7 +26,9 @@ launch (``launch_floor``) and the bytes floor: the same bytes read and
 written by one float4 a thread with no selection (``gtopk_bytes_floor``).
 
 ``edge_cases`` and ``stage1_mismatch`` also serve ``chip_smoke.py`` and the
-card tests. Needs a CUDA card to run as a script.
+card tests, as ``apply_cases`` and ``apply_mismatch`` do for the threshold
+apply (``cuda_topk.threshold_apply``). Needs a CUDA card to run as a
+script.
 """
 
 from __future__ import annotations
@@ -155,6 +157,103 @@ def edge_cases(device: torch.device | str,
         g, r = tie_input(272_474, groups, seed)
         yield "n=272474 ties", dev(g), dev(r), groups
     yield from nan_cases(device, seed)
+
+
+def apply_input(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(grad, residual) f32[n], normal draws with the special values of the
+    threshold apply at the front: NaN in either operand, +-inf, inf + -inf,
+    -0.0 + -0.0, 0.0 + -0.0, a value that cancels to +0.0, a residual
+    that cancels the gradient, and an inf that a finite residual cannot
+    move. n >= 16."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(n).astype(np.float32)
+    r = (0.3 * rng.standard_normal(n)).astype(np.float32)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    specials = ((nan, 0.5), (0.5, nan), (nan, nan), (inf, 0.0), (-inf, 1.0),
+                (inf, -inf), (-0.0, -0.0), (0.0, -0.0), (-0.0, 0.0),
+                (2.5, -2.5), (-3.0, 0.0), (inf, 2.0), (-inf, -inf),
+                (np.copysign(nan, np.float32(-1.0)), 0.25), (1e-38, 0.0),
+                (0.0, 0.0))
+    for i, (a, b) in enumerate(specials):
+        g[i], r[i] = a, b
+    return g, r
+
+
+# The labels of ``apply_cases``, in order.
+APPLY_CASES = ("n=272474", "n=262147 unaligned x[1:]", "n=1", "n=3", "n=6",
+               "no residual n=262146", "nan inf -0", "nan inf -0 x[1:]",
+               "tau 0", "ties", "all zero", "tau inf", "tau nan", "all nan")
+
+
+def apply_cases(device: torch.device | str, seed: int = 0
+                ) -> Iterator[Tuple[str, torch.Tensor,
+                                    Optional[torch.Tensor], torch.Tensor]]:
+    """(label, src, res_in, tau) on `device`, one for each of APPLY_CASES:
+    sizes with every remainder mod 4 and views one float into their
+    buffers; tau equal to a datum's magnitude (ties at tau), 0 (with exact
+    zeros and -0.0), +inf and NaN; no residual; NaNs, infinities and signed
+    zeros in both operands (``apply_input``)."""
+    rng = np.random.default_rng(seed)
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def tau(v: float) -> torch.Tensor:
+        return dev(np.array(v, np.float32))
+
+    def normal(n: int):
+        return (rng.standard_normal(n).astype(np.float32),
+                (0.3 * rng.standard_normal(n)).astype(np.float32))
+
+    g, r = normal(272_474)
+    yield "n=272474", dev(g), dev(r), tau(abs(g[7] + r[7]))
+    g, r = normal(262_148)
+    yield ("n=262147 unaligned x[1:]", dev(g)[1:], dev(r)[1:],
+           tau(abs(g[100] + r[100])))
+    for n in (1, 3, 6):
+        g, r = normal(n)
+        yield f"n={n}", dev(g), dev(r), tau(abs(g[0] + r[0]))
+    g, _ = normal(262_146)
+    yield "no residual n=262146", dev(g), None, tau(abs(g[5]))
+    g, r = apply_input(272_474, seed)
+    yield "nan inf -0", dev(g), dev(r), tau(1.5)
+    g, r = apply_input(262_147, seed + 1)
+    yield "nan inf -0 x[1:]", dev(g)[1:], dev(r)[1:], tau(1.5)
+    g, r = apply_input(100_003, seed + 2)
+    g[rng.random(g.shape[0]) < 0.3] = 0.0
+    r[g == 0.0] = rng.choice(np.array([0.0, -0.0], np.float32),
+                             int((g == 0.0).sum()))
+    yield "tau 0", dev(g), dev(r), tau(0.0)
+    g, r = tie_input(262_144, 8, seed)
+    yield "ties", dev(g), dev(r), tau(2.0)
+    z = np.zeros(100_001, np.float32)
+    z[1::2] = -0.0
+    yield "all zero", dev(z), dev(z.copy()), tau(0.0)
+    g, r = apply_input(50_000, seed + 3)
+    yield "tau inf", dev(g), dev(r), tau(np.inf)
+    yield "tau nan", dev(g), dev(r), tau(np.nan)
+    yield ("all nan", dev(np.full(1000, np.nan, np.float32)),
+           dev(normal(1000)[1]), tau(0.5))
+
+
+def apply_mismatch(src: torch.Tensor, res_in: Optional[torch.Tensor],
+                   tau: torch.Tensor) -> Optional[str]:
+    """None when ``threshold_apply`` gives its twin's five outputs bitwise
+    (NaNs as bits), with acc asked for and not; else what differs."""
+    names = ("keep", "residual", "update", "kept_tau", "acc")
+    for want_acc in (True, False):
+        got = cuda_topk.threshold_apply(src, res_in, tau, want_acc)
+        want = cuda_topk.threshold_apply_ref(src, res_in, tau, want_acc)
+        for name, a, b in zip(names, got, want):
+            if (a is None) != (b is None):
+                return f"{name} (want_acc {want_acc}): one side is None"
+            if a is not None and not same_bits(a, b):
+                at = (bits(a) != bits(b)).reshape(-1).nonzero()[:4]
+                at = at.flatten().tolist()
+                return (f"{name} differs (want_acc {want_acc}) at {at}: "
+                        f"{a.reshape(-1)[at].tolist()} vs twin "
+                        f"{b.reshape(-1)[at].tolist()}")
+    return None
 
 
 def thresholds_for(mag: torch.Tensor) -> torch.Tensor:

@@ -182,7 +182,11 @@ def test_graph_dispatch_equals_eager_steps_on_card(method, steps, captures):
     kernel = {"twostage": "fused_stage1_candidates",
               "pallas": "multisection_tau_lo[residual]"}[method]
     assert stats["replays"] == steps - 1 and stats["captures"] == captures
-    assert stats["captured"] == {kernel: captures}
-    assert stats["replayed"] == {kernel: steps - 1}
+    # the selection's kernel and the threshold apply, once a step each
+    assert stats["captured"] == {kernel: captures,
+                                 "threshold_apply": captures}
+    assert stats["replayed"] == {kernel: steps - 1,
+                                 "threshold_apply": steps - 1}
     # the first step's launch and one a record
     assert cuda_topk.launches[kernel] == 1 + captures
+    assert cuda_topk.launches["threshold_apply"] == 1 + captures

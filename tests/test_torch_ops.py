@@ -8,6 +8,8 @@ construction, and the values are copies of input elements or single f32
 adds, so no tolerance applies anywhere in this file.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,9 +121,51 @@ def test_wrappers_take_the_twin_for_cpu_tensors():
     cuda_topk.multi_threshold_count(x.abs(), thr)
     cuda_topk.fused_multi_threshold_count(x, thr, x)
     cuda_topk.fused_stage1_candidates(x, thr, x, groups=8)
+    cuda_topk.threshold_apply(x, x, thr[3], True)
     assert set(cuda_topk.launches.values()) == {0}
     with pytest.raises(ValueError, match="must divide"):
         cuda_topk.fused_stage1_candidates(x, groups=3)
+
+
+def _apply_before(src, res_in, tau):
+    """The P = 1 step after tau as the optimizer computed it before the
+    one-pass apply: ``accumulate``, ``compress_by_threshold``'s masks and
+    kept tau, then ``acc - residual``."""
+    acc = src if res_in is None else src + res_in
+    mag = acc.abs()
+    keep = (mag >= tau) & (mag > 0.0)
+    kept_tau = torch.where(keep, mag, torch.inf).min()
+    kept_tau = torch.where(torch.isfinite(kept_tau), kept_tau,
+                           torch.zeros_like(kept_tau))
+    residual = torch.where(keep, torch.zeros_like(acc), acc)
+    return keep, residual, acc - residual, kept_tau, acc
+
+
+def _case_id(label: str) -> str:
+    return re.sub(r"[^0-9A-Za-z=-]+", "_", label)
+
+
+@pytest.mark.parametrize("case", stage1_design.APPLY_CASES, ids=_case_id)
+def test_threshold_apply_twin_bitwise(case):
+    """The threshold apply's twin (what ``threshold_apply`` runs on CPU
+    tensors, and what the kernel is held to on the card) bitwise, NaNs as
+    bits, against the expressions it replaced, with and without acc."""
+    src, res_in, tau = next(c[1:] for c in stage1_design.apply_cases("cpu")
+                            if c[0] == case)
+    want = _apply_before(src, res_in, tau)
+    for want_acc in (True, False):
+        got = cuda_topk.threshold_apply(src, res_in, tau, want_acc)
+        for name, a, b in zip(("keep", "residual", "update", "kept_tau"),
+                              got, want):
+            assert stage1_design.same_bits(a, b), (case, name)
+        assert (got[4] is None) != want_acc
+        if want_acc:
+            assert stage1_design.same_bits(got[4], want[4])
+    # The partition: a kept entry moves whole into the update.
+    keep, residual, update, kept_tau, _ = got
+    assert torch.equal(update[keep], want[4][keep])
+    assert bool((residual[keep] == 0).all())
+    assert float(kept_tau) >= 0.0
 
 
 @pytest.mark.parametrize("n,k", [(5000, 50), (300_000, 300)])

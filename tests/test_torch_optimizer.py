@@ -8,6 +8,8 @@ the SGD sums (g + wd*p, momentum*buf + g, p - lr*buf) may be fused into
 FMAs differently by XLA and by PyTorch, an ulp per step.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +17,11 @@ import optax
 import pytest
 import torch
 
+from gtopkssgd_tpu import compression as jcompression
 from gtopkssgd_tpu.compression import TopKCompressor as JaxTopK
 from gtopkssgd_tpu.optimizer import gtopk_sgd
+from gtopkssgd_tpu_torch import compression as tcompression
+from gtopkssgd_tpu_torch import stage1_design
 from gtopkssgd_tpu_torch.compression import (
     NoneCompressor,
     TopKCompressor,
@@ -77,6 +82,59 @@ def test_compress_by_threshold_bitwise(method, monkeypatch):
     # Mass conservation: kept + residual == acc, elementwise.
     kept = torch.where(tk, acc_t, torch.zeros_like(acc_t))
     assert torch.equal(kept + tres, acc_t)
+
+
+def _flush_subnormals(a: np.ndarray) -> np.ndarray:
+    tiny = np.finfo(np.float32).tiny
+    return np.where(np.abs(a) < tiny, np.float32(0.0) * np.sign(a),
+                    a).astype(np.float32)
+
+
+def _same_floats(got: np.ndarray, want: np.ndarray) -> None:
+    """Equal values, NaN where NaN, and the same sign of every zero."""
+    np.testing.assert_array_equal(got, want)
+    both = ~np.isnan(want)
+    np.testing.assert_array_equal(np.signbit(got[both]),
+                                  np.signbit(want[both]))
+
+
+@pytest.mark.parametrize("case", stage1_design.APPLY_CASES,
+                         ids=lambda c: re.sub(r"[^0-9A-Za-z=-]+", "_", c))
+def test_threshold_step_matches_jax_on_edge_cases(case, monkeypatch):
+    """``threshold_step`` (the P = 1 step's one call) and
+    ``compress_by_threshold`` against the JAX compressor's
+    ``compress_by_threshold`` and its step's ``acc - residual``, given the
+    same tau on both sides, on the threshold apply's edge cases: NaN, +-inf
+    and signed zeros in either operand, tau 0, +inf and NaN, ties at tau,
+    all zeros, no residual, views at an odd offset, every n mod 4. XLA on
+    the CPU flushes subnormals to zero where PyTorch keeps them (the card
+    test holds a subnormal to the twin), so both sides get the inputs with
+    subnormals flushed."""
+    src, res_in, tau = next(c[1:] for c in stage1_design.apply_cases("cpu")
+                            if c[0] == case)
+    g = _flush_subnormals(src.numpy())
+    r = None if res_in is None else _flush_subnormals(res_in.numpy())
+    t = np.float32(tau.numpy())
+    monkeypatch.setattr(jcompression, "select_tau",
+                        lambda *a, **kw: jnp.float32(t))
+    monkeypatch.setattr(tcompression, "select_tau",
+                        lambda *a, **kw: torch.tensor(t))
+    jg = jnp.asarray(g)
+    jacc = jg if r is None else jg + jnp.asarray(r)
+    jk, jres, jtau = JaxTopK(density=0.01, method="exact") \
+        .compress_by_threshold(jacc, grad=jg,
+                               residual=None if r is None else jnp.asarray(r))
+    tc = TopKCompressor(density=0.01, method="exact")
+    tg, tr = _t(g), None if r is None else _t(r)
+    keep, res, upd, kept_tau, acc = tc.threshold_step(tg, tr, want_acc=True)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jk))
+    _same_floats(res.numpy(), np.asarray(jres))
+    _same_floats(upd.numpy(), np.asarray(jacc - jres))
+    _same_floats(acc.numpy(), np.asarray(jacc))
+    assert kept_tau.numpy() == np.asarray(jtau)
+    ck, cres, ctau = tc.compress_by_threshold(acc)
+    assert torch.equal(ck, keep) and ctau.numpy() == np.asarray(jtau)
+    _same_floats(cres.numpy(), np.asarray(jres))
 
 
 def test_compress_by_threshold_tau_zero_keeps_only_nonzeros():
