@@ -29,7 +29,7 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    round loop counting with the single-pass count kernel), whose lo must
    be bitwise equal and whose time is reported as ``replaced_ms``. The
    stage-1 kernel is also held to its twin, not timed, without the
-   residual at both sizes, and on ``stage1_design.edge_cases``: n in {1,
+   residual at both sizes, and on ``kernel_cases.edge_cases``: n in {1,
    127, 1000, 262,143, 262,145} x groups in {1, 8, 64, 2048}, views one
    float into their buffers (4-byte loads), equal maxima of opposite
    signs in rows that different warps read, and NaNs (``nan_cases``: two
@@ -474,7 +474,7 @@ def kernel_phase(n: int):
     import torch
 
     from gtopkssgd_tpu_torch.ops import cuda_topk, topk
-    from gtopkssgd_tpu_torch.stage1_design import stage1_mismatch
+    from gtopkssgd_tpu_torch.ops.kernel_cases import stage1_mismatch
 
     gen = torch.Generator(device="cuda").manual_seed(n)
     g = torch.randn(n, device="cuda", generator=gen)
@@ -652,7 +652,8 @@ def stage1_edge_phase() -> int:
     """The stage-1 kernel against its twin on every edge case, in all four
     instantiations (residual on and off, counts off and on); returns the
     number of cases."""
-    from gtopkssgd_tpu_torch.stage1_design import edge_cases, stage1_mismatch
+    from gtopkssgd_tpu_torch.ops.kernel_cases import (edge_cases,
+                                                      stage1_mismatch)
 
     cases = 0
     for label, g, r, groups in edge_cases("cuda"):
@@ -671,9 +672,10 @@ def stage1_edge_phase() -> int:
 
 def apply_edge_phase() -> int:
     """The threshold apply against its twin, bitwise (NaNs as bits), acc
-    asked for and not, on every ``stage1_design.apply_cases`` case; returns
+    asked for and not, on every ``kernel_cases.apply_cases`` case; returns
     the number of cases."""
-    from gtopkssgd_tpu_torch.stage1_design import apply_cases, apply_mismatch
+    from gtopkssgd_tpu_torch.ops.kernel_cases import (apply_cases,
+                                                      apply_mismatch)
 
     cases = 0
     for label, src, res_in, tau in apply_cases("cuda"):
@@ -687,11 +689,11 @@ def apply_edge_phase() -> int:
 
 def multisection_nan_phase() -> int:
     """The multisection kernel in both modes against its twin, bitwise
-    (NaNs compared as bits), on ``stage1_design.nan_cases`` without
+    (NaNs compared as bits), on ``kernel_cases.nan_cases`` without
     infinities: the NaN rule (a NaN is never counted nor the maximum) on
     the card. Returns the number of cases."""
     from gtopkssgd_tpu_torch.ops import cuda_topk, topk
-    from gtopkssgd_tpu_torch.stage1_design import nan_cases, same_bits
+    from gtopkssgd_tpu_torch.ops.kernel_cases import nan_cases, same_bits
 
     cases = 0
     for label, g, r, _ in nan_cases("cuda", inf=False):

@@ -3,9 +3,9 @@
 The source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
 seconds. The build happens at first use, never at import, into
-``gtopkssgd_tpu_torch/build/`` (ignored by git). The library name carries a
-digest of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.
+``gtopkssgd_tpu_torch/build/`` (ignored by git). One source, one set of
+flags, one library: its name carries a digest of the source and the flags,
+so an edited source is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = Path(__file__).resolve().parent / "csrc" / "topk_kernels.cu"
@@ -35,7 +35,6 @@ SIGNATURES = {
     "gtopk_stage1": [_VP, _VP, _LL, _INT, _VP, _VP, _VP, _VP, _VP],
     "gtopk_multisection": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP],
     "gtopk_noop": [_VP],
-    "gtopk_bytes_floor": [_VP, _VP, _LL, _VP, _VP, _LL, _VP],
     "gtopk_threshold_apply": [_VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
                               _VP],
 }
@@ -58,16 +57,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(defines: Tuple[str, ...] = ()) -> Path:
-    text = SOURCE.read_bytes() + " ".join(NVCC_FLAGS + defines).encode()
+def library_path() -> Path:
+    text = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:12]
     return BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
 
 
-def build(defines: Tuple[str, ...] = ()) -> Path:
-    """Compile the source, with extra nvcc `defines` (``-DNAME=VALUE``),
-    unless that library is already built."""
-    so = library_path(defines)
+def build() -> Path:
+    """Compile the source unless its library is already built."""
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -75,7 +73,7 @@ def build(defines: Tuple[str, ...] = ()) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(SOURCE)],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -88,20 +86,16 @@ def build(defines: Tuple[str, ...] = ()) -> Path:
     return so
 
 
-def open_library(path: Path) -> ctypes.CDLL:
-    """A built library, its functions typed by SIGNATURES."""
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call, its functions typed
+    by SIGNATURES."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = open_library(build())
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
         return _lib

@@ -59,10 +59,11 @@
 //    same kernel with 4-byte loads. Grid: a block a span; with counts, at
 //    most the blocks the card holds at once, walking the spans grid-stride,
 //    so that the 8 integer atomics (as in (1)) come once a block and not
-//    once a span (6,272 spans at N = 25.6M). The readings behind each
-//    choice -- warps to a slab, rows a batch, the grid, and cp.async.bulk
-//    into a shared-memory ring in place of the loads -- and what holds the
-//    kernel back are in PERF.md, from gtopkssgd_tpu_torch/stage1_design.py.
+//    once a span (6,272 spans at N = 25.6M). Fewer warps to a slab, 8 rows
+//    a batch, one grid rule for both launches and cp.async.bulk into a
+//    shared-memory ring each read slower on the card, or within 2%: the
+//    readings are in CHANGES.md (fourth slice of the port) and in the
+//    history of PERF.md.
 //
 // 3. multisection_kernel -- the whole tau bracket of the `pallas` method
 //    (ops/topk.py, the loop in cuda_topk.multisection_rounds; the JAX
@@ -84,7 +85,9 @@
 //    block, about 16 groups of 4 elements a thread (a small slice is bound
 //    by each round's block reductions and syncs, cheaper with fewer
 //    warps; a large one needs more loads in flight): 128 at N = 272,474,
-//    512 at N = 25,557,032. Block b owns the contiguous slice
+//    512 at N = 25,557,032; the rule read within 1.7% of the best fixed
+//    width at each size measured (CHANGES.md, third slice of the port).
+//    Block b owns the contiguous slice
 //    [b*S, (b+1)*S), S a multiple of 4, read with 16-byte loads where both
 //    pointers are 16-byte aligned.
 //    NaN rule: a NaN |acc| is ignored -- fmaxf drops it from maxv and
@@ -148,14 +151,8 @@ namespace cg = cooperative_groups;
 #define TILE (BLOCK_ROWS * LANES)
 #define COUNT_THREADS 256
 #define ROUNDS 4
-// Most and fewest threads a multisection block has; set both to one width
-// with -D to fix it (gtopkssgd_tpu_torch/multisection_threads.py does).
-#ifndef MS_THREADS
-#define MS_THREADS 512
-#endif
-#ifndef MS_MIN_THREADS
-#define MS_MIN_THREADS 128
-#endif
+#define MS_THREADS 512      // most threads a multisection block has
+#define MS_MIN_THREADS 128  // fewest
 #define MS_MAX_BLOCKS 1024  // floats of scratch the caller provides
 #define MAX_DEVICES 64
 
@@ -211,23 +208,9 @@ count_kernel(const float* __restrict__ x, const float* __restrict__ r,
 }
 
 // ---- Stage 1 (K2) ----------------------------------------------------------
-// -DSTAGE1_WPS=k, -DSTAGE1_BATCH=b, -DSTAGE1_GRID=1|2 and -DSTAGE1_BULK=1
-// build the variants that gtopkssgd_tpu_torch/stage1_design.py measures
-// against the shipped design.
-#define STAGE1_WARPS 8
+#define STAGE1_WARPS 8  // warps a block, and to a slab at most
 #define STAGE1_THREADS (STAGE1_WARPS * 32)
-#ifndef STAGE1_WPS
-#define STAGE1_WPS STAGE1_WARPS  // warps to a slab, at most
-#endif
-#ifndef STAGE1_BATCH
 #define STAGE1_BATCH 4  // rows a thread loads before it compares any
-#endif
-#ifndef STAGE1_GRID
-#define STAGE1_GRID 0  // 0: stage1_launch's rule; 1: a block a span; 2: persistent
-#endif
-#ifndef STAGE1_BULK
-#define STAGE1_BULK 0
-#endif
 
 template <bool VEC>
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -461,121 +444,12 @@ stage1_kernel(const float* __restrict__ g, const float* __restrict__ r,
   if (COUNTS) block_add_counts(c, counts);
 }
 
-#if STAGE1_BULK
-// The variant that copies each span into a ring of shared memory with the
-// copy engine (1-D cp.async.bulk, completion on an mbarrier) in place of
-// the threads' own 16-byte loads. Spans of at most BULK_MAX_ROWS rows.
-#define BULK_STAGES 4
-#define BULK_MAX_ROWS 32
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-template <bool RESIDUAL>
-__device__ __forceinline__ void bulk_fetch(float* dst, const float* g,
-                                           const float* r, long long base,
-                                           unsigned bytes,
-                                           unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(RESIDUAL ? 2 * bytes : bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(g + base), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-  if (RESIDUAL)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + bytes / 4)),
-        "l"(r + base), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-
-// Block b takes spans b, b + grid, ... that lie wholly before n through a
-// ring of BULK_STAGES spans; the span that holds n and the padding after
-// it are read directly.
-template <bool RESIDUAL, bool COUNTS>
-__global__ void __launch_bounds__(STAGE1_THREADS)
-stage1_bulk_kernel(const float* __restrict__ g, const float* __restrict__ r,
-                   long long n, int rpg, int wps, long long slabs,
-                   const float* __restrict__ thr, int* __restrict__ counts,
-                   float* __restrict__ cand_val, int* __restrict__ cand_idx) {
-  extern __shared__ __align__(128) float ring[];
-  __shared__ __align__(8) unsigned long long full[BULK_STAGES];
-  const Stage1Shape sh(rpg, wps);
-  float t[NUM_THR];
-  int c[NUM_THR];
-  load_thresholds<COUNTS>(thr, t, c);
-  const long long spans = (slabs + sh.spb - 1) / sh.spb;
-  const long long off = sh.offset();
-  const long long whole = n / sh.span;
-  const long long mine =
-      blockIdx.x < whole ? (whole - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const long long stage = (RESIDUAL ? 2 : 1) * sh.span;  // floats
-  const unsigned bytes = (unsigned)(sh.span * sizeof(float));
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < BULK_STAGES; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                       smem_addr(full + i))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (long long i = 0; i < mine && i < BULK_STAGES; ++i)
-      bulk_fetch<RESIDUAL>(ring + i * stage, g, r,
-                           (blockIdx.x + i * gridDim.x) * sh.span, bytes,
-                           full + i);
-  }
-  __syncthreads();
-  for (long long i = 0; i < mine; ++i) {
-    const int st = (int)(i % BULK_STAGES);
-    bulk_wait(full + st, (unsigned)((i / BULK_STAGES) & 1));
-    const float* x = ring + st * stage;
-    Best4 b(sh.row0);
-    scan_rows<RESIDUAL, COUNTS, true>(x + off, x + sh.span + off, sh.rpw,
-                                      sh.row0, sh.rpw * LANES, t, c, b);
-    __syncthreads();  // every read of stage st is done
-    if (threadIdx.x == 0 && i + BULK_STAGES < mine)
-      bulk_fetch<RESIDUAL>(ring + st * stage, g, r,
-                           (blockIdx.x + (i + BULK_STAGES) * gridDim.x) *
-                               sh.span,
-                           bytes, full + st);
-    write_span(b, blockIdx.x + i * gridDim.x, sh, slabs, cand_val, cand_idx);
-  }
-  for (long long s = whole + blockIdx.x; s < spans; s += gridDim.x) {
-    const long long e = s * sh.span + off;
-    if (s * sh.span >= n) {
-      write_padding(s, sh, slabs, cand_val, cand_idx);
-      continue;
-    }
-    Best4 b(sh.row0);
-    scan_rows<RESIDUAL, COUNTS, true>(g + e, r + (RESIDUAL ? e : 0), sh.rpw,
-                                      sh.row0, n - e, t, c, b);
-    write_span(b, s, sh, slabs, cand_val, cand_idx);
-  }
-  if (COUNTS) block_add_counts(c, counts);
-}
-#endif
-
-// At most the blocks of `kernel` (`threads` threads, `smem` dynamic bytes)
-// that the card holds at once, and no more than `spans`; how many an SM
-// holds is asked once per device and kernel (`cache`).
+// At most the blocks of `kernel` (`threads` threads) that the card holds at
+// once, and no more than `spans`; how many an SM holds is asked once per
+// device and kernel (`cache`).
 static cudaError_t persistent_grid(const void* kernel, int threads,
-                                   size_t smem, std::atomic<int>* cache,
-                                   long long spans, long long* grid) {
+                                   std::atomic<int>* cache, long long spans,
+                                   long long* grid) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -586,7 +460,7 @@ static cudaError_t persistent_grid(const void* kernel, int threads,
   int occ = cache[dev].load();
   if (occ < 1) {
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &occ, kernel, threads, smem)) != cudaSuccess)
+             &occ, kernel, threads, 0)) != cudaSuccess)
       return e;
     if (occ < 1) return cudaErrorInvalidConfiguration;
     cache[dev].store(occ);
@@ -603,39 +477,16 @@ static cudaError_t stage1_launch(const float* g, const float* r, long long n,
                                  cudaStream_t s) {
   cudaError_t e;
   const long long slabs = nblocks * BLOCK_ROWS / rpg;
-#if STAGE1_BULK
-  const int span_rows = rpg > STAGE1_WARPS ? rpg : STAGE1_WARPS;
-  if (VEC && span_rows <= BULK_MAX_ROWS) {
-    static std::atomic<int> bulk_occ[MAX_DEVICES];
-    const void* fn = (const void*)stage1_bulk_kernel<RESIDUAL, COUNTS>;
-    const int wps = rpg < STAGE1_WARPS ? rpg : STAGE1_WARPS;
-    const long long spans = nblocks * BLOCK_ROWS / span_rows;
-    const size_t smem = (size_t)BULK_STAGES * (RESIDUAL ? 2 : 1) * span_rows *
-                        LANES * sizeof(float);
-    long long grid = 0;
-    if ((e = cudaFuncSetAttribute(
-             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-            cudaSuccess ||
-        (e = persistent_grid(fn, STAGE1_THREADS, smem, bulk_occ, spans,
-                             &grid)) !=
-            cudaSuccess)
-      return e;
-    stage1_bulk_kernel<RESIDUAL, COUNTS>
-        <<<(unsigned)grid, STAGE1_THREADS, smem, s>>>(
-            g, r, n, rpg, wps, slabs, thr, counts, cand_val, cand_idx);
-    return cudaSuccess;
-  }
-#endif
-  const int wps = rpg < STAGE1_WPS ? rpg : STAGE1_WPS;
+  const int wps = rpg < STAGE1_WARPS ? rpg : STAGE1_WARPS;
   const int spb = STAGE1_WARPS / wps;
   long long grid = (slabs + spb - 1) / spb;  // spans
   // A block a span, unless the counts are asked for: then at most the
   // blocks the card holds at once, each adding its counts once.
-  if (STAGE1_GRID == 2 || (STAGE1_GRID == 0 && COUNTS)) {
+  if (COUNTS) {
     static std::atomic<int> occ[MAX_DEVICES];
     if ((e = persistent_grid(
              (const void*)stage1_kernel<RESIDUAL, COUNTS, VEC>,
-             STAGE1_THREADS, 0, occ, grid, &grid)) != cudaSuccess)
+             STAGE1_THREADS, occ, grid, &grid)) != cudaSuccess)
       return e;
   }
   stage1_kernel<RESIDUAL, COUNTS, VEC><<<(unsigned)grid, STAGE1_THREADS, 0, s>>>(
@@ -656,27 +507,6 @@ static cudaError_t stage1_dispatch(bool vec, const float* g, const float* r,
 }
 
 __global__ void noop_kernel() {}
-
-// The bytes of stage 1 moved with no selection: each thread reads one
-// float4 of g and of r, and threads below l4 write one float4 and one
-// int4. Every thread's sum decides whether it stores (a sum of -1e30, which
-// the data never has, stores to slot 0), so the compiler drops no load.
-__global__ void __launch_bounds__(256)
-bytes_floor_kernel(const float4* __restrict__ g, const float4* __restrict__ r,
-                   long long n4, float4* __restrict__ val,
-                   int4* __restrict__ idx, long long l4) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4 a = g[i];
-  const float4 b = r[i];
-  const float4 s = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-  const float t = s.x + s.y + s.z + s.w;
-  if (i < l4 || t == -1e30f) {
-    const long long j = i < l4 ? i : 0;
-    val[j] = s;
-    idx[j] = make_int4((int)i, __float_as_int(t), 0, 0);
-  }
-}
 
 // v, unchanged, but unknown to the compiler from here on.
 __device__ __forceinline__ float opaque(float v) {
@@ -1013,7 +843,7 @@ static cudaError_t threshold_apply_launch(const float* g, const float* r,
   long long grid = ((n >> 2) + batch - 1) / batch;
   if (grid < 1) grid = 1;
   const cudaError_t e =
-      persistent_grid(fn, APPLY_THREADS, 0, occ, grid, &grid);
+      persistent_grid(fn, APPLY_THREADS, occ, grid, &grid);
   if (e != cudaSuccess) return e;
   threshold_apply_kernel<RESIDUAL, ACC, VEC>
       <<<(unsigned)grid, APPLY_THREADS, 0, s>>>(g, r, n, tau, keep, res, upd,
@@ -1088,21 +918,6 @@ int gtopk_stage1(const float* g, const float* r, long long n, int groups,
                                       counts, cand_val, cand_idx, s);
   const cudaError_t last = cudaGetLastError();  // also clears e
   return (int)(e != cudaSuccess ? e : last);
-}
-
-// The floor under stage 1's time at these shapes: n floats of g and of r
-// read (n/4 float4s; g, r, cand_val, cand_idx 16-byte aligned), L floats
-// and L ints written, as one float4 a thread. Returns cudaGetLastError().
-int gtopk_bytes_floor(const float* g, const float* r, long long n,
-                      float* cand_val, int* cand_idx, long long L,
-                      void* stream) {
-  const long long n4 = n / 4;
-  if (n4 < 1 || L > n) return (int)cudaErrorInvalidValue;
-  bytes_floor_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0,
-                       (cudaStream_t)stream>>>(
-      (const float4*)g, (const float4*)r, n4, (float4*)cand_val,
-      (int4*)cand_idx, L / 4);
-  return (int)cudaGetLastError();
 }
 
 // One launch of an empty kernel: the floor under every launch's time.

@@ -1,58 +1,29 @@
-"""The stage-1 candidate kernel's design, checked and measured on the card.
+"""Inputs and checks that hold the hand-written kernels to their plain
+twins, bitwise (NaNs compared as bits).
 
-    python -m gtopkssgd_tpu_torch.stage1_design
+``edge_cases`` (with ``tie_input`` and ``nan_cases``) are the stage-1
+kernel's edge cases: every n in EDGE_SIZES at every groups in EDGE_GROUPS,
+views one float into their buffers, equal maxima of opposite signs in rows
+that different warps read, and NaNs; ``stage1_mismatch`` compares the
+kernel's candidates and counts with its twin's on one of them.
+``apply_cases`` (labels APPLY_CASES, special values from ``apply_input``)
+are the threshold apply's, compared by ``apply_mismatch``. ``same_bits``
+compares two tensors bit for bit.
 
-Builds the kernel library once per variant of ``stage1_kernel`` (VARIANTS:
-nvcc ``-D`` defines through ``_build.build``) beside the shipped one, one
-nvcc each, all started together:
-
-* ``wps1`` / ``wps2`` / ``wps4``: 1, 2 or 4 warps to a slab in place of 8;
-  at groups 64 a warp then reads 32, 16 or 8 rows of its slab in 8, 4 or
-  2 batches of loads, and 8, 4 or 2 slabs share a block;
-* ``batch8``: 8 rows of loads in flight a thread in place of 4;
-* ``onespan`` / ``persist``: a block a span, or a grid of at most the
-  blocks the card holds at once walking the spans grid-stride, with and
-  without counts alike, in place of the shipped rule (a block a span
-  without counts, persistent with);
-* ``bulk``: each span (one slab at groups 64) copied into a 4-stage ring
-  of shared memory by ``cp.async.bulk`` on an mbarrier, one block an SM,
-  in place of the threads' 16-byte loads.
-
-Every variant is held bitwise to the plain twin on ``edge_cases`` and at
-each size in SIZES, then timed there (median of REPS calls, CUDA events, a
-matmul queued ahead of each call so the host's enqueue is not timed),
-without and with the 8 counts, beside the bytes bound, an empty kernel's
-launch (``launch_floor``) and the bytes floor: the same bytes read and
-written by one float4 a thread with no selection (``gtopk_bytes_floor``).
-
-``edge_cases`` and ``stage1_mismatch`` also serve ``chip_smoke.py`` and the
-card tests, as ``apply_cases`` and ``apply_mismatch`` do for the threshold
-apply (``cuda_topk.threshold_apply``). Needs a CUDA card to run as a
-script.
+The CPU tests build these cases on the CPU, where the wrappers run the
+twins; the card tests and ``chip_smoke.py`` build them on the card and
+compare kernel against twin. The package itself does not import this module.
 """
 
 from __future__ import annotations
 
-import sys
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from gtopkssgd_tpu_torch.ops import _build, cuda_topk, k_for_density, topk
+from gtopkssgd_tpu_torch.ops import cuda_topk
 
-VARIANTS = {
-    "shipped": (),
-    **{f"wps{w}": (f"-DSTAGE1_WPS={w}",) for w in (1, 2, 4)},
-    "batch8": ("-DSTAGE1_BATCH=8",),
-    "onespan": ("-DSTAGE1_GRID=1",),
-    "persist": ("-DSTAGE1_GRID=2",),
-    "bulk": ("-DSTAGE1_BULK=1",),
-}
-SIZES = (272_474, 2_000_000, 7_000_000, 25_557_032)
-REPS = 20
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 EDGE_SIZES = (1, 127, 1000, 262_143, 262_145)
 EDGE_GROUPS = (1, 8, 64, 2048)
 
@@ -291,73 +262,3 @@ def stage1_mismatch(g: torch.Tensor, r: Optional[torch.Tensor],
                 return (f"{name} differ (counts {counts}) at {at}: "
                         f"{a[at].tolist()} vs twin {b[at].tolist()}")
     return None
-
-
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("stage1_design: needs a CUDA card", file=sys.stderr)
-        return 2
-    from gtopkssgd_tpu_torch.multisection_threads import device_ms
-    from gtopkssgd_tpu_torch.profile_step import card_identity
-
-    print(card_identity())
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        paths = list(pool.map(_build.build, VARIANTS.values()))
-    libs = {name: _build.open_library(p) for name, p in zip(VARIANTS, paths)}
-    shipped = _build.load()
-    dev = torch.device("cuda")
-    floor = device_ms(lambda: cuda_topk.launch_floor(dev))
-    print(f"launch_floor_ms={floor:.5f} (empty kernel)")
-    edges = list(edge_cases(dev))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    data = {}
-    for n in SIZES:
-        g = torch.randn(n, device="cuda", generator=gen)
-        r = 0.3 * torch.randn(n, device="cuda", generator=gen)
-        data[n] = (g, r, topk._twostage_pallas_groups(
-            n, k_for_density(n, 0.001)))
-    try:
-        for name, lib in libs.items():
-            _build._lib = lib  # the wrapper launches through it
-            for label, g, r, groups in edges + [
-                    (f"n={n}", g, r, groups)
-                    for n, (g, r, groups) in data.items()]:
-                bad = stage1_mismatch(g, r, groups)
-                if bad is not None:
-                    print(f"{name}: {label} groups={groups}: {bad}",
-                          file=sys.stderr)
-                    return 1
-            print(f"{name}: bitwise equal to the twin on {len(edges)} edge "
-                  f"cases and at {len(SIZES)} sizes")
-        for n, (g, r, groups) in data.items():
-            L = cuda_topk._nblocks(n) * groups * cuda_topk.LANES
-            val = torch.empty(L, device="cuda")
-            idx = torch.empty(L, dtype=torch.int32, device="cuda")
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def floor_call():
-                rc = shipped.gtopk_bytes_floor(
-                    g.data_ptr(), r.data_ptr(), n, val.data_ptr(),
-                    idx.data_ptr(), L, stream)
-                if rc != 0:
-                    raise RuntimeError(f"gtopk_bytes_floor: CUDA error {rc}")
-
-            print(f"n={n:>10,d} bytes floor (the same bytes, no selection): "
-                  f"{device_ms(floor_call):.5f} ms")
-            thr = thresholds_for((g + r).abs())
-            bound = (8 * n + 8 * L) / HBM_BYTES_PER_S * 1e3
-            cells = []
-            for name, lib in libs.items():
-                _build._lib = lib
-                ms = [device_ms(lambda t=t: cuda_topk.fused_stage1_candidates(
-                    g, t, r, groups=groups)) for t in (None, thr)]
-                cells.append(f"{name}:{ms[0]:.5f}/{ms[1]:.5f}")
-            print(f"n={n:>10,d} groups={groups} bound_ms={bound:.5f} "
-                  "ms without/with counts: " + " ".join(cells))
-    finally:
-        _build._lib = shipped
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

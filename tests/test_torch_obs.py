@@ -775,7 +775,7 @@ def test_stage1_twin_nan_rule(groups):
     """A NaN counts as the largest magnitude: the first NaN row of a
     bucket wins (beating +inf), its NaN is the candidate; every index is
     in range; the counts leave NaN out; nothing raises."""
-    from gtopkssgd_tpu_torch.stage1_design import nan_input
+    from gtopkssgd_tpu_torch.ops.kernel_cases import nan_input
 
     n = 300_000
     g, r = nan_input(n, groups, seed=3)

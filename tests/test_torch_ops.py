@@ -19,7 +19,7 @@ from jax import lax
 
 from gtopkssgd_tpu.ops import pallas_topk as jpk
 from gtopkssgd_tpu.ops import topk as jtopk
-from gtopkssgd_tpu_torch import stage1_design
+from gtopkssgd_tpu_torch.ops import kernel_cases
 from gtopkssgd_tpu_torch.ops import cuda_topk, topk
 
 torch.set_num_threads(2)
@@ -102,7 +102,7 @@ def test_fused_stage1_candidates_ties_twin_bitwise(groups):
     """Repeated magnitudes of both signs in every bucket, and equal maxima
     of opposite signs at rows 0 and rpg - 1 and at rpg/2 - 1 and rpg/2:
     the first row's signed value must win, as in the Pallas kernel."""
-    g, r = stage1_design.tie_input(272_474, groups)
+    g, r = kernel_cases.tie_input(272_474, groups)
     thr = _thresholds(np.abs(g + r), np.random.default_rng(groups))
     jv, ji, jc = jpk.fused_stage1_candidates(
         jnp.asarray(g), jnp.asarray(thr), jnp.asarray(r), groups=groups,
@@ -145,22 +145,22 @@ def _case_id(label: str) -> str:
     return re.sub(r"[^0-9A-Za-z=-]+", "_", label)
 
 
-@pytest.mark.parametrize("case", stage1_design.APPLY_CASES, ids=_case_id)
+@pytest.mark.parametrize("case", kernel_cases.APPLY_CASES, ids=_case_id)
 def test_threshold_apply_twin_bitwise(case):
     """The threshold apply's twin (what ``threshold_apply`` runs on CPU
     tensors, and what the kernel is held to on the card) bitwise, NaNs as
     bits, against the expressions it replaced, with and without acc."""
-    src, res_in, tau = next(c[1:] for c in stage1_design.apply_cases("cpu")
+    src, res_in, tau = next(c[1:] for c in kernel_cases.apply_cases("cpu")
                             if c[0] == case)
     want = _apply_before(src, res_in, tau)
     for want_acc in (True, False):
         got = cuda_topk.threshold_apply(src, res_in, tau, want_acc)
         for name, a, b in zip(("keep", "residual", "update", "kept_tau"),
                               got, want):
-            assert stage1_design.same_bits(a, b), (case, name)
+            assert kernel_cases.same_bits(a, b), (case, name)
         assert (got[4] is None) != want_acc
         if want_acc:
-            assert stage1_design.same_bits(got[4], want[4])
+            assert kernel_cases.same_bits(got[4], want[4])
     # The partition: a kept entry moves whole into the update.
     keep, residual, update, kept_tau, _ = got
     assert torch.equal(update[keep], want[4][keep])
@@ -305,7 +305,7 @@ def test_unported_method_is_refused():
 def test_kernels_match_twins_on_card():
     """On a CUDA card: each kernel bitwise equal to its twin (the CPU
     suite holds the twins to the Pallas kernels); the stage-1 kernel also
-    on every edge case of ``stage1_design.edge_cases``, with and without
+    on every edge case of ``kernel_cases.edge_cases``, with and without
     the residual."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on one")
@@ -328,7 +328,7 @@ def test_kernels_match_twins_on_card():
                                                          groups=groups)
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu(), b)
-    for label, g, r, groups in stage1_design.edge_cases("cuda"):
+    for label, g, r, groups in kernel_cases.edge_cases("cuda"):
         for res in (r, None):
-            bad = stage1_design.stage1_mismatch(g, res, groups)
+            bad = kernel_cases.stage1_mismatch(g, res, groups)
             assert bad is None, f"{label} groups={groups}: {bad}"

@@ -21,7 +21,7 @@ from gtopkssgd_tpu import compression as jcompression
 from gtopkssgd_tpu.compression import TopKCompressor as JaxTopK
 from gtopkssgd_tpu.optimizer import gtopk_sgd
 from gtopkssgd_tpu_torch import compression as tcompression
-from gtopkssgd_tpu_torch import stage1_design
+from gtopkssgd_tpu_torch.ops import kernel_cases
 from gtopkssgd_tpu_torch.compression import (
     NoneCompressor,
     TopKCompressor,
@@ -98,7 +98,7 @@ def _same_floats(got: np.ndarray, want: np.ndarray) -> None:
                                   np.signbit(want[both]))
 
 
-@pytest.mark.parametrize("case", stage1_design.APPLY_CASES,
+@pytest.mark.parametrize("case", kernel_cases.APPLY_CASES,
                          ids=lambda c: re.sub(r"[^0-9A-Za-z=-]+", "_", c))
 def test_threshold_step_matches_jax_on_edge_cases(case, monkeypatch):
     """``threshold_step`` (the P = 1 step's one call) and
@@ -110,7 +110,7 @@ def test_threshold_step_matches_jax_on_edge_cases(case, monkeypatch):
     the CPU flushes subnormals to zero where PyTorch keeps them (the card
     test holds a subnormal to the twin), so both sides get the inputs with
     subnormals flushed."""
-    src, res_in, tau = next(c[1:] for c in stage1_design.apply_cases("cpu")
+    src, res_in, tau = next(c[1:] for c in kernel_cases.apply_cases("cpu")
                             if c[0] == case)
     g = _flush_subnormals(src.numpy())
     r = None if res_in is None else _flush_subnormals(res_in.numpy())

@@ -1,7 +1,7 @@
 """The threshold apply (``ops.cuda_topk.threshold_apply``): the P = 1 step
 after tau in one pass. How the optimizer calls it (once a unit, acc only
 under telemetry), here on the CPU through the twin; on the card (skipped
-here) the kernel bitwise to its twin on ``stage1_design.apply_cases``,
+here) the kernel bitwise to its twin on ``kernel_cases.apply_cases``,
 captured and replayed in a CUDA graph, and counted once a unit of a P = 1
 sparse step. JAX-free: the twin is held to the JAX package in
 ``test_torch_ops.py`` and ``test_torch_optimizer.py``.
@@ -10,8 +10,8 @@ sparse step. JAX-free: the twin is held to the JAX package in
 import pytest
 import torch
 
-from gtopkssgd_tpu_torch import compression, stage1_design
-from gtopkssgd_tpu_torch.ops import cuda_topk
+from gtopkssgd_tpu_torch import compression
+from gtopkssgd_tpu_torch.ops import cuda_topk, kernel_cases
 from gtopkssgd_tpu_torch.optimizer import GTopKSGD
 
 torch.set_num_threads(2)
@@ -71,8 +71,8 @@ def test_threshold_apply_on_card(monkeypatch):
     launch a unit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on one")
-    for label, src, res_in, tau in stage1_design.apply_cases("cuda"):
-        bad = stage1_design.apply_mismatch(src, res_in, tau)
+    for label, src, res_in, tau in kernel_cases.apply_cases("cuda"):
+        bad = kernel_cases.apply_mismatch(src, res_in, tau)
         assert bad is None, f"{label}: {bad}"
     assert cuda_topk.threshold_apply(src, res_in, tau, False)[4] is None
 
@@ -98,8 +98,8 @@ def test_threshold_apply_on_card(monkeypatch):
         torch.cuda.synchronize()
         want = cuda_topk.threshold_apply(src, res_in, tau, True)
         for a, b in zip(out, want):
-            assert stage1_design.same_bits(a, b)
-        assert stage1_design.apply_mismatch(src, res_in, tau) is None
+            assert kernel_cases.same_bits(a, b)
+        assert kernel_cases.apply_mismatch(src, res_in, tau) is None
 
     for mode, units in (("gtopk", 1), ("gtopk_layerwise", len(SHAPES))):
         for telemetry in (False, True):
