@@ -38,13 +38,22 @@ Fails (exit != 0) at the first fault; there is no CPU fallback. Phases:
    off, counts off and on, each, NaNs compared as bits. The multisection
    kernel in both modes is held to its twin bitwise on the NaN cases
    without infinities (``multisection_nan_phase``): the NaN rules of
-   ``ops.cuda_topk``.
+   ``ops.cuda_topk``. Then the rounding PyTorch's alpha ops (x + alpha*y)
+   take on the card, one fused multiply-add (``alpha_form_phase``), and
+   the SGD apply against the path it replaced -- the update copied into
+   each ``.grad``, then ``torch.optim.SGD``'s foreach step -- bitwise on
+   ``kernel_cases.sgd_cases`` (every leaf kind, hyperparameter set and
+   buffer state, special values) and at the layouts of ResNet-20,
+   ResNet-50, AlexNet and the Moonlight cell (N = 970,107,392), timed
+   there beside that path and its bound, 20 B an element (``sgd_phase``).
 3. The main path: the port's Trainer, ResNet-20 at full width on synthetic
    CIFAR-10, batch 32, gTop-k at density 0.001 -- 20 steps with
    ``--topk-method twostage`` (stage-1 kernel: one launch a step), 10 with
    ``pallas`` (multisection kernel in residual mode: one launch a step; no
-   single-pass count launch), then 10 dense as the reference point.
-   Launch counters are zeroed just before each run and read after.
+   single-pass count launch), then 10 dense as the reference point; the
+   SGD apply once a step in each. Launch counters are zeroed just before
+   each run and read after; the other phases check the SGD apply's count
+   only where they name it (``check_launches``).
 4. The trainer's step on the card against the plain path on the CPU
    (where the wrappers run the twins, which the CPU tests hold bitwise to
    the JAX package's Pallas kernels): see ``reference_phase``.
@@ -401,11 +410,18 @@ REPLACES = {
     "multisection_tau_lo[residual]": "gtopkssgd_tpu/ops/pallas_topk.py:320",
     # No Pallas kernel: XLA fuses the JAX step's expressions after tau.
     "threshold_apply": "none (XLA fuses gtopkssgd_tpu/compression.py:148)",
+    # No Pallas kernel: XLA fuses optax's add_decayed_weights + sgd.
+    "sgd_apply": "none (XLA fuses gtopkssgd_tpu/optimizer.py:397-401)",
 }
+# Launched once by every optimizer step on the card, whatever the mode: a
+# run's launch check counts it only where it names it (``want``).
+SGD = "sgd_apply"
 
 
 def check_launches(got: dict, want: dict, run: str) -> None:
-    """Every wrapper's count as `want` says, and 0 for the others."""
+    """Every wrapper's count as `want` says, and 0 for the others; the SGD
+    apply's only where `want` names it."""
+    got = {name: n for name, n in got.items() if name != SGD or SGD in want}
     full = {name: want.get(name, 0) for name in got}
     check(got == full, f"{run}: launches {got}, expected {full}")
 
@@ -685,6 +701,143 @@ def apply_edge_phase() -> int:
               "and off")
         cases += 1
     return cases
+
+
+def step_updates(opt) -> list:
+    """A list that each step of `opt` appends a copy of its flat update to
+    (the step applies it and keeps no copy)."""
+    seen = []
+    compress = opt.compress
+
+    def spy(flat):
+        update = compress(flat)
+        seen.append(update.clone())
+        return update
+
+    opt.compress = spy
+    return seen
+
+
+def alpha_form_phase() -> None:
+    """Which rounding PyTorch's `alpha` ops (x + alpha*y) take on the card
+    -- the foreach op and the single-tensor add, in place and not: one
+    fused multiply-add, or the product rounded and then the sum. The SGD
+    apply's ``alpha_add`` spells the FMA; another form fails here."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, y = (torch.randn(1 << 20, device="cuda", generator=gen)
+            for _ in range(2))
+    alpha = -0.0123
+    af = float(torch.tensor(alpha, dtype=torch.float32))
+    fma = (x.double() + af * y.double()).float()  # one rounding
+    two = x + y * af  # the product rounded, then the sum
+    check(not torch.equal(fma, two), "alpha form: the operands cannot "
+                                     "tell the two forms apart")
+    inplace = [x.clone()]
+    torch._foreach_add_(inplace, [y], alpha=alpha)
+    outs = {"_foreach_add": torch._foreach_add([x], [y], alpha=alpha)[0],
+            "_foreach_add_": inplace[0],
+            "add_": x.clone().add_(y, alpha=alpha),
+            "add": x.add(y, alpha=alpha)}
+    forms = {}
+    for name, got in outs.items():
+        forms[name] = ("fma" if torch.equal(got, fma) else
+                       "two roundings" if torch.equal(got, two) else
+                       "neither")
+    print(f"alpha ops on the card (x + alpha*y, 2^20 draws): {forms}")
+    check(set(forms.values()) == {"fma"},
+          f"alpha form: {forms}; the SGD apply spells one fused "
+          "multiply-add")
+
+
+# (name, N) of the layouts phase 2 times the SGD apply at: the zoo's flat
+# gradients and the Moonlight cell's (portbench's configuration).
+SGD_MODELS = (("resnet20", 272_474), ("resnet50", 25_557_032),
+              ("alexnet", 61_100_840), ("moonlight", 970_107_392))
+MOONLIGHT_CONFIG = "portbench/configs/moonlight-16b-a3b-ep8-bf16.json"
+# The cells' SGD: momentum 0.9, weight decay 1e-4.
+SGD_HYPER = dict(lr=0.01, momentum=0.9, weight_decay=1e-4, nesterov=False)
+
+
+def sgd_phase(models=SGD_MODELS) -> dict:
+    """The SGD apply against the path it replaced (``kernel_cases.
+    sgd_parent``: the update copied into each ``.grad``, then
+    ``torch.optim.SGD``'s foreach step), bitwise (NaNs as bits): on every
+    ``kernel_cases.sgd_cases`` case (each leaf kind, every hyperparameter
+    set, fresh and missing buffers, special values), then at each model's
+    layout (``SGD_MODELS``), where it is timed beside the parent path's
+    ms and its bound, 20 B an element. Returns {N: record}."""
+    import torch
+
+    from gtopkssgd_tpu_torch.ops import cuda_topk
+    from gtopkssgd_tpu_torch.ops import kernel_cases as kc
+
+    cases = 0
+    for label, case, hyper in kc.sgd_cases("cuda"):
+        bad = kc.sgd_mismatch(case, hyper)
+        check(bad is None, f"sgd_apply edge {label}: {bad}")
+        cases += 1
+    print(f"kernel sgd_apply edge cases: {cases} match=bitwise")
+    out = {}
+    for dnn, n in models:
+        config = None
+        if dnn == "moonlight":
+            with open(MOONLIGHT_CONFIG) as fh:
+                config = json.load(fh)
+        leaves = kc.model_leaves(dnn, config)
+        case = kc.sgd_case(leaves, "cuda", seed=n)
+        check(case["update"].numel() == n, f"sgd_apply {dnn}: N "
+                                           f"{case['update'].numel()}")
+        bad = kc.sgd_mismatch(case, SGD_HYPER)
+        check(bad is None, f"sgd_apply {dnn} n={n}: {bad}")
+        params = [p.clone() for p in case["params"]]
+        lv = cuda_topk.SgdLeaves(params, case["perms"],
+                                 kc.flat_offsets(params))
+        bufs = [b.clone() for b in case["bufs"]]
+
+        def run():
+            cuda_topk.sgd_apply(case["update"], lv, bufs, **SGD_HYPER)
+
+        ms = device_ms(run)
+        del params, bufs, lv
+        plain = _sgd_plain(case)
+        plain_ms = device_ms(plain)
+        del plain
+        bnd, by = bound_ms(20 * n, 6 * n)
+        out[n] = dict(n=n, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bnd, bound_by=by, library_ms=None,
+                      leaves=len(leaves))
+        print(f"kernel sgd_apply {dnn:>9s} n={n:>11,d} leaves={len(leaves)} "
+              f"match=bitwise ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms=none bound_ms={bnd:.5f} ({by})")
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sgd_plain(case: dict):
+    """One call of the path the SGD apply replaced, over copies of the
+    case's tensors: the strided copy of each leaf's update into its
+    ``.grad``, then ``torch.optim.SGD``'s foreach step."""
+    import torch
+
+    from gtopkssgd_tpu_torch.optimizer import FlatLayout
+
+    params = [torch.nn.Parameter(p.clone()) for p in case["params"]]
+    lay = FlatLayout(list(zip(params, case["perms"])))
+    for p in params:
+        p.grad = torch.empty_like(p)
+    opt = torch.optim.SGD(params, **SGD_HYPER)
+    for p, b in zip(params, case["bufs"]):
+        opt.state[p]["momentum_buffer"] = b.clone()
+    grads = [p.grad for p in params]
+
+    def run():
+        lay.unravel_into(case["update"], grads)
+        opt.step()
+
+    return run
 
 
 def multisection_nan_phase() -> int:
@@ -1128,7 +1281,7 @@ def correction_phase() -> dict:
         topk_method="twostage", momentum_correction=True,
         clip_grad_norm=clip, device="cuda"))
     opt = trainer.optimizer = trainer.make_optimizer(warmup_dense_steps=warmup)
-    lay = trainer.layout
+    updates = step_updates(opt)
     run = "P=1 gtopk/twostage correction clip warm-up 3"
     cuda_topk.reset_launches()
     losses = []
@@ -1137,7 +1290,7 @@ def correction_phase() -> dict:
         u_old = opt.state["residual"]["u"].clone()
         losses.append(trainer.train(1)["loss"])
         v_new, u_new = opt.state["residual"]["v"], opt.state["residual"]["u"]
-        update = lay.ravel([p.grad for p in lay.params])
+        update = updates.pop()
         u = velocity_update(trainer.cfg.momentum, u_old,
                             clip_by_global_norm(opt.flat_grad, clip))
         if step < warmup:
@@ -1570,6 +1723,7 @@ def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
         out.setdefault("cuts", {})[method] = (splan.boundaries,
                                               oplan.boundaries)
         params = trainer.layout.params
+        updates = {order: step_updates(o) for order, o in opts.items()}
         res = {"equal": True, "bytes": {"serial": [], "overlap": []},
                "opt_ms": {"serial": [], "overlap": []}}
 
@@ -1586,7 +1740,7 @@ def pipeline_rank(device, dnn: str, methods, p: int, steps: int) -> dict:
             res["opt_ms"][order].append(ms)
             res["bytes"][order].append(collectives.wire["bytes"])
             o = opts[order]
-            return {"update": _flat(q.grad for q in params),
+            return {"update": updates[order].pop(),
                     "params": _flat(params),
                     "velocity": _flat(o.state[q]["momentum_buffer"]
                                       for q in params),
@@ -3685,15 +3839,18 @@ def main() -> int:
     kernels = {n: kernel_phase(n) for n in SIZES}
     print(f"stage-1 edge cases: {stage1_edge_phase()} bitwise")
     leaf_phase()
+    alpha_form_phase()
+    sgd = sgd_phase()
 
     runs = [train_run("twostage", "gtopk", 20)[0],
             train_run("pallas", "gtopk", 10)[0],
             train_run("exact", "dense", 10)[0]]
-    check_launches(runs[0], p1_launches("fused_stage1_candidates", 20),
-                   "P=1 twostage, 20 steps")
-    check_launches(runs[1], p1_launches("multisection_tau_lo[residual]", 10),
+    check_launches(runs[0], {**p1_launches("fused_stage1_candidates", 20),
+                             SGD: 20}, "P=1 twostage, 20 steps")
+    check_launches(runs[1], {**p1_launches("multisection_tau_lo[residual]",
+                                           10), SGD: 10},
                    "P=1 pallas, 10 steps")
-    check_launches(runs[2], {}, "P=1 dense, 10 steps")
+    check_launches(runs[2], {SGD: 10}, "P=1 dense, 10 steps")
     total = {name: sum(r[name] for r in runs) for name in REPLACES}
 
     reference_phase()
@@ -3754,10 +3911,12 @@ def main() -> int:
         total[name] += count
     lap("phase 17 (17a at P = 1, 17b)")
 
-    n0 = SIZES[0]
     line = []
     for name in REPLACES:
-        rec = kernels[n0][name]
+        # The SGD apply is timed at the models' layouts (``sgd_phase``).
+        recs = sgd if name == SGD else {n: kernels[n][name] for n in SIZES}
+        n0, *rest = recs
+        rec = recs[n0]
         entry = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": total[name],
@@ -3767,9 +3926,9 @@ def main() -> int:
             "n": n0, "match": "bitwise", "launch_floor_ms": floor,
             "on_path": total[name] > 0,
         }
-        for n in SIZES[1:]:
+        for n in rest:
             entry[f"at_n_{n}"] = {
-                key: kernels[n][name][key] for key in
+                key: recs[n][key] for key in
                 ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
                  "replaced_ms") if key in rec}
         if "replaced_ms" in rec:

@@ -37,6 +37,8 @@ SIGNATURES = {
     "gtopk_noop": [_VP],
     "gtopk_threshold_apply": [_VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
                               _VP],
+    "gtopk_sgd_apply": [_VP, _VP, _INT, _LL, ctypes.c_float, ctypes.c_float,
+                        ctypes.c_float, _INT, _INT, _INT, _INT, _VP],
 }
 
 _lock = threading.Lock()

@@ -135,6 +135,57 @@
 //    one atomicMin a block on the bit pattern, which orders kept
 //    magnitudes (positive, never NaN) as floats; the wrapper sets the word
 //    to +inf on the stream before the launch.
+//
+// 5. sgd_apply_kernel -- SGD's step from the flat update (cuda_topk.
+//    sgd_apply), in one launch over every leaf of the layout. It replaces
+//    no TPU kernel: XLA fuses optax's add_decayed_weights + sgd into the
+//    JAX step. In PyTorch the step was one strided copy a leaf of the flat
+//    update into p.grad (FlatLayout.unravel_into) and torch.optim.SGD's
+//    four foreach passes, 52 B an element and an N-float temporary. Per
+//    element, in float32, with u the flat update at the element's place
+//    in the reference's layout, p the parameter and b its momentum buffer:
+//      g = u + wd*p                      (wd != 0; else g = u)
+//      b = b*m, then b = b + g           (a fresh leaf: b = g, SGD's clone)
+//      g = g + m*b under nesterov, else g = b   (momentum m != 0)
+//      p = p + (-lr)*g
+//    p and b written in place, nothing else. Rounding: each step rounds
+//    where the foreach op rounds, the scalars rounded to float32 as those
+//    ops round them (opmath float). An `alpha` op, a + alpha*b, is one
+//    fused multiply-add on the card (ATen's foreach functor and its add
+//    kernel, compiled by nvcc with contraction on; chip_smoke.py phase 2
+//    tells that form from the two-rounding one on 2^20 random operands),
+//    so the kernel spells each with __fmaf_rn and the plain products and
+//    sums with __fmul_rn / __fadd_rn: no contraction of the compiler
+//    decides. b + 1*g is b + g either way.
+//    Bound: bytes, 12 B read (u, p, b) and 8 B written (p, b) an element,
+//    20 B: 0.365 ms at N = 61,100,840, 0.153 ms at 25,557,032, 5.79 ms at
+//    970,107,392; 12 B without momentum.
+//    Design: the leaf table (int64, built by the wrapper while no graph
+//    captures and reused while every address holds) gives each leaf its
+//    offset in u, its p and b, its kind and shape, and the index of its
+//    first work item; a block takes one item, found by a binary search
+//    over those indices, so one launch covers any number of leaves. The
+//    kind is read off the layout's permutation, axes that stay adjacent
+//    merged and size-1 axes dropped:
+//    - identity (1-D leaves, embeddings, every Moonlight leaf): p, b and
+//      u's segment walked together, an item 4096 elements, 16-byte loads
+//      of u and of p and b when their pointers allow (a segment's offset
+//      need not be a multiple of 4), 4-byte loads otherwise;
+//    - tiled, p = [A][I][S] laid out in u as [S][I][A] (dense weights
+//      (1, 0): I = in, S = 1; convolutions (2, 3, 1, 0): A = out, I = in,
+//      S = H*W): u's side has A contiguous, p's side j = i*S + s. An item
+//      is a tile of 64 a by 32 j: each thread issues all its loads -- u's
+//      32 rows of 64 a (row j at (j % S)*I + j / S, two 128-byte lines),
+//      then p's and b's 64 rows of 32 j (one line each) -- before the
+//      block's one barrier, then takes u from the tile in shared memory
+//      transposed (rows padded to 65 floats: no bank conflicts). On an
+//      H100 80GB HBM3 at 700 W (readings in CHANGES.md) the loads issued
+//      before the barrier and the 64-row tile took AlexNet's layout from
+//      64% of the bound to 88.5% and ResNet-50's from 59% to 80%; 32-row
+//      tiles, more blocks an SM by a register cap and 2 groups a thread
+//      read slower;
+//    - strided, any other permutation (no model of the zoo has one): an
+//      element at a time, its place in u from the permuted strides.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -864,6 +915,236 @@ static cudaError_t threshold_apply_dispatch(bool vec, const float* g,
                    g, r, n, tau, keep, res, upd, acc, kept_tau, s);
 }
 
+// ---- SGD apply (5) ---------------------------------------------------------
+#define SGD_THREADS 256
+#define SGD_TILE 32    // a tiled item: SGD_TILE_A a by SGD_TILE j
+#define SGD_TILE_A 64
+#define SGD_TILE_ROWS (SGD_THREADS / SGD_TILE)
+#define SGD_BATCH 4    // groups of 4 a thread loads at once
+#define SGD_ITEM (SGD_THREADS * 4 * SGD_BATCH)  // elements of an other item
+#define SGD_MAX_RANK 8
+// A leaf's record in the table: int64 words.
+enum {
+  SGD_OFF = 0,   // offset of the leaf's segment in u
+  SGD_P,         // p's address
+  SGD_B,         // b's address (0 without momentum)
+  SGD_KIND,      // SGD_IDENTITY, SGD_TILED or SGD_STRIDED
+  SGD_FRESH,     // 1: no buffer before this step (read when use_fresh)
+  SGD_NUMEL,     // elements
+  SGD_A,         // tiled: A, I, S; strided: the rank in SGD_A
+  SGD_I,
+  SGD_S,
+  SGD_DIMS,      // strided: p's (merged) dims, then their strides in u
+  SGD_STRIDES = SGD_DIMS + SGD_MAX_RANK,
+  SGD_REC = SGD_STRIDES + SGD_MAX_RANK
+};
+enum { SGD_IDENTITY = 0, SGD_TILED = 1, SGD_STRIDED = 2 };
+
+struct SgdArgs {
+  float neg_lr, m, wd;
+  int momentum, nesterov, has_wd, use_fresh;
+};
+
+// x + alpha*y as PyTorch's alpha ops (foreach and single-tensor add) round
+// it on the card: one fused multiply-add.
+__device__ __forceinline__ float alpha_add(float x, float alpha, float y) {
+  return __fmaf_rn(alpha, y, x);
+}
+
+// One element: p and b updated in place from u.
+__device__ __forceinline__ void sgd1(float u, float& p, float& b, bool fresh,
+                                     const SgdArgs& a) {
+  float g = a.has_wd ? alpha_add(u, a.wd, p) : u;
+  if (a.momentum) {
+    b = fresh ? g : __fadd_rn(__fmul_rn(b, a.m), g);
+    g = a.nesterov ? alpha_add(g, a.m, b) : b;
+  }
+  p = alpha_add(p, a.neg_lr, g);
+}
+
+// Item `item` of an identity leaf of n elements: SGD_BATCH groups of 4 a
+// thread, all loaded before any is stored; 16-byte loads where u, p and b
+// allow (VU: u; VPB: p and b), else 4 single loads a group.
+template <bool VU, bool VPB>
+__device__ __forceinline__ void sgd_identity(const float* __restrict__ u,
+                                             float* __restrict__ p,
+                                             float* __restrict__ b,
+                                             long long n, long long item,
+                                             bool fresh, const SgdArgs& a) {
+  const long long base = item * SGD_ITEM;
+  float4 uu[SGD_BATCH], pp[SGD_BATCH], bb[SGD_BATCH];
+#pragma unroll
+  for (int k = 0; k < SGD_BATCH; ++k) {
+    const long long j = base + 4LL * (threadIdx.x + k * SGD_THREADS);
+    bb[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j + 4 <= n) {
+      uu[k] = load4<VU>(u + j);
+      pp[k] = load4<VPB>(p + j);
+      if (a.momentum && !fresh) bb[k] = load4<VPB>(b + j);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SGD_BATCH; ++k) {
+    const long long j = base + 4LL * (threadIdx.x + k * SGD_THREADS);
+    if (j + 4 <= n) {
+      sgd1(uu[k].x, pp[k].x, bb[k].x, fresh, a);
+      sgd1(uu[k].y, pp[k].y, bb[k].y, fresh, a);
+      sgd1(uu[k].z, pp[k].z, bb[k].z, fresh, a);
+      sgd1(uu[k].w, pp[k].w, bb[k].w, fresh, a);
+      if (VPB) {
+        *reinterpret_cast<float4*>(p + j) = pp[k];
+        if (a.momentum) *reinterpret_cast<float4*>(b + j) = bb[k];
+      } else {
+        const float pv[4] = {pp[k].x, pp[k].y, pp[k].z, pp[k].w};
+        const float bv[4] = {bb[k].x, bb[k].y, bb[k].z, bb[k].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[j + e] = pv[e];
+          if (a.momentum) b[j + e] = bv[e];
+        }
+      }
+    } else {
+      for (long long e = j; e < n; ++e) {  // the leaf's last n % 4
+        float pe = p[e];
+        float be = a.momentum && !fresh ? b[e] : 0.f;
+        sgd1(u[e], pe, be, fresh, a);
+        p[e] = pe;
+        if (a.momentum) b[e] = be;
+      }
+    }
+  }
+}
+
+// Tile `item` of a tiled leaf, p = [A][I][S] and u = [S][I][A]: j = i*S + s
+// indexes p's rows of B = I*S; u's row for j is (j % S)*I + j / S. A tile
+// is SGD_TILE_A a by SGD_TILE j; every load of the tile (u's rows, p's and
+// b's) is issued before the block waits at its barrier.
+__device__ __forceinline__ void sgd_tiled(const float* __restrict__ u,
+                                          float* __restrict__ p,
+                                          float* __restrict__ b, long long A,
+                                          long long I, long long S,
+                                          long long item, bool fresh,
+                                          const SgdArgs& a) {
+  constexpr int KU = SGD_TILE / SGD_TILE_ROWS;      // u rows a thread reads
+  constexpr int HA = SGD_TILE_A / SGD_TILE;         // 32-float parts a row
+  constexpr int KP = SGD_TILE_A / SGD_TILE_ROWS;    // p rows a thread takes
+  __shared__ float tile[SGD_TILE][SGD_TILE_A + 1];
+  const long long B = I * S;
+  const long long tiles_j = (B + SGD_TILE - 1) / SGD_TILE;
+  const long long a0 = item / tiles_j * SGD_TILE_A;
+  const long long j0 = item % tiles_j * SGD_TILE;
+  const int lane = threadIdx.x % SGD_TILE;
+  const int row = threadIdx.x / SGD_TILE;
+  // u's rows: a warp reads 32 consecutive a of one row j.
+  float ut[KU][HA];
+#pragma unroll
+  for (int k = 0; k < KU; ++k) {
+    const long long j = j0 + row + k * SGD_TILE_ROWS;
+    const long long ur = j < B ? ((j % S) * I + j / S) * A : 0;
+#pragma unroll
+    for (int h = 0; h < HA; ++h) {
+      const long long aa = a0 + lane + h * SGD_TILE;
+      ut[k][h] = j < B && aa < A ? u[ur + aa] : 0.f;
+    }
+  }
+  // p's and b's rows: a warp takes 32 consecutive j of one row a.
+  float pv[KP], bv[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const long long aa = a0 + row + k * SGD_TILE_ROWS;
+    const long long q = aa * B + j0 + lane;
+    const bool in = aa < A && j0 + lane < B;
+    pv[k] = in ? p[q] : 0.f;
+    bv[k] = in && a.momentum && !fresh ? b[q] : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < KU; ++k)
+#pragma unroll
+    for (int h = 0; h < HA; ++h)
+      tile[row + k * SGD_TILE_ROWS][lane + h * SGD_TILE] = ut[k][h];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const long long aa = a0 + row + k * SGD_TILE_ROWS;
+    const long long q = aa * B + j0 + lane;
+    if (aa < A && j0 + lane < B) {
+      sgd1(tile[lane][row + k * SGD_TILE_ROWS], pv[k], bv[k], fresh, a);
+      p[q] = pv[k];
+      if (a.momentum) b[q] = bv[k];
+    }
+  }
+}
+
+// Item `item` of a strided leaf: an element at a time, its place in u from
+// p's dims (rank r) and their strides in u.
+__device__ __forceinline__ void sgd_strided(const float* __restrict__ u,
+                                            float* __restrict__ p,
+                                            float* __restrict__ b,
+                                            const long long* rec,
+                                            long long item, bool fresh,
+                                            const SgdArgs& a) {
+  const long long n = rec[SGD_NUMEL];
+  const int r = (int)rec[SGD_A];
+  for (int k = 0; k < 4 * SGD_BATCH; ++k) {
+    const long long q = item * SGD_ITEM + threadIdx.x + k * SGD_THREADS;
+    if (q >= n) break;
+    long long rest = q, f = 0;
+    for (int d = r - 1; d >= 0; --d) {
+      const long long dim = rec[SGD_DIMS + d];
+      f += rest % dim * rec[SGD_STRIDES + d];
+      rest /= dim;
+    }
+    float pe = p[q];
+    float be = a.momentum && !fresh ? b[q] : 0.f;
+    sgd1(u[f], pe, be, fresh, a);
+    p[q] = pe;
+    if (a.momentum) b[q] = be;
+  }
+}
+
+// One block an item. table: starts[0..leaves] (the first item of each leaf,
+// then the total), then one record of SGD_REC words a leaf.
+__global__ void __launch_bounds__(SGD_THREADS)
+sgd_apply_kernel(const float* __restrict__ u,
+                 const long long* __restrict__ table, int leaves,
+                 SgdArgs a) {
+  const long long w = blockIdx.x;
+  int lo = 0, hi = leaves;  // the leaf l with starts[l] <= w < starts[l + 1]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (table[mid] <= w)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  const long long* rec = table + leaves + 1 + (long long)lo * SGD_REC;
+  const long long item = w - table[lo];
+  const float* ul = u + rec[SGD_OFF];
+  float* p = reinterpret_cast<float*>(rec[SGD_P]);
+  float* b = reinterpret_cast<float*>(rec[SGD_B]);
+  const bool fresh = a.use_fresh && rec[SGD_FRESH];
+  switch ((int)rec[SGD_KIND]) {
+    case SGD_TILED:
+      sgd_tiled(ul, p, b, rec[SGD_A], rec[SGD_I], rec[SGD_S], item, fresh,
+                a);
+      break;
+    case SGD_IDENTITY: {
+      const bool vu = ((uintptr_t)ul & 15) == 0;
+      const bool vpb = (((uintptr_t)p | (uintptr_t)b) & 15) == 0;
+      const long long n = rec[SGD_NUMEL];
+      if (vu && vpb)
+        sgd_identity<true, true>(ul, p, b, n, item, fresh, a);
+      else if (vpb)
+        sgd_identity<false, true>(ul, p, b, n, item, fresh, a);
+      else
+        sgd_identity<false, false>(ul, p, b, n, item, fresh, a);
+      break;
+    }
+    default:
+      sgd_strided(ul, p, b, rec, item, fresh, a);
+  }
+}
+
 extern "C" {
 
 // counts[i] += #{j < n : v[j] >= thr[i]}; v = x, |x|, or |x + r| when r is
@@ -974,6 +1255,24 @@ int gtopk_threshold_apply(const float* g, const float* r, long long n,
                                                upd, acc, kept_tau, s);
   const cudaError_t last = cudaGetLastError();  // also clears e
   return (int)(e != cudaSuccess ? e : last);
+}
+
+// SGD's step from the flat update u over the `leaves` leaves of `table`
+// (on the device; see sgd_apply_kernel), `items` work items in all (the
+// table's last start), one block each. neg_lr, m and wd are the float32
+// scalars; momentum, nesterov, has_wd (SGD's weight_decay != 0) and
+// use_fresh (read the table's fresh flags) 0 or 1. Returns
+// cudaGetLastError().
+int gtopk_sgd_apply(const float* u, const long long* table, int leaves,
+                    long long items, float neg_lr, float m, float wd,
+                    int momentum, int nesterov, int has_wd, int use_fresh,
+                    void* stream) {
+  if (leaves < 1 || items < 1 || items > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const SgdArgs a = {neg_lr, m, wd, momentum, nesterov, has_wd, use_fresh};
+  sgd_apply_kernel<<<(unsigned)items, SGD_THREADS, 0, (cudaStream_t)stream>>>(
+      u, table, leaves, a);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Wrappers of the CUDA top-k kernels, each beside its plain PyTorch twin.
 
-Counterpart of ``gtopkssgd_tpu/ops/pallas_topk.py``. Five functions, four
+Counterpart of ``gtopkssgd_tpu/ops/pallas_topk.py``. Six functions, five
 kernels (``csrc/topk_kernels.cu``):
 
 * ``multi_threshold_count(mag, thr)`` -- ``counts[i] = #{j : mag[j] >=
@@ -21,6 +21,13 @@ kernels (``csrc/topk_kernels.cu``):
   tau in one pass: keep, residual, update, kept_tau (and acc) of acc =
   src (+ res_in). It ports no TPU kernel (XLA fuses these expressions); in
   plain PyTorch they are ten passes over the vector.
+* ``sgd_apply(update, leaves, bufs, ...)`` -- ``torch.optim.SGD``'s step
+  (weight decay, momentum, Nesterov) of every leaf from the flat update in
+  the reference's layout, each parameter and momentum buffer written in
+  place, in one launch over all leaves (``SgdLeaves`` holds the leaves and
+  their table). It ports no TPU kernel (XLA fuses optax's
+  ``add_decayed_weights`` + ``sgd``); in plain PyTorch it is a strided copy
+  a leaf and four foreach passes.
 
 ``launch_floor(device)`` launches an empty kernel through the same route:
 what a launch costs with no work in it.
@@ -53,7 +60,8 @@ raises on a NaN and every index stays in range:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +71,13 @@ LANES = 128
 BLOCK = BLOCK_ROWS * LANES
 ROUNDS = 4
 MULTISECTION_SCRATCH = 1024  # floats: one per block, one block per SM
+# The SGD apply's work items and leaf table (csrc: SGD_*).
+SGD_TILE = 32
+SGD_TILE_A = 64
+SGD_ITEM = 4096
+SGD_MAX_RANK = 8
+SGD_REC = 9 + 2 * SGD_MAX_RANK
+SGD_IDENTITY, SGD_TILED, SGD_STRIDED = 0, 1, 2
 
 CountFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -74,6 +89,7 @@ launches: Dict[str, int] = {
     "multisection_tau_lo[abs]": 0,
     "multisection_tau_lo[residual]": 0,
     "threshold_apply": 0,
+    "sgd_apply": 0,
 }
 
 
@@ -160,6 +176,166 @@ def threshold_apply_ref(
     residual = torch.where(keep, torch.zeros_like(acc), acc)
     return keep, residual, acc - residual, kept_tau, (acc if want_acc
                                                       else None)
+
+
+def sgd_leaf_shape(shape: Sequence[int], perm: Sequence[int]):
+    """How the SGD apply walks a leaf of `shape` whose segment of the flat
+    vector is ``permute(perm)`` of it: size-1 axes dropped, axes that stay
+    adjacent and in order merged, the leaf is (SGD_IDENTITY, ()), or
+    (SGD_TILED, (A, I, S)) for p = [A][I][S] laid out as [S][I][A] (a
+    dense weight's (1, 0): S = 1; a convolution's (2, 3, 1, 0): S = H*W),
+    else (SGD_STRIDED, (dims, strides)): p's merged dims and the stride of
+    each in the flat segment."""
+    kept = [a for a in range(len(shape)) if shape[a] != 1]
+    rank = {a: i for i, a in enumerate(kept)}
+    groups: List[List[int]] = []  # the merged axes, in the flat order
+    for a in (rank[a] for a in perm if shape[a] != 1):
+        if groups and groups[-1][-1] + 1 == a:
+            groups[-1].append(a)
+        else:
+            groups.append([a])
+    sizes = [math.prod(shape[kept[a]] for a in g) for g in groups]
+    # Each group's place in p's order, in the flat order.
+    order = sorted(range(len(groups)), key=lambda k: groups[k][0])
+    place = [order.index(k) for k in range(len(groups))]
+    dims = [sizes[k] for k in order]
+    if len(groups) <= 1:
+        return SGD_IDENTITY, ()
+    if place == [1, 0]:
+        return SGD_TILED, (dims[0], dims[1], 1)
+    if place == [2, 1, 0]:
+        return SGD_TILED, tuple(dims)
+    if len(groups) > SGD_MAX_RANK:
+        raise ValueError(f"sgd_apply takes at most {SGD_MAX_RANK} merged "
+                         f"axes, not {len(groups)} (shape {tuple(shape)}, "
+                         f"perm {tuple(perm)})")
+    flat_strides = [math.prod(sizes[k + 1:]) for k in range(len(groups))]
+    return SGD_STRIDED, (tuple(dims), tuple(flat_strides[k] for k in order))
+
+
+def _sgd_items(numel: int, kind: int, arg) -> int:
+    """The SGD apply's work items (blocks) for one leaf."""
+    if kind == SGD_TILED:
+        a, i, s = arg
+        return -(-a // SGD_TILE_A) * -(-(i * s) // SGD_TILE)
+    return -(-numel // SGD_ITEM)
+
+
+class SgdLeaves:
+    """The leaves that ``sgd_apply`` updates: each parameter, the
+    permutation that lays it out in the flat update
+    (``p.permute(perm)``, flattened) and its offset there. On a CUDA
+    device it also keeps the leaf table of the last launch (offsets,
+    parameter and buffer addresses, kinds, shapes, fresh flags, each
+    leaf's first work item), reused while every address holds."""
+
+    def __init__(self, params: Sequence[torch.Tensor],
+                 perms: Sequence[Sequence[int]], offsets: Sequence[int]):
+        self.params = list(params)
+        self.perms = [tuple(perm) for perm in perms]
+        self.offsets = [int(o) for o in offsets]
+        self.n = (self.offsets[-1] + self.params[-1].numel()
+                  if self.params else 0)
+        self.kinds = [sgd_leaf_shape(tuple(p.shape), perm)
+                      for p, perm in zip(self.params, self.perms)]
+        self.starts = [0]
+        for p, (kind, arg) in zip(self.params, self.kinds):
+            self.starts.append(self.starts[-1]
+                               + _sgd_items(p.numel(), kind, arg))
+        self.table: Optional[torch.Tensor] = None
+        self._key = self._fresh = None
+
+    def _words(self, bufs: Optional[Sequence[torch.Tensor]],
+              fresh: Sequence[bool]) -> List[int]:
+        """The leaf table's int64 words: the leaves' first items and the
+        total, then a record of SGD_REC words a leaf (csrc: SGD_OFF ...)."""
+        out = list(self.starts)
+        for i, (p, (kind, arg)) in enumerate(zip(self.params, self.kinds)):
+            rec = [0] * SGD_REC
+            rec[:6] = [self.offsets[i], p.data_ptr(),
+                       0 if bufs is None else bufs[i].data_ptr(), kind,
+                       int(fresh[i]), p.numel()]
+            if kind == SGD_TILED:
+                rec[6:9] = arg
+            elif kind == SGD_STRIDED:
+                dims, strides = arg
+                rec[6] = len(dims)
+                rec[9:9 + len(dims)] = dims
+                rec[9 + SGD_MAX_RANK:9 + SGD_MAX_RANK + len(dims)] = strides
+            out += rec
+        return out
+
+    def table_for(self, bufs: Optional[Sequence[torch.Tensor]],
+                  fresh: Sequence[bool],
+                  device: torch.device) -> torch.Tensor:
+        """The leaf table for these buffers, on `device`: the last one
+        while every address holds (and, on a step with a fresh leaf, the
+        fresh flags too), else rebuilt, in place where it fits. A rebuild
+        copies from the host, which a CUDA graph's capture refuses: build
+        it on an eager step first."""
+        key = (device, tuple(p.data_ptr() for p in self.params),
+               None if bufs is None else tuple(b.data_ptr() for b in bufs))
+        fresh = tuple(bool(f) for f in fresh)
+        if (self.table is not None and key == self._key
+                and (not any(fresh) or fresh == self._fresh)):
+            return self.table
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "sgd_apply: the leaf table changed (a parameter or momentum "
+                "buffer moved, or a buffer is new) while a CUDA graph "
+                "captures; run one eager step first")
+        words = torch.tensor(self._words(bufs, fresh), dtype=torch.int64)
+        if self.table is not None and self.table.device == device and (
+                self.table.numel() == words.numel()):
+            self.table.copy_(words)
+        else:
+            self.table = words.to(device)
+        self._key, self._fresh = key, fresh
+        return self.table
+
+
+def _momentum_buffers(leaves: SgdLeaves,
+                      bufs: Optional[Sequence[Optional[torch.Tensor]]],
+                      momentum: float):
+    """(bufs, fresh): each missing momentum buffer allocated (as SGD's
+    clone of the gradient is laid out), and which were missing; (None,
+    all False) without momentum."""
+    if not momentum:
+        return None, [False] * len(leaves.params)
+    fresh = [b is None for b in bufs]
+    return [torch.empty_like(p, memory_format=torch.contiguous_format)
+            if b is None else b for p, b in zip(leaves.params, bufs)], fresh
+
+
+def sgd_apply_ref(
+    update: torch.Tensor, leaves: SgdLeaves,
+    bufs: Optional[Sequence[Optional[torch.Tensor]]], *, lr: float,
+    momentum: float, weight_decay: float, nesterov: bool,
+) -> Optional[List[torch.Tensor]]:
+    """``torch.optim.SGD``'s step (dampening 0, no maximize) of each leaf,
+    its gradient read from the flat `update`, the parameters and the
+    momentum buffers `bufs` (None without momentum; an entry None: the
+    leaf's first step) written in place; returns the buffers. The
+    operations of SGD's single-tensor step, in its order, each on a
+    contiguous tensor shaped like the parameter: bitwise SGD's step after
+    the update is copied into the parameters' ``.grad``."""
+    bufs, fresh = _momentum_buffers(leaves, bufs, momentum)
+    for i, (p, perm, off) in enumerate(zip(leaves.params, leaves.perms,
+                                           leaves.offsets)):
+        inv = sorted(range(len(perm)), key=perm.__getitem__)
+        seg = update[off:off + p.numel()].view([p.shape[a] for a in perm])
+        g = seg.permute(inv).contiguous()
+        if weight_decay != 0:
+            g = g.add(p, alpha=weight_decay)
+        if momentum:
+            b = bufs[i]
+            if fresh[i]:
+                b.copy_(g)
+            else:
+                b.mul_(momentum).add_(g, alpha=1)
+            g = g.add(b, alpha=momentum) if nesterov else b
+        p.add_(g, alpha=-lr)
+    return bufs
 
 
 def fused_stage1_candidates_ref(
@@ -424,3 +600,52 @@ def threshold_apply(
     # +inf (nothing kept, or only infinities) -> 0, the twin's isfinite
     # rule in one launch: the word is never NaN or -inf.
     return keep, residual, update, kept_tau.nan_to_num(posinf=0.0), acc
+
+
+def sgd_apply(
+    update: torch.Tensor, leaves: SgdLeaves,
+    bufs: Optional[Sequence[Optional[torch.Tensor]]], *, lr: float,
+    momentum: float, weight_decay: float, nesterov: bool,
+) -> Optional[List[torch.Tensor]]:
+    """What `sgd_apply_ref` gives, bitwise, in one launch over every leaf:
+    the update, each parameter and each momentum buffer read once, the
+    parameters and buffers written once, in place; a missing buffer is
+    allocated here and its leaf taken as fresh (b = g). lr, momentum and
+    weight decay are launch constants, the table a device tensor reused
+    while the addresses hold (``SgdLeaves.table_for``), so a CUDA graph
+    captures the launch with no host copy or sync."""
+    if update.device.type == "cpu":
+        return sgd_apply_ref(update, leaves, bufs, lr=lr, momentum=momentum,
+                             weight_decay=weight_decay, nesterov=nesterov)
+    from gtopkssgd_tpu_torch.ops import _build
+
+    device = update.device
+    _check("update", update, torch.float32, device, leaves.n)
+    bufs, fresh = _momentum_buffers(leaves, bufs, momentum)
+    for i, p in enumerate(leaves.params):
+        for name, t in (("param", p),
+                        ("momentum buffer", None if bufs is None
+                         else bufs[i])):
+            if t is None:
+                continue
+            if t.device != device or t.dtype != torch.float32:
+                raise TypeError(f"sgd_apply: {name} {i} is {t.dtype} on "
+                                f"{t.device}, expected float32 on {device}")
+            if not t.is_contiguous() or t.shape != p.shape:
+                raise ValueError(f"sgd_apply: {name} {i} must be contiguous "
+                                 f"and shaped {tuple(p.shape)}")
+    items = leaves.starts[-1]
+    if items >= 2**31:
+        raise ValueError(f"sgd_apply: {items} work items overflow the grid")
+    if items == 0:
+        return bufs
+    lib = _build.load()
+    with torch.cuda.device(device):  # the launch uses the current context
+        table = leaves.table_for(bufs, fresh, device)
+        rc = lib.gtopk_sgd_apply(
+            update.data_ptr(), table.data_ptr(), len(leaves.params), items,
+            -lr, momentum, weight_decay, int(momentum != 0), int(nesterov),
+            int(weight_decay != 0), 1 if any(fresh) else 0, _stream(device))
+    _raise_on(rc, "sgd_apply")
+    launches["sgd_apply"] += 1
+    return bufs

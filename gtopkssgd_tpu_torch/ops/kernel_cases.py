@@ -7,8 +7,12 @@ views one float into their buffers, equal maxima of opposite signs in rows
 that different warps read, and NaNs; ``stage1_mismatch`` compares the
 kernel's candidates and counts with its twin's on one of them.
 ``apply_cases`` (labels APPLY_CASES, special values from ``apply_input``)
-are the threshold apply's, compared by ``apply_mismatch``. ``same_bits``
-compares two tensors bit for bit.
+are the threshold apply's, compared by ``apply_mismatch``. ``sgd_cases``
+(a layout of every leaf kind, ``SGD_EDGE_LEAVES``, under every
+``SGD_HYPERS`` and buffer state) and ``sgd_case`` at a model's layout
+(``model_leaves``) are the SGD apply's, compared by ``sgd_mismatch`` with
+the path it replaced (``sgd_parent``). ``same_bits`` compares two tensors
+bit for bit.
 
 The CPU tests build these cases on the CPU, where the wrappers run the
 twins; the card tests and ``chip_smoke.py`` build them on the card and
@@ -17,7 +21,7 @@ compare kernel against twin. The package itself does not import this module.
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -261,4 +265,164 @@ def stage1_mismatch(g: torch.Tensor, r: Optional[torch.Tensor],
                 counts = "off" if t is None else "on"
                 return (f"{name} differ (counts {counts}) at {at}: "
                         f"{a[at].tolist()} vs twin {b[at].tolist()}")
+    return None
+
+
+# (shape, perm) of each leaf of the SGD apply's edge layout, in flat order:
+# an aligned identity leaf of two items, a convolution of 11 x 11 windows,
+# ragged tiles, a 1 x 1 convolution, dense weights, 1-element leaves and
+# odd sizes that move the later offsets off multiples of 4, an embedding,
+# a permutation that merges into a transpose and two that stay strided.
+SGD_EDGE_LEAVES = (
+    ((8200,), (0,)), ((64, 3, 11, 11), (2, 3, 1, 0)),
+    ((37, 5, 3, 3), (2, 3, 1, 0)), ((3,), (0,)),
+    ((48, 33, 1, 1), (2, 3, 1, 0)), ((70, 45), (1, 0)), ((1, 1), (1, 0)),
+    ((1,), (0,)), ((4099,), (0,)), ((11, 830), (0, 1)),
+    ((6, 4, 5), (2, 0, 1)), ((5, 6, 7), (1, 0, 2)), ((3, 4, 5), (0, 2, 1)),
+    ((33, 64), (1, 0)),
+)
+# SGD's hyperparameters as the port sets them: momentum with and without
+# weight decay and Nesterov, and momentum 0 (momentum correction).
+SGD_HYPERS = (
+    dict(lr=0.1, momentum=0.9, weight_decay=1e-4, nesterov=False),
+    dict(lr=0.0123, momentum=0.9, weight_decay=0.0, nesterov=False),
+    dict(lr=0.05, momentum=0.9, weight_decay=5e-4, nesterov=True),
+    dict(lr=0.1, momentum=0.9, weight_decay=0.0, nesterov=True),
+    dict(lr=0.1, momentum=0.0, weight_decay=1e-4, nesterov=False),
+    dict(lr=0.01, momentum=0.0, weight_decay=0.0, nesterov=False),
+)
+# Momentum buffers before the step: all there, none (the first step), or
+# every third leaf's missing (a snapshot's restore dropped them).
+SGD_BUFFERS = ("all", "none", "some")
+
+
+def model_leaves(dnn: str, config: Optional[dict] = None
+                 ) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """(shape, perm) of each leaf of `dnn`'s flat layout (the model built on
+    the meta device; a language model from `config`)."""
+    from gtopkssgd_tpu_torch.convert import flat_layout
+    from gtopkssgd_tpu_torch.models import get_model
+
+    with torch.device("meta"):
+        model, _ = get_model(dnn, config=config)
+    lay = flat_layout(model)
+    return [(tuple(p.shape), perm) for p, perm in zip(lay.params, lay.perms)]
+
+
+def sgd_case(leaves: Sequence[Tuple[Sequence[int], Sequence[int]]],
+             device: torch.device | str, seed: int = 0,
+             buffers: str = "all", specials: bool = False) -> Dict:
+    """Inputs of the SGD apply over the layout `leaves`: {"update",
+    "params", "perms", "bufs"}, normal draws made on `device`; `buffers`
+    one of SGD_BUFFERS; with `specials`, NaN, -NaN, +-inf, +-0.0 and a
+    subnormal at the front of each leaf's update, parameter and buffer."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale):
+        return scale * torch.randn(shape, device=device, generator=gen)
+
+    params = [draw(shape, 0.05) for shape, _ in leaves]
+    n = sum(p.numel() for p in params)
+    update = draw((n,), 0.01)
+    bufs = [draw(p.shape, 0.02) if buffers == "all"
+            or (buffers == "some" and i % 3) else None
+            for i, p in enumerate(params)]
+    if specials:
+        vals = torch.tensor([np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0,
+                             1e-40], dtype=torch.float32, device=device)
+        off = 0
+        for i, p in enumerate(params):
+            m = min(p.numel(), vals.numel())
+            k = (i % vals.numel())  # another special in each leaf's first
+            rolled = torch.roll(vals, k)[:m]
+            update[off:off + m] = rolled
+            p.view(-1)[:m] = torch.roll(vals, k + 2)[:m]
+            if bufs[i] is not None:
+                bufs[i].view(-1)[:m] = torch.roll(vals, k + 4)[:m]
+            off += p.numel()
+    return {"update": update, "params": params,
+            "perms": [tuple(perm) for _, perm in leaves], "bufs": bufs}
+
+
+def sgd_case_specs() -> List[Tuple[str, int, str, bool]]:
+    """(label, index into SGD_HYPERS, buffers, specials) of each of
+    ``sgd_cases``: every SGD_HYPERS under every SGD_BUFFERS (momentum 0
+    has no buffers), with and without special values."""
+    return [(f"{hyper} buffers {buffers}{' specials' if specials else ''}",
+             h, buffers, specials)
+            for h, hyper in enumerate(SGD_HYPERS)
+            for buffers in (SGD_BUFFERS if hyper["momentum"] else ("all",))
+            for specials in (False, True)]
+
+
+def sgd_cases(device: torch.device | str, seed: int = 0,
+              specs: Optional[Sequence] = None
+              ) -> Iterator[Tuple[str, Dict, Dict]]:
+    """(label, case, hyper) over the edge layout for each of `specs`
+    (default: every ``sgd_case_specs``)."""
+    for label, h, buffers, specials in specs or sgd_case_specs():
+        yield (label, sgd_case(SGD_EDGE_LEAVES, device, seed + h, buffers,
+                               specials), SGD_HYPERS[h])
+
+
+def flat_offsets(params: Sequence[torch.Tensor]) -> List[int]:
+    """Each tensor's offset in a flat vector that holds them back to
+    back."""
+    out, off = [], 0
+    for p in params:
+        out.append(off)
+        off += p.numel()
+    return out
+
+
+def sgd_parent(case: Dict, hyper: Dict
+               ) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+    """The path the SGD apply replaced, on copies of the case's tensors:
+    the update copied into each parameter's ``.grad`` (``FlatLayout.
+    unravel_into``), then one ``torch.optim.SGD`` step (its foreach step
+    on a CUDA device). Returns the parameters and momentum buffers."""
+    from gtopkssgd_tpu_torch.optimizer import FlatLayout
+
+    params = [torch.nn.Parameter(p.detach().clone()) for p in case["params"]]
+    lay = FlatLayout(list(zip(params, case["perms"])))
+    for p in params:
+        p.grad = torch.empty_like(p)
+    lay.unravel_into(case["update"], [p.grad for p in params])
+    opt = torch.optim.SGD(params, **hyper)
+    if hyper["momentum"]:
+        for p, b in zip(params, case["bufs"]):
+            if b is not None:
+                opt.state[p]["momentum_buffer"] = b.clone()
+    opt.step()
+    return ([p.detach() for p in params],
+            [opt.state[p].get("momentum_buffer") for p in params])
+
+
+def sgd_run(case: Dict, hyper: Dict):
+    """``cuda_topk.sgd_apply`` (the kernel on a CUDA device, the twin on
+    the CPU) on copies of the case's tensors; returns the parameters and
+    momentum buffers."""
+    params = [p.clone() for p in case["params"]]
+    leaves = cuda_topk.SgdLeaves(params, case["perms"], flat_offsets(params))
+    bufs = ([None if b is None else b.clone() for b in case["bufs"]]
+            if hyper["momentum"] else None)
+    bufs = cuda_topk.sgd_apply(case["update"], leaves, bufs, **hyper)
+    return params, (bufs if bufs is not None else [None] * len(params))
+
+
+def sgd_mismatch(case: Dict, hyper: Dict) -> Optional[str]:
+    """None when the SGD apply gives the parameters and momentum buffers
+    of ``sgd_parent`` bitwise (NaNs as bits); else what differs."""
+    got = sgd_run(case, hyper)
+    want = sgd_parent(case, hyper)
+    for name, gs, ws in zip(("param", "momentum buffer"), got, want):
+        for i, (a, b) in enumerate(zip(gs, ws)):
+            if (a is None) != (b is None):
+                return f"{name} {i}: one side is None"
+            if a is not None and not same_bits(a, b):
+                at = (bits(a) != bits(b)).reshape(-1).nonzero()[:4]
+                at = at.flatten().tolist()
+                return (f"{name} {i} {tuple(a.shape)} differs at {at}: "
+                        f"{a.reshape(-1)[at].tolist()} vs the parent path's "
+                        f"{b.reshape(-1)[at].tolist()}")
     return None

@@ -35,13 +35,18 @@ optimizer, its telemetry included. One step:
    scatter_add_dense(gidx, gvals) / P; the allgather modes: the update is
    the dense union / P, no repair; ``dense``: the update is the
    gradient, all-reduced and divided by P;
-5. unravel the update into the parameters' ``.grad`` and take one
-   ``torch.optim.SGD`` step: g + wd*p, then buf = momentum*buf + g (with
-   ``nesterov``, g + momentum*buf is applied), then p -= lr*buf -- the
-   arithmetic of the JAX package's ``add_decayed_weights(wd)`` +
-   ``sgd(momentum, nesterov)`` chain, applied to every parameter,
-   BatchNorm scale and bias included. Under momentum correction the SGD
-   step runs with no momentum (the velocity lives before the exchange).
+5. take one ``torch.optim.SGD`` step with the update as the gradient,
+   read from the flat update where each leaf lies in it: g + wd*p, then
+   buf = momentum*buf + g (with ``nesterov``, g + momentum*buf is
+   applied), then p -= lr*buf -- the arithmetic of the JAX package's
+   ``add_decayed_weights(wd)`` + ``sgd(momentum, nesterov)`` chain,
+   applied to every parameter, BatchNorm scale and bias included. It is
+   ``ops.cuda_topk.sgd_apply``: one launch over every leaf on a CUDA
+   device, bitwise SGD's own step there, and SGD's operations leaf by
+   leaf on the CPU; the parameters and momentum buffers are written in
+   place and ``.grad`` keeps the backward's gradient. Under momentum
+   correction the SGD step runs with no momentum (the velocity lives
+   before the exchange).
 
 ``gtopk_layerwise`` selects per leaf (a leaf is an entry of the layout):
 k_l = ceil(density * n_l), the clip's norm summed over the leaves. Under
@@ -77,9 +82,9 @@ dense) is decided once at construction (``plan_decision``), priced with
 the comm-model fit (``comm_model_fit``, a path, or the fit committed with
 the port for the process group's backend: gloo or NCCL).
 
-Each unit's selection runs in a ``torch.profiler`` range "select" and
-each gradient exchange in a range "exchange" (``profile_step`` reads
-them).
+Each unit's selection runs in a ``torch.profiler`` range "select", each
+gradient exchange in a range "exchange" (``profile_step`` reads them) and
+the SGD step in a range "sgd".
 
 The residual and the step count live in the optimizer's ``state`` (keys
 "residual" and "count"; under momentum correction the residual is
@@ -132,6 +137,7 @@ from gtopkssgd_tpu_torch.ops import (
     scatter_add_dense,
     select_topk,
 )
+from gtopkssgd_tpu_torch.ops.cuda_topk import SgdLeaves, sgd_apply
 from gtopkssgd_tpu_torch.ops.topk import _method
 from gtopkssgd_tpu_torch.parallel.bucketing import (
     buckets_key,
@@ -424,6 +430,8 @@ class GTopKSGD(torch.optim.SGD):
         self.layout = layout or FlatLayout.identity(params)
         if {id(p) for p in self.layout.params} != {id(p) for p in params}:
             raise ValueError("layout does not cover exactly these params")
+        self._leaves = SgdLeaves(self.layout.params, self.layout.perms,
+                                 self.layout.offsets)
         self.compressor = get_compressor(mode, density, topk_method)
         self.mode = mode
         self.clip_grad_norm = clip_grad_norm
@@ -976,14 +984,46 @@ class GTopKSGD(torch.optim.SGD):
         lay = self.layout
         flat = lay.ravel([p.grad for p in lay.params], out=self.flat_grad)
         update = self.compress(flat)
-        for p in lay.params:
-            if p.grad is None:
-                p.grad = torch.empty_like(p)
-        lay.unravel_into(update, [p.grad for p in lay.params])
         if self.schedule is not None:
             lr = float(self.schedule(self.state["count"]))
             for group in self.param_groups:
                 group["lr"] = lr
-        super().step()
+        self._sgd(update)
         self.state["count"] += 1
         return loss
+
+    @torch.no_grad()
+    def _sgd(self, update: torch.Tensor) -> None:
+        """SGD's step with `update` (flat, in the layout's order) as the
+        gradient, its hyperparameters read from ``param_groups[0]``; the
+        momentum buffers stay SGD's ``state[p]["momentum_buffer"]``."""
+        group = self.param_groups[0]
+        if group["dampening"] or group["maximize"]:
+            raise ValueError("GTopKSGD's SGD step takes neither dampening "
+                             "nor maximize")
+        with record_function("sgd"):
+            bufs = sgd_apply(update, self._leaves, self._momentum_buffers(),
+                             lr=group["lr"], momentum=group["momentum"],
+                             weight_decay=group["weight_decay"],
+                             nesterov=group["nesterov"])
+        for p, b in zip(self.layout.params, bufs or ()):
+            self.state[p]["momentum_buffer"] = b
+
+    def _momentum_buffers(self) -> Optional[List[Optional[torch.Tensor]]]:
+        """SGD's momentum buffer of each leaf (None where it has none yet),
+        or None without momentum."""
+        if not self.param_groups[0]["momentum"]:
+            return None
+        return [self.state.get(p, {}).get("momentum_buffer")
+                for p in self.layout.params]
+
+    def prepare_capture(self) -> None:
+        """Make the SGD step's leaf table hold the parameters' and momentum
+        buffers' present addresses before a CUDA graph captures a step:
+        building it copies from the host, which a capture refuses, and a
+        restored checkpoint's buffers are new tensors. Nothing to do on
+        the CPU, or while a buffer is missing (such a step runs eagerly)."""
+        params, bufs = self.layout.params, self._momentum_buffers()
+        if params[0].is_cuda and not (bufs and None in bufs):
+            self._leaves.table_for(bufs, [False] * len(params),
+                                   params[0].device)

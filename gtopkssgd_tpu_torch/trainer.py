@@ -1322,11 +1322,13 @@ class Trainer:
         SGD) reading static input buffers, and writes the state it
         replaces (residual, the PTB carry) back into the buffers it read,
         so each replay continues from the last. SGD's lr enters the graph
-        as the constant it is: ``torch.optim.SGD`` reads a tensor lr back
-        to the host (``_to_scalar``, a sync), and its fused kernel rounds
-        differently from the foreach path, so the update keeps the eager
-        step's arithmetic and a graph is captured anew when the schedule's
-        lr changes (the step schedules change it at a few epoch boundaries).
+        as the constant it is, a launch constant of the SGD apply
+        (``ops.cuda_topk.sgd_apply``; a tensor lr would need a host read or
+        another rounding), so the update keeps the eager step's arithmetic
+        and a graph is captured anew when the schedule's lr changes (the
+        step schedules change it at a few epoch boundaries). The SGD
+        apply's leaf table is built before each capture
+        (``GTopKSGD.prepare_capture``).
         A step runs eagerly, not in the graph, below ``_eager_until()``
         (the dense warm-up's branch, the lr ramp) and while SGD has no
         momentum buffers yet (its first step makes them). The dropout
@@ -1399,6 +1401,7 @@ class Trainer:
         # The graph allocates from a pool of its own: hand the blocks the
         # eager steps left cached back to the card first.
         torch.cuda.empty_cache()
+        opt.prepare_capture()
         graph = torch.cuda.CUDAGraph()
         if self.dropout_generator is not None:
             graph.register_generator_state(self.dropout_generator)

@@ -147,8 +147,9 @@ def test_graph_dispatch_equals_eager_steps_on_card(method, steps, captures):
     """On a CUDA card, under deterministic algorithms (cuDNN's default
     convolution backward is not): `steps` steps at K = 8 replay a
     captured graph and equal as many eager steps, bitwise; the selection
-    kernel is recorded once a capture and replayed at every step but the
-    first (eager: SGD makes its momentum buffers). Batch 32, max_epochs
+    kernel, the threshold apply and the SGD apply are recorded once a
+    capture and replayed at every step but the first (eager: SGD makes
+    its momentum buffers). Batch 32, max_epochs
     2: an epoch is 64 steps and the cifar10 schedule cuts the lr at step
     64, so 80 steps capture a second graph there. chip_smoke.py phase 11d
     runs the first two at full batch."""
@@ -182,11 +183,15 @@ def test_graph_dispatch_equals_eager_steps_on_card(method, steps, captures):
     kernel = {"twostage": "fused_stage1_candidates",
               "pallas": "multisection_tau_lo[residual]"}[method]
     assert stats["replays"] == steps - 1 and stats["captures"] == captures
-    # the selection's kernel and the threshold apply, once a step each
+    # the selection's kernel, the threshold apply and the SGD apply, once
+    # a step each
     assert stats["captured"] == {kernel: captures,
-                                 "threshold_apply": captures}
+                                 "threshold_apply": captures,
+                                 "sgd_apply": captures}
     assert stats["replayed"] == {kernel: steps - 1,
-                                 "threshold_apply": steps - 1}
+                                 "threshold_apply": steps - 1,
+                                 "sgd_apply": steps - 1}
     # the first step's launch and one a record
     assert cuda_topk.launches[kernel] == 1 + captures
     assert cuda_topk.launches["threshold_apply"] == 1 + captures
+    assert cuda_topk.launches["sgd_apply"] == 1 + captures
